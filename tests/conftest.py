@@ -106,6 +106,12 @@ except ImportError:
     _install_hypothesis_shim()
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips inside the test body "
+        "on a host without one")
+
+
 def run_in_subprocess(code: str, devices: int = 8, timeout: int = 600) -> str:
     """Run a python snippet with N forced host devices (the parent process
     keeps its single device, per the dry-run isolation rule)."""
