@@ -1,19 +1,21 @@
 """Attention: GQA + RoPE (+ qk-norm), port of ``repro.models.attention``.
 
-Prefill attention goes through :func:`repro_torch.kernels.flash_attention.
-ops.flash_attention`: the CUDA kernel on the card, its plain version on the
-CPU. Decode attends one query against the KV cache in plain torch, as the
-JAX package does in plain jnp.
+Prefill and training attention go through the flash-attention kernels of
+:mod:`repro_torch.kernels.flash_attention.ops` (the CUDA kernels on the
+card, their plain versions on the CPU); training differentiates through
+them with :class:`~repro_torch.kernels.flash_attention.ops.FlashAttention`.
+Decode attends one query against the KV cache in plain torch, as the JAX
+package does in plain jnp.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from ..configs.base import ModelConfig
-from ..kernels.flash_attention.ops import flash_attention
+from ..kernels.flash_attention.ops import FlashAttention, flash_attention
 from .common import ParamSpec, apply_rope, rms_norm
 
 NEG_INF = -2.0e38
@@ -71,11 +73,12 @@ def attn_apply(
     x: torch.Tensor,                   # (B, T, E)
     cfg: ModelConfig,
     pos: int,                          # first position of x
-    cache: Dict[str, torch.Tensor],
-    mode: str = "prefill",             # prefill | decode
+    cache: Optional[Dict[str, torch.Tensor]],
+    mode: str = "prefill",             # train | prefill | decode
 ) -> torch.Tensor:
-    """Self-attention sublayer; writes this call's keys and values into
-    ``cache`` and returns the sublayer output.
+    """Self-attention sublayer; returns the sublayer output. Prefill and
+    decode write this call's keys and values into ``cache``; train uses
+    no cache and is differentiable.
 
     The cache ({"k", "v": (B, S, K, D), "pos": (S,) int32, -1 = empty}) is
     preallocated to its full serving length and updated in place, where
@@ -96,7 +99,11 @@ def attn_apply(
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
-    if mode == "decode":
+    if mode == "train":
+        if pos != 0:
+            raise ValueError("train starts at position 0")
+        out, _lse = FlashAttention.apply(q, k, v, True, None)
+    elif mode == "decode":
         S = cache["k"].shape[1]
         slot = min(pos, S - 1)
         cache["k"][:, slot] = k[:, 0]

@@ -4,7 +4,7 @@ This slice ports the dense path: ``mixer="attn"`` with ``ffn="mlp"``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -66,9 +66,10 @@ def block_specs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:
 
 
 def block_apply(params, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
-                pos: int, cache: Dict[str, torch.Tensor],
+                pos: int, cache: Optional[Dict[str, torch.Tensor]],
                 mode: str = "prefill") -> torch.Tensor:
-    """Pre-norm attention + pre-norm MLP, each with a residual."""
+    """Pre-norm attention + pre-norm MLP, each with a residual. ``mode``
+    (train | prefill | decode) and ``cache`` go to the attention."""
     h = rms_norm(x, params["norm_mixer"], cfg.norm_eps)
     x = x + attention.attn_apply(params["mixer"], h, cfg, pos, cache,
                                  mode=mode)

@@ -35,12 +35,17 @@ class ParamSpec:
 SpecTree = Dict[str, Any]           # nested dicts of ParamSpec
 
 
-def param_dtype(spec: ParamSpec, compute: torch.dtype) -> torch.dtype:
-    """Matrices are stored in the compute dtype; 1-D scales (norms) stay
-    f32, as ``repro.models.model._cast`` leaves them."""
+def param_dtype(spec: ParamSpec, compute: torch.dtype,
+                trainable: bool = False) -> torch.dtype:
+    """Trainable (master) weights are f32, as ``init_params`` makes them.
+    Inference-only weights store matrices in the compute dtype and keep
+    1-D scales (norms) in f32, as ``repro.models.model._cast`` leaves
+    them."""
     if spec.dtype is not None:
         return spec.dtype
-    return torch.float32 if len(spec.shape) <= 1 else compute
+    if trainable or len(spec.shape) <= 1:
+        return torch.float32
+    return compute
 
 
 class SpecModule(nn.Module):
@@ -49,18 +54,38 @@ class SpecModule(nn.Module):
     reads a parameter or child by its spec name."""
 
     def __init__(self, specs: SpecTree, compute: torch.dtype,
-                 device: torch.device):
+                 device: torch.device, trainable: bool = False):
         super().__init__()
         for name, spec in specs.items():
             if isinstance(spec, ParamSpec):
                 self.register_parameter(name, nn.Parameter(torch.empty(
-                    spec.shape, dtype=param_dtype(spec, compute),
-                    device=device), requires_grad=False))
+                    spec.shape, dtype=param_dtype(spec, compute, trainable),
+                    device=device), requires_grad=trainable))
             else:
-                self.add_module(name, SpecModule(spec, compute, device))
+                self.add_module(name, SpecModule(spec, compute, device,
+                                                 trainable))
 
     def __getitem__(self, name: str):
         return getattr(self, name)
+
+
+# parameters that stay f32 in compute (routing / SSM dynamics / gate logits)
+_KEEP_F32 = ("router", "A_log", "D", "w_if", "b_if", "dt_w", "dt_b")
+
+
+def cast_params(module: nn.Module, dtype: torch.dtype) -> Dict[str, Any]:
+    """The compute view of a module's parameters (``model._cast``): a nested
+    dict by spec name in which f32 matrices are cast to ``dtype``; 1-D
+    tensors, other dtypes and ``_KEEP_F32`` names are the parameters
+    themselves. The cast is differentiable, so gradients reach the f32
+    master weights in f32."""
+    out: Dict[str, Any] = {}
+    for name, p in module.named_parameters(recurse=False):
+        keep = name in _KEEP_F32 or p.dim() <= 1 or p.dtype != torch.float32
+        out[name] = p if keep else p.to(dtype)
+    for name, child in module.named_children():
+        out[name] = cast_params(child, dtype)
+    return out
 
 
 def init_param_(p: torch.Tensor, spec: ParamSpec, gen: torch.Generator) -> None:
