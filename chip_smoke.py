@@ -5,8 +5,9 @@
 
 Phases, each of which fails the run (non-zero exit, no final line):
   1. the card: name, count, power limit (nvidia-smi);
-  2. build the CUDA flash-attention kernels (forward; backward dq and
-     dk/dv) from this checkout's sources, one nvcc per source, in parallel;
+  2. build the CUDA kernels (flash-attention forward; backward dq and
+     dk/dv; selective scan) from this checkout's sources, one nvcc per
+     source, in parallel;
   3. hold the forward kernel to its plain PyTorch version on the card: the
      yi-6b serving shape (B=4, T=1024, H=32, K=4, D=128, bf16, causal), a
      ragged length, a window, non-causal, and f32 at D=64;
@@ -30,7 +31,19 @@ Phases, each of which fails the run (non-zero exit, no final line):
      compute, f32 master weights, full remat, AdamW) and check the kernel
      launches of every step: 2 forward (the forward and the remat
      recompute), 1 dq and 1 dk/dv per layer;
- 10. print one JSON line with every ported kernel, then the result line.
+ 10. hold the selective-scan kernel to its plain PyTorch version on the
+     card: the jamba serving shape (B=4, T=1024, d_inner 8192, d_state 16,
+     x bf16, dt/B/C f32), a ragged length and width, f32, and all-bf16;
+ 11. time the scan kernel and its plain version at the serving shape, with
+     CUDA events; compute the least time the card could take;
+ 12. the port's jamba model on the card against the same model on the CPU:
+     full mixer width, one pattern group (8 layers), f32, with the MoE
+     expert width and the MLP width cut to 512;
+ 13. serve jamba-v0.1-52b at full width and 16 of its 32 layers through
+     ``repro_torch.launch.serve.generate`` (batch 4, prompt 1024, 32
+     generated tokens) and check that every mamba prefill went through the
+     scan kernel and every attention prefill through the flash kernel;
+ 14. print one JSON line with every ported kernel, then the result line.
 
 Exits non-zero without a result line when no CUDA card is present or the
 port is not beside this script.
@@ -45,9 +58,14 @@ import sys
 import time
 import traceback
 
-# published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores, HBM3
+# published H100 SXM peaks (NVIDIA data sheet): dense bf16 tensor cores,
+# f32 outside the tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# special-function unit (ex2) results per clock per SM, compute capability
+# 9.0 (CUDA C++ programming guide, arithmetic instruction throughput)
+SFU_PER_CLOCK_SM = 16
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = "src/repro_torch/kernels/flash_attention/csrc/"
@@ -56,6 +74,8 @@ BWD_SOURCE = CSRC + "flash_bwd.cu"
 TPU_KERNEL = "src/repro/kernels/flash_attention/kernel.py:90"
 TPU_DQ = "src/repro/kernels/flash_attention/kernel.py:223"
 TPU_DKV = "src/repro/kernels/flash_attention/kernel.py:241"
+SCAN_SOURCE = "src/repro_torch/kernels/mamba_scan/csrc/selective_scan.cu"
+TPU_SCAN = "src/repro/kernels/mamba_scan/kernel.py:49"
 OUT_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the JAX package's bounds
 LSE_TOL = 1e-3       # f32 on both sides, sums over up to 1024 keys
 MODEL_TOL = 1e-3     # f32 logits over 4096-wide sums, card vs CPU
@@ -65,6 +85,16 @@ GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 TRAIN_GRAD_TOL = 1e-3  # f32 train step card vs CPU, per gradient, relative
 TRAIN_LOSS_TOL = 1e-4  # f32 loss card vs CPU, absolute
 TRAIN_LAYERS = 8     # of yi-6b's 32: 16 B/param of f32 state must fit 80 GB
+# the scan's y against the plain version's f32 y: the JAX package's bounds
+# (tests/test_kernels_mamba.py) beyond the rounding of y to its dtype, at
+# most 2^-8 of |y| in bf16 (8 bits of mantissa) and 2^-24 in f32; |y|
+# reaches ~80 at the serving shape, where bf16 rounding alone is 0.25.
+# The final state is f32 on both sides.
+SCAN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+SCAN_ROUNDING = {"float32": 2.0 ** -24, "bfloat16": 2.0 ** -8}
+SCAN_STATE_TOL = 1e-4
+JAMBA_LAYERS = 16    # of jamba's 32: 52 GB of bf16 weights; 32 need ~103 GB
+JAMBA_CHECK_WIDTH = 512  # d_expert and d_ff of the card-vs-CPU jamba model
 
 
 def fail(msg: str) -> None:
@@ -123,22 +153,54 @@ def backward_bound_ms(B, T, S, H, K, D, causal, window, itemsize, peak):
 
 
 def ptxas_report(log: str):
-    """(kernel<dtype,D>, "N registers, spills") per instantiation, from the
-    ``-Xptxas -v`` report of a build."""
+    """(kernel<types,size>, "N registers, spills") per instantiation, from
+    the ``-Xptxas -v`` report of a build."""
     import re
 
+    types = {"f": "f32", "13__nv_bfloat16": "bf16"}
     entry, spills = "?", ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
+            entry = m.group(1)
             t = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)"
-                          r"I(f|13__nv_bfloat16)Li(\d+)E", m.group(1))
-            entry = (f"{t.group(1)}<{'f32' if t.group(2) == 'f' else 'bf16'},"
-                     f"{t.group(3)}>" if t else m.group(1))
+                          r"I(f|13__nv_bfloat16)Li(\d+)E", entry)
+            u = re.search(r"(selective_scan_kernel)I(f|13__nv_bfloat16)"
+                          r"(f|13__nv_bfloat16|S\d*_)Li(\d+)E", entry)
+            if t:
+                entry = f"{t.group(1)}<{types[t.group(2)]},{t.group(3)}>"
+            elif u:
+                # a repeated type is a substitution (S<n>_): bf16, bf16
+                entry = (f"{u.group(1)}<x {types[u.group(2)]}, dt/B/C "
+                         f"{types.get(u.group(3), types[u.group(2)])}, "
+                         f"N={u.group(4)}>")
         elif "spill" in line:
             spills = line.strip()
         elif "registers" in line:
             yield entry, f"{line.split(':', 1)[-1].strip()}; {spills}"
+
+
+def scan_bound_ms(B, T, dI, N, x_item, p_item, sms, clock_hz):
+    """Least time for one scan call. Bytes: x, dt, B, C, A, D read once, y
+    and the final state written once. Operations: 6 f32 flops per (b, t,
+    d, n) (dt·A, dx·B, two FMAs) and 3 per (b, t, d) (dt·x, an FMA with
+    D), at the f32 peak; and one ex2 per (b, t, d, n) on the SFU, at
+    ``SFU_PER_CLOCK_SM`` a clock on each SM at the card's top SM clock.
+    Returns (ms, what bounds it, detail)."""
+    nbytes = (B * T * dI * (2 * x_item + p_item) + 2 * B * T * N * p_item
+              + dI * N * 4 + dI * 4 + B * dI * N * 4)
+    flops = B * T * dI * (6 * N + 3)
+    exps = B * T * dI * N
+    t_bytes = nbytes / PEAK_BYTES
+    t_flops = flops / PEAK_F32_FLOPS
+    t_exps = exps / (sms * SFU_PER_CLOCK_SM * clock_hz)
+    t_ops = max(t_flops, t_exps)
+    detail = (f"{nbytes / 1e6:.1f} MB -> {t_bytes * 1e3:.4f} ms; "
+              f"{flops:.3e} f32 flops -> {t_flops * 1e3:.4f} ms; "
+              f"{exps:.3e} ex2 at {sms} SMs x {SFU_PER_CLOCK_SM} x "
+              f"{clock_hz / 1e6:.0f} MHz -> {t_exps * 1e3:.4f} ms")
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", detail)
 
 
 def rel_err(a, b) -> float:
@@ -162,20 +224,26 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.synchronize()
     return start.elapsed_time(end) / iters
 
-COUNTS = ("launches", "bwd_dq_launches", "bwd_dkv_launches")
-KERNEL_NAMES = ("flash_attention_fwd", "flash_attention_bwd_dq",
-                "flash_attention_bwd_dkv")
+def _counted():
+    """(kernel name, wrapper function, launch counter on it) of every
+    kernel."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.mamba_scan.ops import selective_scan
+
+    return (("flash_attention_fwd", flash_attention, "launches"),
+            ("flash_attention_bwd_dq", flash_attention, "bwd_dq_launches"),
+            ("flash_attention_bwd_dkv", flash_attention, "bwd_dkv_launches"),
+            ("selective_scan", selective_scan, "launches"))
 
 
-def reset_counts(ops) -> None:
+def reset_counts() -> None:
     """Set every kernel's launch count to 0, just before a path runs."""
-    for attr in COUNTS:
-        setattr(ops.flash_attention, attr, 0)
+    for _, fn, attr in _counted():
+        setattr(fn, attr, 0)
 
 
-def read_counts(ops) -> dict:
-    return {name: getattr(ops.flash_attention, attr)
-            for name, attr in zip(KERNEL_NAMES, COUNTS)}
+def read_counts() -> dict:
+    return {name: getattr(fn, attr) for name, fn, attr in _counted()}
 
 
 def backward_phases(qkv) -> dict:
@@ -320,11 +388,11 @@ def train_phases():
 
     # 9. the training path at the slice's size
     steps, B, T = 6, 4, 1024
-    reset_counts(ops)
+    reset_counts()
     losses, stats = train.main([
         "--arch", "yi-6b", "--preset", "full", "--layers", str(TRAIN_LAYERS),
         "--batch", str(B), "--seq", str(T), "--steps", str(steps)])
-    counts = read_counts(ops)
+    counts = read_counts()
     L = stats["layers"]
     per_step = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
                 "flash_attention_bwd_dkv": L}
@@ -342,44 +410,234 @@ def train_phases():
           f"non-finite or missing train losses: {losses}")
     check(all(s == per_step for s in stats["launches"]),
           f"launches per step {stats['launches']}, expected {per_step}")
-    check(counts == {k: steps * n for k, n in per_step.items()},
-          f"launches over the run {counts}, expected {steps} x {per_step}")
+    check(counts == {**{k: steps * n for k, n in per_step.items()},
+                     "selective_scan": 0},
+          f"launches over the run {counts}, expected {steps} x {per_step} "
+          "and no scan")
     return counts, stats
 
 
-def main() -> None:
+def scan_phases(sms: int, clock_hz: float) -> dict:
+    """Phases 10 and 11: the scan kernel against its plain version on the
+    card, then its time at the serving shape."""
     import torch
 
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is False: this script needs a card")
-    src = os.path.join(HERE, "src")
-    if not os.path.isdir(os.path.join(src, "repro_torch")):
-        fail(f"no src/repro_torch beside {os.path.basename(__file__)}")
-    sys.path.insert(0, src)
+    from repro_torch.kernels.mamba_scan import kernel, ops, ref
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def inputs(c):
+        """The distribution of tests/test_kernels_mamba.py."""
+        rn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+        xt, pt = getattr(torch, c["x"]), getattr(torch, c["p"])
+        B, T, dI, N = c["B"], c["T"], c["dI"], c["N"]
+        x = rn(B, T, dI).to(xt)
+        dt = torch.nn.functional.softplus(rn(B, T, dI) - 2).to(pt)
+        A = -torch.exp(rn(dI, N) * 0.5)
+        return x, dt, A, rn(B, T, N).to(pt), rn(B, T, N).to(pt), rn(dI)
+
+    serving = dict(B=4, T=1024, dI=8192, N=16, x="bfloat16", p="float32")
+    cases = [
+        ("serving", serving),
+        ("ragged T=1000 dI=8000", dict(serving, T=1000, dI=8000)),
+        ("f32", dict(B=2, T=512, dI=1024, N=16, x="float32", p="float32")),
+        ("all-bf16", dict(serving, p="bfloat16")),
+    ]
+    result = {}
+    for label, c in cases:
+        args = inputs(c)
+        y, h = ops.selective_scan(*args, return_state=True)
+        torch.cuda.synchronize()
+        y_ref, h_ref = ref.selective_scan_ref(*args)
+        err = (y.float() - y_ref).abs()
+        e_y = float(err.max())
+        beyond = float((err - SCAN_ROUNDING[c["x"]] * y_ref.abs()).max())
+        r_y = e_y / float(y_ref.abs().max())
+        e_h = float((h - h_ref).abs().max())
+        r_h = e_h / float(h_ref.abs().max())
+        tol = SCAN_TOL[c["x"]]
+        ok = (beyond < tol and e_h < SCAN_STATE_TOL
+              and y.dtype == args[0].dtype and y.shape == y_ref.shape
+              and h.shape == h_ref.shape)
+        print(f"[10] {label:22s} y max|err| {e_y:.3e}, /max|ref| {r_y:.3e} "
+              f"(max|ref| {float(y_ref.abs().max()):.1f}), beyond the "
+              f"rounding of y {beyond:.3e} (< {tol:g}); state max|err| "
+              f"{e_h:.3e} (< {SCAN_STATE_TOL:g}), /max|ref| {r_h:.3e} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        check(ok, f"scan kernel disagrees with its plain version: {label}")
+        result[label] = {"y": e_y, "y_rel": r_y, "y_beyond_rounding": beyond,
+                         "state": e_h}
+        del err
+        del args, y, h, y_ref, h_ref
+    torch.cuda.empty_cache()
+
+    # 11. timing at the serving shape, turn about: kernel, plain, kernel
+    c = serving
+    args = inputs(c)
+    run = lambda: kernel.selective_scan(*args, return_state=True)
+    k_ms = cuda_ms(run)
+    plain_ms = cuda_ms(lambda: ref.selective_scan_ref(*args), iters=3,
+                       warmup=1)
+    k2_ms = cuda_ms(run)
+    bound_ms, bound_by, detail = scan_bound_ms(
+        c["B"], c["T"], c["dI"], c["N"], 2, 4, sms, clock_hz)
+    print(f"[11] serving shape: kernel {k_ms:.3f} / {k2_ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, no single PyTorch call computes a selective "
+          f"scan; bound {bound_ms:.4f} ms ({bound_by}: {detail}), kernel at "
+          f"{bound_ms / k_ms:.2%} of bound", flush=True)
+    del args
+    torch.cuda.empty_cache()
+    result["timing"] = {"ms": k_ms, "ms_again": k2_ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by}
+    return result
+
+
+def jamba_phases():
+    """Phase 12: the jamba model on the card against the CPU; phase 13:
+    serve jamba at the slice's size. Returns (launch counts of the serving
+    path, its numbers)."""
+    import gc
+
+    import torch
+
     from repro_torch.configs.archs import get_config
-    from repro_torch.kernels.flash_attention import kernel, ops, ref
+    from repro_torch.core.collector import (global_collector,
+                                            reset_global_collector)
+    from repro_torch.core.graphframe import GraphFrame
     from repro_torch.launch import serve
     from repro_torch.models.model import Model
     from repro_torch.train.step import make_decode_step, make_prefill_step
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    full = get_config("jamba-v0.1-52b", "full")
+    # 12. one pattern group at full mixer width, f32, narrow FFNs
+    W = JAMBA_CHECK_WIDTH
+    cfg = dataclasses.replace(full, n_layers=len(full.pattern), d_ff=W,
+                              moe=dataclasses.replace(full.moe, d_expert=W),
+                              dtype="float32")
+    t0 = time.perf_counter()
+    m_gpu = Model(cfg, dev).init_weights(0)
+    m_cpu = Model(cfg, cpu)
+    m_cpu.load_state_dict(m_gpu.state_dict())
+    toks = torch.randint(0, cfg.vocab_size, (2, 100),
+                         generator=torch.Generator().manual_seed(0))
+    reset_counts()
+    with torch.no_grad():
+        results = []
+        for m, d in ((m_gpu, dev), (m_cpu, cpu)):
+            caches = m.alloc_cache(2, 103)
+            logits = [make_prefill_step(cfg)(m, {"tokens": toks[:, :97].to(d)},
+                                             caches)]
+            for t in range(97, 100):
+                logits.append(make_decode_step(cfg)(
+                    m, caches, {"tokens": toks[:, t:t + 1].to(d)}, t)[0])
+            results.append([x.cpu() for x in logits])
+    counts = read_counts()
+    worst = 0.0
+    for a, b in zip(*results):
+        check(bool(torch.isfinite(a).all()), "non-finite jamba logits")
+        worst = max(worst, float((a - b).abs().max()))
+    n_params = sum(p.numel() for p in m_gpu.parameters())
+    del m_gpu, m_cpu, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[12] jamba, full mixer width (d 4096, d_inner 8192, d_state 16, "
+          f"32/8 heads), 8 layers, f32, {n_params:,} params; reduced: "
+          f"d_expert and d_ff {W}: card vs CPU logits max|err| {worst:.3e} "
+          f"(< {MODEL_TOL:g}) over prefill + 3 decode steps; card launches "
+          f"{counts}; {time.perf_counter() - t0:.1f} s", flush=True)
+    check(worst < MODEL_TOL, "jamba on the card disagrees with the CPU")
+    check(counts["selective_scan"] == 7 and counts["flash_attention_fwd"] == 1,
+          f"jamba prefill on the card launched {counts}")
 
-    # 1. the card
+    # 13. serve jamba at full width and JAMBA_LAYERS layers
+    cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS)
+    B, P, G = 4, 1024, 32
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = Model(cfg, dev).init_weights(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    prompts = torch.randint(0, cfg.vocab_size, (B, P),
+                            generator=torch.Generator().manual_seed(1)).to(dev)
+    reset_global_collector()
+    reset_counts()
+    tokens, stats = serve.generate(model, prompts, G)
+    counts = read_counts()
+    tree = GraphFrame.from_events(global_collector().drain()).to_dict()
+    dec = {c["name"]: c["metrics"] for c in tree["children"]}[
+        "serve/decode_step"]
+    want = {"flash_attention_fwd": cfg.n_groups * sum(
+        s.mixer == "attn" for s in cfg.pattern), "selective_scan":
+        cfg.n_groups * sum(s.mixer == "mamba" for s in cfg.pattern)}
+    numbers = {
+        "layers": cfg.n_layers, "params": n_params, "batch": B, "prompt": P,
+        "gen": G, "init_s": init_s, "prefill_ms": stats["prefill_ms"],
+        "decode_ms_min": dec["min"] * 1e3, "decode_ms_max": dec["max"] * 1e3,
+        "decode_ms_mean": dec["sum"] / dec["count"] * 1e3,
+        "decode_tok_s": stats["decode_tok_s"],
+        "peak_memory_bytes": stats["peak_memory_bytes"],
+        "prefill_kernel_launches": stats["prefill_kernel_launches"],
+    }
+    del model, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[13] serve jamba full width, {cfg.n_layers} of {full.n_layers} "
+          f"layers, {n_params:,} params (init {init_s:.1f} s), B={B} P={P} "
+          f"G={G}: prefill {stats['prefill_ms']:.1f} ms; decode ms a step "
+          f"min {numbers['decode_ms_min']:.2f}, mean "
+          f"{numbers['decode_ms_mean']:.2f}, max {numbers['decode_ms_max']:.2f}"
+          f" over {dec['count']} steps ({stats['decode_tok_s']:.1f} tok/s); "
+          f"peak memory {stats['peak_memory_bytes']} B "
+          f"({stats['peak_memory_bytes'] / 2**30:.2f} GiB); prefill launches "
+          f"{stats['prefill_kernel_launches']}, whole run {counts}",
+          flush=True)
+    check(want == {"flash_attention_fwd": 2, "selective_scan": 14},
+          f"expected 2 attention and 14 mamba layers, got {want}")
+    check(stats["prefill_kernel_launches"] == want,
+          f"prefill launches {stats['prefill_kernel_launches']}, "
+          f"expected {want}")
+    check(counts == {**want, "flash_attention_bwd_dq": 0,
+                     "flash_attention_bwd_dkv": 0},
+          f"launches over the serving run {counts}: decode must launch "
+          f"neither kernel, and serving no backward kernel")
+    check(stats["logits_finite"], "non-finite jamba serve logits")
+    check(tuple(tokens.shape) == (B, G + 1), f"tokens {tuple(tokens.shape)}")
+    check(0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size,
+          "generated token out of range")
+    return counts, numbers
+
+
+def card_info():
+    """(device name, device count, the card line of nvidia-smi, SM count,
+    top SM clock in Hz)."""
+    import torch
+
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
-    print(f"[1] device: {kind} (count {count}), torch {torch.__version__}, "
-          f"CUDA {torch.version.cuda}")
-    print(card, flush=True)
+    clk = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60)
+    check(clk.returncode == 0, f"nvidia-smi failed: {clk.stderr.strip()}")
+    clock_hz = float(clk.stdout.strip().splitlines()[0]) * 1e6
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return kind, count, card, sms, clock_hz
 
-    # 2. build, one nvcc per source, all started together
+
+def build_phase() -> None:
+    """Phase 2: build every kernel, one nvcc per source, all started
+    together, and print what ptxas says of each instantiation."""
+    from repro_torch.kernels import build
+
     t0 = time.perf_counter()
-    libs = kernel.build()
+    libs = build.build()
     build_s = time.perf_counter() - t0
     print(f"[2] built {', '.join(p.name for p in libs.values())} "
           f"in {build_s:.1f} s")
@@ -388,6 +646,44 @@ def main() -> None:
         if log.exists():
             for kernel_name, report in ptxas_report(log.read_text()):
                 print(f"    ptxas {kernel_name}: {report}")
+
+
+def setup():
+    """Fail unless a card is present and the port is beside this script;
+    put the port on the path and keep f32 products in f32."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a card")
+    src = os.path.join(HERE, "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        fail(f"no src/repro_torch beside {os.path.basename(__file__)}")
+    sys.path.insert(0, src)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def main() -> None:
+    import torch
+
+    setup()
+    from repro_torch.configs.archs import get_config
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+
+    dev = torch.device("cuda")
+
+    # 1. the card
+    kind, count, card, sms, clock_hz = card_info()
+    print(f"[1] device: {kind} (count {count}), torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}, {sms} SMs, top SM clock "
+          f"{clock_hz / 1e6:.0f} MHz")
+    print(card, flush=True)
+
+    # 2. build, one nvcc per source, all started together
+    build_phase()
 
     # 3. kernel against its plain version on the card
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -474,11 +770,11 @@ def main() -> None:
 
     # 5b. serve yi-6b at full width: the serving path
     B, P, G = 4, 1024, 32
-    reset_counts(ops)
+    reset_counts()
     tokens, stats = serve.main(["--arch", "yi-6b", "--preset", "full",
                                 "--batch", str(B), "--prompt-len", str(P),
                                 "--gen", str(G), "--seed", "0"])
-    serve_counts = read_counts(ops)
+    serve_counts = read_counts()
     launches = serve_counts["flash_attention_fwd"]
     full = get_config("yi-6b", "full")
     steps = {c["name"]: c["metrics"] for c in stats["tree"]["children"]}
@@ -490,12 +786,15 @@ def main() -> None:
           f"{stats['decode_tok_s']:.1f} tok/s, peak memory "
           f"{stats['peak_memory_bytes']} B, kernel launches {launches}",
           flush=True)
-    check(launches == full.n_layers == stats["prefill_kernel_launches"],
+    check(launches == full.n_layers
+          == stats["prefill_kernel_launches"]["flash_attention_fwd"],
           f"expected {full.n_layers} kernel launches in one prefill, "
           f"got {launches}")
     check(serve_counts["flash_attention_bwd_dq"]
-          == serve_counts["flash_attention_bwd_dkv"] == 0,
-          f"backward kernels launched while serving: {serve_counts}")
+          == serve_counts["flash_attention_bwd_dkv"]
+          == serve_counts["selective_scan"] == 0,
+          f"backward or scan kernels launched while serving yi-6b: "
+          f"{serve_counts}")
     check(stats["logits_finite"], "non-finite serve logits")
     check(tuple(tokens.shape) == (B, G + 1), f"tokens {tuple(tokens.shape)}")
     check(0 <= int(tokens.min()) and int(tokens.max()) < full.vocab_size,
@@ -503,9 +802,12 @@ def main() -> None:
 
     bwd = backward_phases(qkv)
     train_counts, train_stats = train_phases()
+    scan = scan_phases(sms, clock_hz)
+    jamba_counts, jamba = jamba_phases()
 
-    # 10. result lines
-    paths = {"serve": serve_counts, "train": train_counts}
+    # 14. result lines
+    paths = {"serve": serve_counts, "train": train_counts,
+             "serve_jamba": jamba_counts}
 
     def launches_of(name):
         by_path = {p: c[name] for p, c in paths.items()}
@@ -550,10 +852,32 @@ def main() -> None:
             "shape": shape,
             "card": card,
         })
+    total, by_path = launches_of("selective_scan")
+    t = scan["timing"]
+    kernels.append({
+        "name": "selective_scan",
+        "route": "cuda",
+        "source": SCAN_SOURCE,
+        "replaces": TPU_SCAN,
+        "launches": total,
+        "launches_by_path": by_path,
+        "max_abs_err": scan["serving"]["y"],
+        "rel_err": scan["serving"]["y_rel"],
+        "err_beyond_rounding": scan["serving"]["y_beyond_rounding"],
+        "state_max_abs_err": scan["serving"]["state"],
+        "ms": t["ms"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": None,
+        "shape": "B=4 T=1024 dI=8192 N=16 x bf16 dt/B/C f32",
+        "card": card,
+    })
     print(json.dumps({"kernels": kernels,
                       "train": {k: train_stats[k] for k in (
                           "layers", "params", "step_ms", "mean_step_ms",
-                          "tokens_per_s", "peak_memory_bytes")}}))
+                          "tokens_per_s", "peak_memory_bytes")},
+                      "serve_jamba": jamba}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
 

@@ -36,7 +36,10 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig,
                     device) -> Dict[str, torch.Tensor]:
     """Unstack each ``pos{i}`` group over its leading ``layers`` axis:
     layer ``l`` is group ``l // len(pattern)`` at position
-    ``l % len(pattern)``."""
+    ``l % len(pattern)``. Nested leaves (``mixer.A_log``, ``ffn.router``)
+    keep their paths, stacked experts ``(n_groups, Ne, E, F)`` become
+    ``(Ne, E, F)``, and every leaf keeps its dtype until
+    ``load_state_dict`` copies it into the parameter's."""
     plen = len(cfg.pattern)
     state: Dict[str, torch.Tensor] = {}
     for name in ("embed", "final_norm", "lm_head"):

@@ -1,89 +1,29 @@
-"""Build and bind the CUDA flash-attention kernels: the forward
+"""Bind the CUDA flash-attention kernels: the forward
 (``csrc/flash_fwd.cu``) and the two backward kernels, dq and dk/dv
 (``csrc/flash_bwd.cu``).
 
-Each source is compiled at first use with ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface under ``build/repro_torch/`` at the
-root of the checkout, named by the source's hash, and loaded with
-``ctypes``. :func:`build` compiles every source that has no library yet,
-one ``nvcc`` per source, all started together. Nothing is built or loaded
-when this module is imported. A missing ``nvcc`` or a failed build raises:
-there is no fallback.
+The libraries are built at first use by :mod:`repro_torch.kernels.build`
+(``flash_fwd`` and ``flash_bwd``) and bound here with ``ctypes``. Nothing
+is built or loaded when this module is imported.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-from pathlib import Path
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
-CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"flash_fwd": CSRC / "flash_fwd.cu", "flash_bwd": CSRC / "flash_bwd.cu"}
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from .. import build
+
 HEAD_DIMS = (32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
-_CUDA_NVCC = "/usr/local/cuda/bin/nvcc"
-
-
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or _CUDA_NVCC
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin): "
-                           "the CUDA flash-attention kernels cannot be built")
-    return nvcc
-
-
-def library_path(name: str) -> Path:
-    digest = hashlib.sha1(SOURCES[name].read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
-
-
-def build() -> Dict[str, Path]:
-    """Compile every source whose library does not exist yet, one ``nvcc``
-    per source, all started together; return each library's path by name.
-    The compiler's report (``-Xptxas -v``: registers, shared memory,
-    spills) is kept beside each library as ``<name>.log``."""
-    libs = {name: library_path(name) for name in SOURCES}
-    todo = {name: lib for name, lib in libs.items() if not lib.exists()}
-    if not todo:
-        return libs
-    nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, lib in todo.items():
-        tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        procs[name] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    failed = []
-    for name, (tmp, proc) in procs.items():
-        out, err = proc.communicate()
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            failed.append(f"nvcc failed on {SOURCES[name].name} "
-                          f"(exit {proc.returncode}):\n{err}")
-            continue
-        todo[name].with_suffix(".log").write_text(out + err)
-        os.replace(tmp, todo[name])
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return libs
-
-
 @functools.lru_cache(maxsize=None)
 def _library(name: str) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()[name]))
+    lib = build.load(name)
     ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                           ctypes.c_float)
     if name == "flash_fwd":
@@ -121,10 +61,6 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, fn: str,
         raise ValueError(f"{fn} needs unit stride over head_dim")
 
 
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, window: Optional[int] = None,
               scale: Optional[float] = None
@@ -148,7 +84,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.data_ptr(), B, T, S, H, K, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             int(causal), window or 0, scale, _DTYPES[q.dtype],
-            _stream(q.device))
+            build.stream(q.device))
     if rc != 0:
         raise RuntimeError(f"flash_fwd launch failed: cudaError_t {rc}")
     return out, lse
@@ -185,7 +121,7 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, T, S, H, K, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *do.stride()[:3], int(causal), window or 0, scale,
-            _DTYPES[q.dtype], _stream(q.device))
+            _DTYPES[q.dtype], build.stream(q.device))
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dq launch failed: cudaError_t {rc}")
     return dq
@@ -215,7 +151,7 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             B, T, S, H, K, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
             *do.stride()[:3], int(causal), window or 0, scale,
-            _DTYPES[q.dtype], _stream(q.device))
+            _DTYPES[q.dtype], build.stream(q.device))
     if rc != 0:
         raise RuntimeError(f"flash_bwd_dkv launch failed: cudaError_t {rc}")
     return dk, dv

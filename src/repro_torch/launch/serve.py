@@ -6,7 +6,8 @@
 
 Runs on the CUDA card unless ``--device cpu`` is given; with no card and
 no ``--device cpu`` it raises. Weights and prompts are random, made from
-``--seed``. Prefill attention runs the CUDA flash-attention kernel.
+``--seed``. Prefill attention runs the CUDA flash-attention kernel, and
+a mamba layer's prefill the CUDA selective-scan kernel.
 """
 from __future__ import annotations
 
@@ -22,8 +23,18 @@ from ..core.collector import global_collector, reset_global_collector
 from ..core.graphframe import GraphFrame
 from ..device import resolve_device
 from ..kernels.flash_attention.ops import flash_attention
+from ..kernels.mamba_scan.ops import selective_scan
 from ..models.model import Model
 from ..train.step import make_decode_step, make_prefill_step
+
+
+# the kernels of the prefill, by name, with their launch counters
+PREFILL_KERNELS = {"flash_attention_fwd": flash_attention,
+                   "selective_scan": selective_scan}
+
+
+def _launches() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in PREFILL_KERNELS.items()}
 
 
 def _sync(device: torch.device) -> None:
@@ -38,20 +49,23 @@ def generate(model: Model, prompts: torch.Tensor, gen: int
     Returns the generated tokens (B, gen + 1): the prefill's prediction,
     then one per decode step. The caches are allocated once at P + gen
     slots. Records ``serve/prefill`` and ``serve/decode_step`` regions.
+    ``stats["prefill_kernel_launches"]`` counts each kernel's launches in
+    the prefill, by name.
     """
     cfg, device = model.cfg, model.device
     B, P = prompts.shape
     prefill = make_prefill_step(cfg)
     decode = make_decode_step(cfg)
     caches = model.alloc_cache(B, P + gen)
-    launches0 = flash_attention.launches
+    launches0 = _launches()
     with torch.no_grad():
         with regions.annotate_torch("serve/prefill", category="api") as box:
             logits = prefill(model, {"tokens": prompts}, caches)
             box["out"] = logits
             _sync(device)
         finite = torch.isfinite(logits).all()
-        prefill_launches = flash_attention.launches - launches0
+        prefill_launches = {name: n - launches0[name]
+                            for name, n in _launches().items()}
         token = logits[:, 0].argmax(dim=-1).to(torch.int32)[:, None]
         out_tokens = [token]
         t0 = time.perf_counter()
@@ -113,8 +127,8 @@ def main(argv=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     reset_global_collector()
     gen, stats = generate(model, prompts, G)
     print(f"{cfg.name}: prefill {B}x{P}, generated {B}x{G} greedy tokens")
-    print(f"prefill: {stats['prefill_ms']:.1f} ms, "
-          f"{stats['prefill_kernel_launches']} flash-attention launches")
+    print(f"prefill: {stats['prefill_ms']:.1f} ms, kernel launches "
+          f"{stats['prefill_kernel_launches']}")
     print(f"decode throughput: {stats['decode_tok_s']:.1f} tok/s "
           f"({stats['decode_s'] / max(G, 1) * 1e3:.1f} ms/step)")
     if stats["peak_memory_bytes"] is not None:

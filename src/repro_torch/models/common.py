@@ -23,7 +23,7 @@ Axes = Tuple[Optional[str], ...]
 class ParamSpec:
     shape: Tuple[int, ...]
     axes: Axes                      # logical axis names, len == len(shape)
-    init: str = "normal"            # normal | zeros | scaled
+    init: str = "normal"            # normal | zeros | ones | scaled | mamba_a | const
     scale: float = 0.02
     dtype: Any = None               # defaults to the compute dtype
 
@@ -34,16 +34,19 @@ class ParamSpec:
 
 SpecTree = Dict[str, Any]           # nested dicts of ParamSpec
 
+# parameters that stay f32 in compute (routing / SSM dynamics / gate logits)
+_KEEP_F32 = ("router", "A_log", "D", "w_if", "b_if", "dt_w", "dt_b")
+
 
 def param_dtype(spec: ParamSpec, compute: torch.dtype,
-                trainable: bool = False) -> torch.dtype:
+                trainable: bool = False, name: str = "") -> torch.dtype:
     """Trainable (master) weights are f32, as ``init_params`` makes them.
     Inference-only weights store matrices in the compute dtype and keep
-    1-D scales (norms) in f32, as ``repro.models.model._cast`` leaves
-    them."""
+    1-D scales (norms) and the ``_KEEP_F32`` parameters (routing, SSM
+    dynamics) in f32, as ``repro.models.model._cast`` leaves them."""
     if spec.dtype is not None:
         return spec.dtype
-    if trainable or len(spec.shape) <= 1:
+    if trainable or len(spec.shape) <= 1 or name in _KEEP_F32:
         return torch.float32
     return compute
 
@@ -59,7 +62,8 @@ class SpecModule(nn.Module):
         for name, spec in specs.items():
             if isinstance(spec, ParamSpec):
                 self.register_parameter(name, nn.Parameter(torch.empty(
-                    spec.shape, dtype=param_dtype(spec, compute, trainable),
+                    spec.shape, dtype=param_dtype(spec, compute, trainable,
+                                                  name),
                     device=device), requires_grad=trainable))
             else:
                 self.add_module(name, SpecModule(spec, compute, device,
@@ -67,10 +71,6 @@ class SpecModule(nn.Module):
 
     def __getitem__(self, name: str):
         return getattr(self, name)
-
-
-# parameters that stay f32 in compute (routing / SSM dynamics / gate logits)
-_KEEP_F32 = ("router", "A_log", "D", "w_if", "b_if", "dt_w", "dt_b")
 
 
 def cast_params(module: nn.Module, dtype: torch.dtype) -> Dict[str, Any]:
@@ -90,13 +90,26 @@ def cast_params(module: nn.Module, dtype: torch.dtype) -> Dict[str, Any]:
 
 def init_param_(p: torch.Tensor, spec: ParamSpec, gen: torch.Generator) -> None:
     """Fill ``p`` in place from ``spec`` (same initializers as the JAX
-    package, not the same random numbers)."""
+    package, not the same random numbers). ``scaled`` divides by the
+    fan-in, ``shape[-2]`` (``shape[0]`` of a 1-D spec): the input width of
+    a matrix, and of each expert's matrix in an (experts, in, out) stack."""
     if spec.init == "zeros":
         p.zero_()
+    elif spec.init == "ones":
+        p.fill_(1.0)
+    elif spec.init == "const":
+        p.fill_(spec.scale)
+    elif spec.init == "mamba_a":
+        # S4D-real: A = -(1..d_state) over d_inner, stored as log(-A)
+        a = torch.arange(1, spec.shape[-1] + 1, dtype=torch.float32,
+                         device=p.device)
+        p.copy_(torch.log(a).expand(spec.shape))
     elif spec.init in ("normal", "scaled"):
         std = spec.scale
         if spec.init == "scaled":
-            std = spec.scale / math.sqrt(max(1, spec.shape[0] if spec.shape else 1))
+            fan_in = spec.shape[-2] if len(spec.shape) > 1 else (
+                spec.shape[0] if spec.shape else 1)
+            std = spec.scale / math.sqrt(max(1, fan_in))
         x = torch.randn(spec.shape, generator=gen, device=p.device,
                         dtype=torch.float32)
         p.copy_(x.mul_(std))

@@ -11,23 +11,29 @@ A trainable model (``Model(cfg, device, trainable=True)``) holds f32
 master weights with gradients and casts them to ``cfg.dtype`` on every
 forward, as the JAX ``forward`` does (``_cast``); its ``train`` forward
 recomputes each layer in the backward when ``cfg.remat == "full"``.
+Models with ``mamba`` or ``moe`` layers serve but do not train yet.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from .attention import alloc_cache
-from .blocks import block_apply, block_specs
+from .blocks import alloc_cache, block_apply, block_specs
 from .common import (ParamSpec, SpecModule, cast_params, init_module_,
                      param_dtype, rms_norm)
 
 Cache = List[Dict[str, torch.Tensor]]
+# the fixed-size aux vector of the JAX ``forward``, in its order
+_AUX_KEYS = ("moe_aux_loss", "moe_load_balance", "moe_router_z",
+             "moe_dropped_frac")
+_NO_TRAIN = ("training mamba and moe layers is not ported yet: ROADMAP "
+             "Queue 1, the next slice (jamba training: the MoE aux loss and "
+             "a backward through the selective scan)")
 
 
 def _specs_by_path(specs, prefix: str) -> Dict[str, ParamSpec]:
@@ -59,6 +65,10 @@ class Model(nn.Module):
                 "(ROADMAP Queue 1, modules still missing)")
         self.cfg = cfg
         self.trainable = trainable
+        self.can_train = not any(s.mixer == "mamba" or s.ffn == "moe"
+                              for s in cfg.pattern)
+        if trainable and not self.can_train:
+            raise NotImplementedError(f"{cfg.name}: {_NO_TRAIN}")
         self.compute_dtype = getattr(torch, cfg.dtype)
         Vp, E = cfg.padded_vocab_size, cfg.d_model
         self.specs: Dict[str, ParamSpec] = {
@@ -70,7 +80,7 @@ class Model(nn.Module):
             spec = self.specs[name]
             self.register_parameter(name, nn.Parameter(torch.empty(
                 spec.shape, dtype=param_dtype(spec, self.compute_dtype,
-                                              trainable),
+                                              trainable, name),
                 device=device), requires_grad=trainable))
         self.layers = nn.ModuleList()
         for l in range(cfg.n_layers):
@@ -90,9 +100,13 @@ class Model(nn.Module):
         return self
 
     def alloc_cache(self, batch: int, seq_len: int) -> Cache:
-        """Empty per-layer KV caches of ``seq_len`` slots (pos -1)."""
-        return [alloc_cache(self.cfg, batch, seq_len, self.device)
-                for _ in range(self.cfg.n_layers)]
+        """Empty per-layer decode caches: KV caches of ``seq_len`` slots
+        (pos -1) for attention layers, zero state and conv tail for mamba
+        layers."""
+        cfg = self.cfg
+        return [alloc_cache(cfg, cfg.pattern[l % len(cfg.pattern)], batch,
+                            seq_len, self.device)
+                for l in range(cfg.n_layers)]
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         """Rows of the table cast to the compute dtype, scaled by
@@ -105,15 +119,22 @@ class Model(nn.Module):
         return self.embed.to(dt)[tokens] * scale
 
     def _layers(self, x: torch.Tensor, pos: int, caches: Optional[Cache],
-                mode: str) -> torch.Tensor:
+                mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Every layer, then the final norm. Returns (x, aux (4,) f32): the
+        MoE stats summed over layers, as the JAX ``_aux_vector``."""
         cfg = self.cfg
+        aux = torch.zeros((len(_AUX_KEYS),), dtype=torch.float32,
+                          device=x.device)
         for l, layer in enumerate(self.layers):
             lspec = cfg.pattern[l % len(cfg.pattern)]
             if mode == "train":
                 x = self._train_layer(layer, x, lspec)
-            else:
-                x = block_apply(layer, x, cfg, lspec, pos, caches[l], mode=mode)
-        return rms_norm(x, self.final_norm, cfg.norm_eps)
+                continue
+            x, layer_aux = block_apply(layer, x, cfg, lspec, pos, caches[l],
+                                       mode=mode)
+            if layer_aux:
+                aux = aux + torch.stack([layer_aux[k] for k in _AUX_KEYS])
+        return rms_norm(x, self.final_norm, cfg.norm_eps), aux
 
     def _train_layer(self, layer: SpecModule, x: torch.Tensor, lspec
                      ) -> torch.Tensor:
@@ -123,7 +144,7 @@ class Model(nn.Module):
 
         def run(x):
             return block_apply(cast_params(layer, self.compute_dtype), x, cfg,
-                               lspec, 0, None, mode="train")
+                               lspec, 0, None, mode="train")[0]
 
         if cfg.remat == "none":
             return run(x)
@@ -141,11 +162,15 @@ class Model(nn.Module):
         return mask_pad_logits(logits, self.cfg)
 
     def forward(self, tokens: torch.Tensor, caches: Optional[Cache] = None,
-                mode: str = "prefill") -> torch.Tensor:
-        """Run ``tokens`` (B, T) from position 0 and return the hidden
-        states (B, T, E). ``prefill`` fills ``caches`` in place; ``train``
-        takes no caches and is differentiable (trainable models only)."""
+                mode: str = "prefill") -> Tuple[torch.Tensor, torch.Tensor]:
+        """Run ``tokens`` (B, T) from position 0 and return (hidden states
+        (B, T, E), aux (4,) f32: [moe_aux_loss, load balance, router z,
+        dropped fraction]) as the JAX ``forward`` does.
+        ``prefill`` fills ``caches`` in place; ``train`` takes no caches and
+        is differentiable (trainable models only)."""
         if mode == "train":
+            if not self.can_train:
+                raise NotImplementedError(f"{self.cfg.name}: {_NO_TRAIN}")
             if not self.trainable:
                 raise ValueError("mode='train' needs Model(..., trainable=True)")
             return self._layers(self.embed_tokens(tokens), 0, None, "train")
@@ -157,7 +182,7 @@ class Model(nn.Module):
                     ) -> torch.Tensor:
         """One decode step of ``tokens`` (B, 1) at position ``pos``; updates
         ``caches`` in place and returns logits (B, n_codebooks, Vp)."""
-        h = self._layers(self.embed_tokens(tokens), pos, caches, "decode")
+        h, _aux = self._layers(self.embed_tokens(tokens), pos, caches, "decode")
         return self.logits(h[:, 0])
 
 

@@ -21,13 +21,14 @@ from .losses import chunked_ce_loss
 
 def _loss(model: Model, tokens: torch.Tensor, labels: torch.Tensor,
           cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The JAX ``loss_fn``: chunked CE on the train forward, plus the MoE
-    aux loss, which is 0 for the dense layers the port runs."""
-    hidden = model(tokens, mode="train")
+    """The JAX ``loss_fn``: chunked CE on the train forward plus the MoE
+    aux loss. The forward raises for models with mamba or moe layers,
+    which do not train yet, so the aux is 0 on every model that trains."""
+    hidden, aux = model(tokens, mode="train")
     lm_head = model.lm_head.to(model.compute_dtype)
     loss, metrics = chunked_ce_loss(hidden, lm_head, labels, cfg)
-    zero = torch.zeros((), device=hidden.device)
-    return loss, dict(metrics, moe_aux=zero, moe_load_balance=zero)
+    return loss + aux[0], dict(metrics, moe_aux=aux[0],
+                               moe_load_balance=aux[1])
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
@@ -83,7 +84,7 @@ def make_prefill_step(cfg: ModelConfig):
     def prefill_step(model: Model, batch, caches: Cache) -> torch.Tensor:
         """Prefill ``batch["tokens"]`` (B, P) into ``caches``; returns the
         last position's logits (B, n_codebooks, Vp) f32."""
-        hidden = model(batch["tokens"], caches, mode="prefill")
+        hidden, _aux = model(batch["tokens"], caches, mode="prefill")
         return model.logits(hidden[:, -1])
 
     return prefill_step

@@ -15,6 +15,7 @@ import torch
 from repro.kernels.flash_attention.kernel import flash_attention_fwd
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import mha_reference
+from repro_torch.kernels import build as kbuild
 from repro_torch.kernels.flash_attention import kernel as cuda_kernel
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
@@ -113,7 +114,7 @@ def test_wrapper_rejects_bad_arguments(q_shape, kv_shape, kw):
 
 def test_kernel_binding_refuses_cpu_tensors_without_building(tmp_path,
                                                              monkeypatch):
-    monkeypatch.setattr(cuda_kernel, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(kbuild, "BUILD_DIR", tmp_path)
     x = torch.zeros(1, 32, 2, 32)
     with pytest.raises(ValueError):
         cuda_kernel.flash_fwd(x, x, x)
@@ -121,8 +122,8 @@ def test_kernel_binding_refuses_cpu_tensors_without_building(tmp_path,
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
-    monkeypatch.setattr(cuda_kernel, "BUILD_DIR", tmp_path)
-    monkeypatch.setattr(cuda_kernel.shutil, "which", lambda _name: None)
-    monkeypatch.setattr(cuda_kernel, "_CUDA_NVCC", str(tmp_path / "no-nvcc"))
+    monkeypatch.setattr(kbuild, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(kbuild.shutil, "which", lambda _name: None)
+    monkeypatch.setattr(kbuild, "_CUDA_NVCC", str(tmp_path / "no-nvcc"))
     with pytest.raises(RuntimeError, match="nvcc"):
-        cuda_kernel.build()
+        kbuild.build()

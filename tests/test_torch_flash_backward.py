@@ -21,6 +21,7 @@ import torch
 from repro.kernels.flash_attention.kernel import (flash_attention_bwd,
                                                   flash_attention_fwd)
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
+from repro_torch.kernels import build as kbuild
 from repro_torch.kernels.flash_attention import kernel as cuda_kernel
 from repro_torch.kernels.flash_attention.ops import (FlashAttention,
                                                      flash_attention)
@@ -167,7 +168,7 @@ def test_backward_rejects_bad_arguments():
 @pytest.mark.parametrize("fn", ["flash_bwd_dq", "flash_bwd_dkv"])
 def test_backward_bindings_refuse_cpu_tensors_without_building(
         fn, tmp_path, monkeypatch):
-    monkeypatch.setattr(cuda_kernel, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(kbuild, "BUILD_DIR", tmp_path)
     x = torch.zeros(1, 32, 2, 32)
     rows = torch.zeros(1, 2, 32)
     with pytest.raises(ValueError):
@@ -189,15 +190,15 @@ def test_build_compiles_each_source_once_into_its_own_library(
                       '  [ "$prev" = "-o" ] && out="$a"; prev="$a"\ndone\n'
                       'echo "compiled $a"\necho lib > "$out"\n')
     build = tmp_path / "build"
-    monkeypatch.setattr(cuda_kernel, "BUILD_DIR", build)
-    monkeypatch.setattr(cuda_kernel, "_nvcc", lambda: nvcc)
-    libs = cuda_kernel.build()
-    assert sorted(libs) == ["flash_bwd", "flash_fwd"]
+    monkeypatch.setattr(kbuild, "BUILD_DIR", build)
+    monkeypatch.setattr(kbuild, "_nvcc", lambda: nvcc)
+    libs = kbuild.build()
+    assert sorted(libs) == ["flash_bwd", "flash_fwd", "selective_scan"]
     for name, lib in libs.items():
         assert lib.exists() and lib.name.startswith(f"lib{name}_")
         assert f"{name}.cu" in lib.with_suffix(".log").read_text()
-    monkeypatch.setattr(cuda_kernel, "_nvcc", lambda: "/no/such/nvcc")
-    assert cuda_kernel.build() == libs            # nothing left to build
+    monkeypatch.setattr(kbuild, "_nvcc", lambda: "/no/such/nvcc")
+    assert kbuild.build() == libs            # nothing left to build
     assert sorted(os.listdir(build)) == sorted(
         [p.name for p in libs.values()]
         + [p.with_suffix(".log").name for p in libs.values()])
@@ -206,8 +207,8 @@ def test_build_compiles_each_source_once_into_its_own_library(
 def test_failed_build_names_the_source_and_leaves_no_library(
         tmp_path, monkeypatch):
     nvcc = _fake_nvcc(tmp_path, 'echo "error: bad code" >&2\nexit 2\n')
-    monkeypatch.setattr(cuda_kernel, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(cuda_kernel, "_nvcc", lambda: nvcc)
+    monkeypatch.setattr(kbuild, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(kbuild, "_nvcc", lambda: nvcc)
     with pytest.raises(RuntimeError, match="flash_bwd.cu"):
-        cuda_kernel.build()
+        kbuild.build()
     assert not any(p.suffix == ".so" for p in (tmp_path / "build").iterdir())

@@ -1,4 +1,5 @@
-"""Card-only: the CUDA flash-attention kernels against their plain versions.
+"""Card-only: the CUDA kernels (flash attention, selective scan) against
+their plain versions.
 
 Marked ``gpu``; each test skips inside its body on a host without a card.
 Run on the card with ``PYTHONPATH=src python -m pytest -m gpu
@@ -17,6 +18,8 @@ from repro_torch.kernels.flash_attention.ops import (FlashAttention,
                                                      flash_attention_bwd)
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_ref)
+from repro_torch.kernels.mamba_scan.ops import selective_scan
+from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -90,3 +93,44 @@ def test_autograd_function_on_the_card_matches_cpu():
         grads.append(torch.autograd.grad(out, leaves, do.to(dev)))
     for a, b in zip(*grads):
         assert _rel(a.cpu(), b) < 1e-4
+
+
+# the selective scan: y in x's dtype against the plain version's f32 y
+# within the JAX package's bounds (f32 1e-4, bf16 5e-2) beyond the
+# rounding of y to its dtype (2^-8 of |y| in bf16, which |y| of 16 and
+# more exceeds), the final state within 1e-4 in every case (f32 on both
+# sides)
+SCAN_TOL = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+SCAN_ROUNDING = {torch.float32: 2.0 ** -24, torch.bfloat16: 2.0 ** -8}
+SCAN_CASES = [
+    (torch.bfloat16, torch.float32, 2, 256, 512, 16),
+    (torch.bfloat16, torch.float32, 1, 200, 300, 16),   # ragged T and dI
+    (torch.float32, torch.float32, 2, 128, 256, 8),
+    (torch.bfloat16, torch.bfloat16, 2, 64, 128, 4),
+]
+
+
+def _scan_inputs(x_dtype, p_dtype, B, T, dI, N):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(T + dI)
+    rn = lambda *s: torch.randn(s, generator=gen, device="cuda")
+    x = rn(B, T, dI).to(x_dtype)
+    dt = torch.nn.functional.softplus(rn(B, T, dI) - 2).to(p_dtype)
+    A = -torch.exp(rn(dI, N) * 0.5)
+    return x, dt, A, rn(B, T, N).to(p_dtype), rn(B, T, N).to(p_dtype), rn(dI)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_dtype,p_dtype,B,T,dI,N", SCAN_CASES)
+def test_cuda_scan_matches_plain_version(x_dtype, p_dtype, B, T, dI, N):
+    args = _scan_inputs(x_dtype, p_dtype, B, T, dI, N)
+    before = selective_scan.launches
+    y, h = selective_scan(*args, return_state=True)
+    torch.cuda.synchronize()
+    assert selective_scan.launches == before + 1
+    y_ref, h_ref = selective_scan_ref(*args)
+    assert y.dtype == x_dtype and y.shape == y_ref.shape
+    err = (y.float() - y_ref).abs() - SCAN_ROUNDING[x_dtype] * y_ref.abs()
+    assert float(err.max()) < SCAN_TOL[x_dtype]
+    assert float((h - h_ref).abs().max()) < 1e-4

@@ -137,7 +137,9 @@ def test_greedy_tokens_match_jax_serve_loop():
     got, stats = serve.generate(model, torch.from_numpy(toks).long(), G)
     assert got.shape == (B, G + 1)
     np.testing.assert_array_equal(got.numpy(), want)
-    assert stats["logits_finite"] and stats["prefill_kernel_launches"] == 0
+    assert stats["logits_finite"]
+    assert stats["prefill_kernel_launches"] == {"flash_attention_fwd": 0,
+                                                "selective_scan": 0}
 
 
 def test_padded_vocab_logits_are_masked_like_jax():
@@ -236,7 +238,7 @@ def test_seeded_init_is_stable_and_seed_dependent():
             assert not torch.equal(pa, pc), name
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "granite-moe-3b-a800m",
+@pytest.mark.parametrize("arch", ["xlstm-125m", "llama-3.2-vision-11b",
                                   "gemma3-12b", "musicgen-large"])
 def test_unported_layers_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
