@@ -7,21 +7,30 @@ Phases, each of which fails the run (non-zero exit, no final line):
   1. the card: name, count, power limit (nvidia-smi);
   2. build the CUDA kernels (flash-attention forward; backward dq and
      dk/dv; selective scan) from this checkout's sources, one nvcc per
-     source, in parallel;
-  3. hold the forward kernel to its plain PyTorch version on the card: the
-     yi-6b serving shape (B=4, T=1024, H=32, K=4, D=128, bf16, causal), a
-     ragged length, a window, non-causal, and f32 at D=64;
+     source, in parallel; print what ptxas says of each instantiation
+     (registers, spills) and the dynamic shared memory and blocks an SM
+     of the bf16 tensor-core (wgmma) forward and dk/dv kernels;
+  3. hold one 64 x N x 16 wgmma product to torch.matmul, then the forward
+     kernel to its plain PyTorch version on the card: the yi-6b serving
+     shape (B=4, T=1024, H=32, K=4, D=128, bf16, causal), a ragged length,
+     a window, non-causal, the jamba prefill's K=8, f32 at D=64, and bf16
+     at D=32 and 64, T of 1
+     and 17, a window of 48 that starts inside a tile, non-causal S != T,
+     and G = H/K of 1 and 8; every bf16 case must launch the wgmma
+     variant and every f32 case the scalar one;
   4. time the forward kernel, its plain version and PyTorch's
      scaled_dot_product_attention (yardstick only) at the serving shape,
-     with CUDA events; compute the least time the card could take;
+     with CUDA events, turn about; compute the least time the card could
+     take;
   5. the port's model on the card against the same model on the CPU at
-     full yi-6b width, two layers, f32; then serve yi-6b at full width
-     through ``repro_torch.launch.serve.main`` (batch 4, prompt 1024,
-     32 generated tokens) and check that every prefill attention went
-     through the kernel;
+     full yi-6b width, two layers, f32 (scalar kernels); then serve yi-6b
+     at full width through ``repro_torch.launch.serve.main`` (batch 4,
+     prompt 1024, 32 generated tokens) and check that every prefill
+     attention went through the wgmma forward;
   6. hold the dq and dk/dv kernels to the plain backward on the card: the
      yi-6b training shape (the serving shape above), a ragged length, a
-     window, non-causal, and f32 at D=64;
+     window, non-causal, f32 at D=64, and the bf16 cases of phase 3 (T
+     of 1 as non-causal S != T); bf16 must launch the wgmma dk/dv;
   7. time both backward kernels, the plain backward and the backward of
      scaled_dot_product_attention (yardstick only) at the training shape;
   8. one train step of the port on the card against the same step on the
@@ -30,7 +39,8 @@ Phases, each of which fails the run (non-zero exit, no final line):
      ``repro_torch.launch.train.main`` (batch 4, seq 1024, 6 steps, bf16
      compute, f32 master weights, full remat, AdamW) and check the kernel
      launches of every step: 2 forward (the forward and the remat
-     recompute), 1 dq and 1 dk/dv per layer;
+     recompute), 1 dq and 1 dk/dv per layer, the forward and dk/dv on the
+     wgmma variants;
  10. hold the selective-scan kernel to its plain PyTorch version on the
      card: the jamba serving shape (B=4, T=1024, d_inner 8192, d_state 16,
      x bf16, dt/B/C f32), a ragged length and width, f32, and all-bf16;
@@ -42,7 +52,7 @@ Phases, each of which fails the run (non-zero exit, no final line):
  13. serve jamba-v0.1-52b at full width and 16 of its 32 layers through
      ``repro_torch.launch.serve.generate`` (batch 4, prompt 1024, 32
      generated tokens) and check that every mamba prefill went through the
-     scan kernel and every attention prefill through the flash kernel;
+     scan kernel and every attention prefill through the wgmma forward;
  14. print one JSON line with every ported kernel, then the result line.
 
 Exits non-zero without a result line when no CUDA card is present or the
@@ -95,6 +105,23 @@ SCAN_ROUNDING = {"float32": 2.0 ** -24, "bfloat16": 2.0 ** -8}
 SCAN_STATE_TOL = 1e-4
 JAMBA_LAYERS = 16    # of jamba's 32: 52 GB of bf16 weights; 32 need ~103 GB
 JAMBA_CHECK_WIDTH = 512  # d_expert and d_ff of the card-vs-CPU jamba model
+# each kernel's design on the bf16 main paths
+DESIGN = {"flash_attention_fwd": "wgmma", "flash_attention_bwd_dq": "scalar",
+          "flash_attention_bwd_dkv": "wgmma", "selective_scan": "scalar"}
+# bf16 edge cases of phases 3 and 6: head dims 32 and 64, lengths shorter
+# than a tile and not multiples of it, a window that starts inside a 64-key
+# tile, non-causal S != T, and G = H/K of 1 and 8 (K = 2 and 4)
+_SMALL = dict(B=2, T=200, H=16, K=2, D=128, dtype="bfloat16", causal=True,
+              window=None)
+SMALL_BF16_CASES = [
+    ("bf16 D=64 T=17 G=8", dict(_SMALL, T=17, D=64)),
+    ("bf16 D=32 T=200", dict(_SMALL, D=32)),
+    ("bf16 T=1000 window=48", dict(_SMALL, T=1000, window=48)),
+    ("bf16 D=64 T=200 G=1", dict(_SMALL, D=64, H=2)),
+    ("bf16 T=1 S=33 non-causal", dict(_SMALL, T=1, S=33, causal=False)),
+    ("bf16 T=160 S=300 non-causal", dict(_SMALL, T=160, S=300, causal=False,
+                                          H=16, K=4)),
+]
 
 
 def fail(msg: str) -> None:
@@ -163,11 +190,17 @@ def ptxas_report(log: str):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             entry = m.group(1)
-            t = re.search(r"(flash_(?:fwd|bwd_dq|bwd_dkv)_kernel)"
+            t = re.search(r"(flash_(?:bwd_dq|bwd_dkv)_kernel)"
                           r"I(f|13__nv_bfloat16)Li(\d+)E", entry)
             u = re.search(r"(selective_scan_kernel)I(f|13__nv_bfloat16)"
                           r"(f|13__nv_bfloat16|S\d*_)Li(\d+)E", entry)
-            if t:
+            w = re.search(r"((?:flash_fwd_wgmma|flash_fwd_f32|"
+                          r"flash_bwd_dkv_wgmma|flash_bwd_dkv_f32|"
+                          r"wgmma_probe)_kernel)"
+                          r"ILi(\d+)E", entry)
+            if w:
+                entry = f"{w.group(1)}<{w.group(2)}>"
+            elif t:
                 entry = f"{t.group(1)}<{types[t.group(2)]},{t.group(3)}>"
             elif u:
                 # a repeated type is a substitution (S<n>_): bf16, bf16
@@ -237,13 +270,39 @@ def _counted():
 
 
 def reset_counts() -> None:
-    """Set every kernel's launch count to 0, just before a path runs."""
+    """Set every kernel's launch count, and the flash kernels' counts by
+    variant, to 0, just before a path runs."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
     for _, fn, attr in _counted():
         setattr(fn, attr, 0)
+    for key in flash_attention.launches_by_variant:
+        flash_attention.launches_by_variant[key] = 0
 
 
 def read_counts() -> dict:
     return {name: getattr(fn, attr) for name, fn, attr in _counted()}
+
+
+def read_variants() -> dict:
+    """The flash kernels' launches by variant that were made, e.g.
+    {"fwd/wgmma": 32}."""
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    return {k: n for k, n in flash_attention.launches_by_variant.items() if n}
+
+
+def variants_of(cases: dict) -> dict:
+    """The variant counts that a run of the given launches must show;
+    ``cases`` maps (kernel, dtype) to a count. Every bf16 launch of the
+    forward and dk/dv runs on the tensor cores (wgmma), f32 on the scalar
+    kernels, and dq is scalar in both."""
+    want = {}
+    for (name, dtype), n in cases.items():
+        tensor_cores = dtype == "bfloat16" and name in ("fwd", "dkv")
+        key = f"{name}/{'wgmma' if tensor_cores else 'scalar'}"
+        want[key] = want.get(key, 0) + n
+    return {k: n for k, n in want.items() if n}
 
 
 def backward_phases(qkv) -> dict:
@@ -264,10 +323,12 @@ def backward_phases(qkv) -> dict:
         ("non-causal", dict(training, causal=False)),
         ("f32 D=64", dict(B=2, T=512, H=8, K=2, D=64, dtype="float32",
                           causal=True, window=None)),
+        *SMALL_BF16_CASES,
     ]
 
     def inputs(c):
-        q, k, v = qkv(c["B"], c["T"], c["H"], c["K"], c["D"], c["dtype"])
+        q, k, v = qkv(c["B"], c["T"], c["H"], c["K"], c["D"], c["dtype"],
+                      c.get("S"))
         do = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
         out, lse = ref.flash_attention_ref(q, k, v, causal=c["causal"],
                                            window=c["window"])
@@ -277,8 +338,11 @@ def backward_phases(qkv) -> dict:
     for label, c in cases:
         q, k, v, out, lse, do = inputs(c)
         mask = dict(causal=c["causal"], window=c["window"])
+        reset_counts()
         got = ops.flash_attention_bwd(q, k, v, out, lse, do, **mask)
         torch.cuda.synchronize()
+        used = read_variants()
+        want_used = variants_of({("dq", c["dtype"]): 1, ("dkv", c["dtype"]): 1})
         want = ref.flash_attention_bwd_ref(q, k, v, out, lse, do, **mask)
         rels = [rel_err(a, b) for a, b in zip(got, want)]
         abss = [float((a.float() - b.float()).abs().max())
@@ -286,11 +350,11 @@ def backward_phases(qkv) -> dict:
         tol = GRAD_TOL[c["dtype"]]
         ok = all(r < tol for r in rels) and all(
             a.dtype == b.dtype and a.shape == b.shape
-            for a, b in zip(got, want))
-        print(f"[6] {label:14s} dq/dk/dv max|err|/max|ref| "
+            for a, b in zip(got, want)) and used == want_used
+        print(f"[6] {label:22s} dq/dk/dv max|err|/max|ref| "
               f"{rels[0]:.3e} / {rels[1]:.3e} / {rels[2]:.3e} (< {tol:g}), "
-              f"max|err| {abss[0]:.3e} / {abss[1]:.3e} / {abss[2]:.3e} "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
+              f"max|err| {abss[0]:.3e} / {abss[1]:.3e} / {abss[2]:.3e}; "
+              f"{used} {'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"backward kernels disagree with the plain version: {label}")
         if label == "training":
             result["abs_err"] = {"dq": abss[0], "dkv": max(abss[1:])}
@@ -363,9 +427,11 @@ def train_phases():
     step = make_train_step(cfg, adamw.AdamWConfig())
     t0 = time.perf_counter()
     metrics = []
+    reset_counts()
     for m, d in ((m_gpu, dev), (m_cpu, cpu)):
         st = adamw.init_state(dict(m.named_parameters()))
         metrics.append(step(m, st, {k: v.to(d) for k, v in batch.items()}))
+    f32_used = read_variants()
     loss_gpu, loss_cpu = (float(x["loss"]) for x in metrics)
     cpu_grads = {n: p.grad for n, p in m_cpu.named_parameters()}
     worst, worst_name = 0.0, ""
@@ -378,7 +444,10 @@ def train_phases():
           f"{loss_gpu:.6f} vs {loss_cpu:.6f} (|diff| < {TRAIN_LOSS_TOL:g}), "
           f"worst gradient max|err|/max|ref| {worst:.3e} ({worst_name}, "
           f"< {TRAIN_GRAD_TOL:g}) over {len(cpu_grads)} gradients, "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{time.perf_counter() - t0:.1f} s; card launches {f32_used}",
+          flush=True)
+    check(set(f32_used) == {"fwd/scalar", "dq/scalar", "dkv/scalar"},
+          f"the f32 train step launched {f32_used}: scalar kernels expected")
     check(abs(loss_gpu - loss_cpu) < TRAIN_LOSS_TOL,
           "train loss on the card disagrees with the CPU")
     check(worst < TRAIN_GRAD_TOL,
@@ -396,6 +465,9 @@ def train_phases():
     L = stats["layers"]
     per_step = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
                 "flash_attention_bwd_dkv": L}
+    per_step_variants = variants_of({("fwd", "bfloat16"): 2 * L,
+                                     ("dq", "bfloat16"): L,
+                                     ("dkv", "bfloat16"): L})
     print(f"[9] train yi-6b full width, {L} layers, {stats['params']:,} "
           f"params, B={B} T={T}: losses "
           f"{', '.join(f'{x:.4f}' for x in losses)}", flush=True)
@@ -403,13 +475,17 @@ def train_phases():
           f"mean after the first {stats['mean_step_ms']:.1f} ms, "
           f"{stats['tokens_per_s']:.0f} tokens/s, peak memory "
           f"{stats['peak_memory_bytes']} B "
-          f"({stats['peak_memory_bytes'] / 2**30:.2f} GiB); launches {counts}",
-          flush=True)
+          f"({stats['peak_memory_bytes'] / 2**30:.2f} GiB); launches {counts}; "
+          f"by variant, each step {per_step_variants}", flush=True)
     check(L == TRAIN_LAYERS, f"trained {L} layers, not {TRAIN_LAYERS}")
     check(len(losses) == steps and all(math.isfinite(x) for x in losses),
           f"non-finite or missing train losses: {losses}")
     check(all(s == per_step for s in stats["launches"]),
           f"launches per step {stats['launches']}, expected {per_step}")
+    check(all({k: n for k, n in s.items() if n} == per_step_variants
+              for s in stats["launches_by_variant"]),
+          f"launches by variant per step {stats['launches_by_variant']}, "
+          f"expected {per_step_variants}")
     check(counts == {**{k: steps * n for k, n in per_step.items()},
                      "selective_scan": 0},
           f"launches over the run {counts}, expected {steps} x {per_step} "
@@ -534,6 +610,7 @@ def jamba_phases():
                     m, caches, {"tokens": toks[:, t:t + 1].to(d)}, t)[0])
             results.append([x.cpu() for x in logits])
     counts = read_counts()
+    f32_used = read_variants()
     worst = 0.0
     for a, b in zip(*results):
         check(bool(torch.isfinite(a).all()), "non-finite jamba logits")
@@ -546,10 +623,14 @@ def jamba_phases():
           f"32/8 heads), 8 layers, f32, {n_params:,} params; reduced: "
           f"d_expert and d_ff {W}: card vs CPU logits max|err| {worst:.3e} "
           f"(< {MODEL_TOL:g}) over prefill + 3 decode steps; card launches "
-          f"{counts}; {time.perf_counter() - t0:.1f} s", flush=True)
+          f"{counts}, {f32_used}; {time.perf_counter() - t0:.1f} s",
+          flush=True)
     check(worst < MODEL_TOL, "jamba on the card disagrees with the CPU")
     check(counts["selective_scan"] == 7 and counts["flash_attention_fwd"] == 1,
           f"jamba prefill on the card launched {counts}")
+    check(f32_used == {"fwd/scalar": 1},
+          f"the f32 jamba prefill launched {f32_used}: the scalar forward "
+          "expected")
 
     # 13. serve jamba at full width and JAMBA_LAYERS layers
     cfg = dataclasses.replace(full, n_layers=JAMBA_LAYERS)
@@ -566,6 +647,7 @@ def jamba_phases():
     reset_counts()
     tokens, stats = serve.generate(model, prompts, G)
     counts = read_counts()
+    used = read_variants()
     tree = GraphFrame.from_events(global_collector().drain()).to_dict()
     dec = {c["name"]: c["metrics"] for c in tree["children"]}[
         "serve/decode_step"]
@@ -580,6 +662,8 @@ def jamba_phases():
         "decode_tok_s": stats["decode_tok_s"],
         "peak_memory_bytes": stats["peak_memory_bytes"],
         "prefill_kernel_launches": stats["prefill_kernel_launches"],
+        "prefill_launches_by_variant": {
+            k: n for k, n in stats["prefill_launches_by_variant"].items() if n},
     }
     del model, prompts
     gc.collect()
@@ -592,8 +676,9 @@ def jamba_phases():
           f" over {dec['count']} steps ({stats['decode_tok_s']:.1f} tok/s); "
           f"peak memory {stats['peak_memory_bytes']} B "
           f"({stats['peak_memory_bytes'] / 2**30:.2f} GiB); prefill launches "
-          f"{stats['prefill_kernel_launches']}, whole run {counts}",
-          flush=True)
+          f"{stats['prefill_kernel_launches']} "
+          f"{numbers['prefill_launches_by_variant']}, whole run {counts} "
+          f"{used}", flush=True)
     check(want == {"flash_attention_fwd": 2, "selective_scan": 14},
           f"expected 2 attention and 14 mamba layers, got {want}")
     check(stats["prefill_kernel_launches"] == want,
@@ -603,6 +688,10 @@ def jamba_phases():
                      "flash_attention_bwd_dkv": 0},
           f"launches over the serving run {counts}: decode must launch "
           f"neither kernel, and serving no backward kernel")
+    check(numbers["prefill_launches_by_variant"] == used
+          == {"fwd/wgmma": want["flash_attention_fwd"]},
+          f"jamba prefill launched {numbers['prefill_launches_by_variant']} "
+          f"(whole run {used}): every forward on the wgmma variant expected")
     check(stats["logits_finite"], "non-finite jamba serve logits")
     check(tuple(tokens.shape) == (B, G + 1), f"tokens {tuple(tokens.shape)}")
     check(0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size,
@@ -631,21 +720,34 @@ def card_info():
     return kind, count, card, sms, clock_hz
 
 
-def build_phase() -> None:
+def build_phase() -> dict:
     """Phase 2: build every kernel, one nvcc per source, all started
-    together, and print what ptxas says of each instantiation."""
+    together, and print what ptxas says of each instantiation, and the
+    shared memory and blocks an SM of the wgmma kernels. Returns
+    {instantiation: ptxas report}."""
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import kernel
 
     t0 = time.perf_counter()
     libs = build.build()
     build_s = time.perf_counter() - t0
     print(f"[2] built {', '.join(p.name for p in libs.values())} "
           f"in {build_s:.1f} s")
+    reports = {}
     for lib in libs.values():
         log = lib.with_suffix(".log")
         if log.exists():
             for kernel_name, report in ptxas_report(log.read_text()):
                 print(f"    ptxas {kernel_name}: {report}")
+                reports[kernel_name] = report
+    for name in ("fwd", "dkv"):
+        for D in kernel.HEAD_DIMS:
+            smem, blocks = kernel.wgmma_info(name, D)
+            reports[f"{name} wgmma D={D} smem"] = (
+                f"{smem} B dynamic shared memory, {blocks} blocks an SM")
+            print(f"    {name} wgmma D={D}: {smem} B dynamic shared memory, "
+                  f"{blocks} blocks an SM", flush=True)
+    return reports
 
 
 def setup():
@@ -683,15 +785,29 @@ def main() -> None:
     print(card, flush=True)
 
     # 2. build, one nvcc per source, all started together
-    build_phase()
+    reports = build_phase()
 
-    # 3. kernel against its plain version on the card
+    # 3. one wgmma product against torch.matmul, then the kernel against
+    # its plain version on the card
     gen = torch.Generator(device=dev).manual_seed(0)
+    for D in kernel.HEAD_DIMS:
+        a, b, v = (torch.randn(64, D, generator=gen, device=dev).to(
+            torch.bfloat16) for _ in range(3))
+        c1, c2 = kernel.wgmma_probe(a, b, v)
+        torch.cuda.synchronize()
+        want1 = torch.matmul(a.float(), b.float().T)
+        want2 = torch.matmul(c1.to(torch.bfloat16).float(), v.float())
+        r1, r2 = rel_err(c1, want1), rel_err(c2, want2)
+        print(f"[3] wgmma m64n64k16 x {D // 16} (K-major A, B) and m64n{D}k16"
+              f" x 4 (register A, MN-major B) against torch.matmul: "
+              f"max|err|/max|ref| {r1:.3e} / {r2:.3e} (< 1e-4)", flush=True)
+        check(r1 < 1e-4 and r2 < 1e-4, f"wgmma product disagrees at D={D}")
 
-    def qkv(B, T, H, K, D, dtype):
+    def qkv(B, T, H, K, D, dtype, S=None):
         dt = getattr(torch, dtype)
+        S = T if S is None else S
         return [torch.randn(shape, generator=gen, device=dev).to(dt)
-                for shape in ((B, T, H, D), (B, T, K, D), (B, T, K, D))]
+                for shape in ((B, T, H, D), (B, S, K, D), (B, S, K, D))]
 
     serving = dict(B=4, T=1024, H=32, K=4, D=128, dtype="bfloat16",
                    causal=True, window=None)
@@ -700,26 +816,36 @@ def main() -> None:
         ("ragged T=1000", dict(serving, T=1000)),
         ("window=256", dict(serving, window=256)),
         ("non-causal", dict(serving, causal=False)),
+        # the jamba prefill's attention layers: 8 kv heads, G = 4
+        ("jamba K=8", dict(serving, K=8)),
         ("f32 D=64", dict(B=2, T=512, H=8, K=2, D=64, dtype="float32",
                           causal=True, window=None)),
+        *SMALL_BF16_CASES,
     ]
     errs = {}
     for label, c in cases:
-        q, k, v = qkv(c["B"], c["T"], c["H"], c["K"], c["D"], c["dtype"])
+        q, k, v = qkv(c["B"], c["T"], c["H"], c["K"], c["D"], c["dtype"],
+                      c.get("S"))
+        reset_counts()
         out, lse = ops.flash_attention(q, k, v, causal=c["causal"],
                                        window=c["window"])
         torch.cuda.synchronize()
+        used = read_variants()
         r_out, r_lse = ref.flash_attention_ref(q, k, v, causal=c["causal"],
                                                window=c["window"])
-        e_out = float((out.float() - r_out.float()).abs().max())
+        err = (out.float() - r_out.float()).abs()
+        e_out = float(err.max())
+        at_worst = float(r_out.float().flatten()[err.argmax()].abs())
         e_lse = float((lse - r_lse).abs().max())
-        ok = e_out < OUT_TOL[c["dtype"]] and e_lse < LSE_TOL
+        ok = (e_out < OUT_TOL[c["dtype"]] and e_lse < LSE_TOL
+              and used == variants_of({("fwd", c["dtype"]): 1}))
         errs[label] = (e_out, e_lse)
-        print(f"[3] {label:14s} out max|err| {e_out:.3e} "
-              f"(< {OUT_TOL[c['dtype']]:g}), lse {e_lse:.3e} (< {LSE_TOL:g})"
-              f" {'ok' if ok else 'FAIL'}", flush=True)
+        print(f"[3] {label:27s} out max|err| {e_out:.3e} "
+              f"(< {OUT_TOL[c['dtype']]:g}; |ref out| there {at_worst:.3g})"
+              f", lse {e_lse:.3e} (< {LSE_TOL:g})"
+              f"; {used} {'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"kernel disagrees with its plain version: {label}")
-        del q, k, v, out, lse, r_out, r_lse
+        del q, k, v, out, lse, r_out, r_lse, err
 
     # 4. timing at the serving shape
     s = serving
@@ -749,6 +875,7 @@ def main() -> None:
     toks = torch.randint(0, cfg.vocab_size, (2, 100),
                          generator=torch.Generator().manual_seed(0))
     worst = 0.0
+    reset_counts()
     with torch.no_grad():
         results = []
         for m, d in ((m_gpu, dev), (m_cpu, cpu)):
@@ -764,9 +891,13 @@ def main() -> None:
             worst = max(worst, float((a - b).abs().max()))
     del m_gpu, m_cpu
     torch.cuda.empty_cache()
+    f32_used = read_variants()
     print(f"[5] yi-6b width, 2 layers, f32: card vs CPU logits max|err| "
-          f"{worst:.3e} (< {MODEL_TOL:g}) over prefill + 3 decode steps")
+          f"{worst:.3e} (< {MODEL_TOL:g}) over prefill + 3 decode steps; "
+          f"card launches {f32_used}")
     check(worst < MODEL_TOL, "model on the card disagrees with the CPU")
+    check(f32_used == {"fwd/scalar": cfg.n_layers},
+          f"the f32 prefill launched {f32_used}: the scalar forward expected")
 
     # 5b. serve yi-6b at full width: the serving path
     B, P, G = 4, 1024, 32
@@ -775,6 +906,7 @@ def main() -> None:
                                 "--batch", str(B), "--prompt-len", str(P),
                                 "--gen", str(G), "--seed", "0"])
     serve_counts = read_counts()
+    serve_used = read_variants()
     launches = serve_counts["flash_attention_fwd"]
     full = get_config("yi-6b", "full")
     steps = {c["name"]: c["metrics"] for c in stats["tree"]["children"]}
@@ -784,8 +916,8 @@ def main() -> None:
           f" over {dec['count']} steps")
     print(f"[5] serve: prefill {stats['prefill_ms']:.1f} ms, decode "
           f"{stats['decode_tok_s']:.1f} tok/s, peak memory "
-          f"{stats['peak_memory_bytes']} B, kernel launches {launches}",
-          flush=True)
+          f"{stats['peak_memory_bytes']} B, kernel launches {launches} "
+          f"({serve_used})", flush=True)
     check(launches == full.n_layers
           == stats["prefill_kernel_launches"]["flash_attention_fwd"],
           f"expected {full.n_layers} kernel launches in one prefill, "
@@ -795,6 +927,11 @@ def main() -> None:
           == serve_counts["selective_scan"] == 0,
           f"backward or scan kernels launched while serving yi-6b: "
           f"{serve_counts}")
+    prefill_used = {k: n for k, n in
+                    stats["prefill_launches_by_variant"].items() if n}
+    check(prefill_used == serve_used == {"fwd/wgmma": full.n_layers},
+          f"yi-6b prefill launched {prefill_used} (whole run {serve_used}): "
+          "every forward on the wgmma variant expected")
     check(stats["logits_finite"], "non-finite serve logits")
     check(tuple(tokens.shape) == (B, G + 1), f"tokens {tuple(tokens.shape)}")
     check(0 <= int(tokens.min()) and int(tokens.max()) < full.vocab_size,
@@ -818,6 +955,7 @@ def main() -> None:
     kernels = [{
         "name": "flash_attention_fwd",
         "route": "cuda",
+        "design": DESIGN["flash_attention_fwd"],
         "source": KERNEL_SOURCE,
         "replaces": TPU_KERNEL,
         "launches": fwd_total,
@@ -825,19 +963,24 @@ def main() -> None:
         "max_abs_err": errs["serving"][0],
         "lse_max_abs_err": errs["serving"][1],
         "ms": k_ms,
+        "ms_again": k2_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": lib_ms,
+        "ptxas": reports.get("flash_fwd_wgmma_kernel<128>"),
+        "smem": reports.get("fwd wgmma D=128 smem"),
         "shape": shape,
         "card": card,
     }]
     for part, replaces in (("dq", TPU_DQ), ("dkv", TPU_DKV)):
         total, by_path = launches_of(f"flash_attention_bwd_{part}")
         t = bwd["timing"][part]
+        name = f"flash_attention_bwd_{part}"
         kernels.append({
-            "name": f"flash_attention_bwd_{part}",
+            "name": name,
             "route": "cuda",
+            "design": DESIGN[name],
             "source": BWD_SOURCE,
             "replaces": replaces,
             "launches": total,
@@ -845,10 +988,16 @@ def main() -> None:
             "max_abs_err": bwd["abs_err"][part],
             "rel_err": bwd["rel_err"][part],
             "ms": t["ms"],
+            "ms_again": t["ms_again"],
             "plain_ms": bwd["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": bwd["library_ms"],
+            "ptxas": reports.get(
+                "flash_bwd_dkv_wgmma_kernel<128>" if part == "dkv"
+                else "flash_bwd_dq_kernel<bf16,128>"),
+            "smem": reports.get("dkv wgmma D=128 smem") if part == "dkv"
+            else None,
             "shape": shape,
             "card": card,
         })
@@ -857,6 +1006,7 @@ def main() -> None:
     kernels.append({
         "name": "selective_scan",
         "route": "cuda",
+        "design": DESIGN["selective_scan"],
         "source": SCAN_SOURCE,
         "replaces": TPU_SCAN,
         "launches": total,

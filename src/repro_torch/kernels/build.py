@@ -2,8 +2,9 @@
 
 Each source is compiled at first use with ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface under ``build/repro_torch/`` at the
-root of the checkout, named by the source's hash, and loaded with
-``ctypes``. :func:`build` compiles every source that has no library yet,
+root of the checkout, named by the hash of everything that builds it (the
+source, the headers ``*.cuh`` beside it, the compiler flags), and loaded
+with ``ctypes``. :func:`build` compiles every source that has no library yet,
 one ``nvcc`` per source, all started together. Nothing is built or loaded
 when this module is imported. A missing ``nvcc`` or a failed build raises:
 there is no fallback.
@@ -42,8 +43,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1(SOURCES[name].read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """The library of source ``name``: named by a hash of the source, of
+    every ``*.cuh`` in its directory (which it may include) and of
+    ``NVCC_FLAGS``, so that an edit to any of them builds anew."""
+    src = SOURCES[name]
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for path in (src, *sorted(src.parent.glob("*.cuh"))):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:12]}.so"
 
 
 def build() -> Dict[str, Path]:

@@ -8,42 +8,69 @@
 //   dp = do v^T,  ds = p (dp - delta) scale,
 //   dq = ds k,    dk = ds^T q,    dv = p^T do.
 //
-// Design, against the TPU version:
+// Kernels, picked by dtype before the launch:
+//   * dq: flash_bwd_dq_kernel, scalar f32 FMA on the CUDA cores, for f32
+//     and bf16 inputs;
+//   * dk/dv, bf16: flash_bwd_dkv_wgmma_kernel, on the tensor cores;
+//   * dk/dv, f32: flash_bwd_dkv_f32_kernel, scalar f32 FMA (true f32, no
+//     TF32).
+//
+// All of them, against the TPU version:
 //   * the TPU grid carries a dq (or dk/dv) sum in scratch across its
 //     sequential minor grid axis; here one thread block owns one output
 //     tile and loops over its band itself, so no sum crosses blocks and
-//     no atomics are needed;
+//     no atomics are needed: the result is deterministic;
 //   * dq: one block per (q tile of BQ rows, head h, batch b), looping over
 //     the kv tiles of the causal/window band of that q tile;
-//   * dk/dv: one block per (kv tile of BK keys, kv head kh, batch b),
-//     looping over the G = H/K query heads of its group and, for each,
-//     over the q tiles of the band of that kv tile. It writes (B,S,K,D)
-//     directly: the JAX wrapper instead repeats kv heads to H and lets
-//     jnp.repeat's VJP sum the group (src/repro/kernels/flash_attention/
-//     ops.py::flash_attention);
+//   * dk/dv: one block per (kv tile, kv head kh, batch b), looping over
+//     the G = H/K query heads of its group and, for each, over the q tiles
+//     of the band of that kv tile. It writes (B,S,K,D) directly: the JAX
+//     wrapper instead repeats kv heads to H and lets jnp.repeat's VJP sum
+//     the group (src/repro/kernels/flash_attention/ops.py::flash_attention);
 //   * the model layout (B,T,H,D) / (B,S,K,D) is read through strides;
 //     ragged edges (t >= T, s >= S) are zero-filled on load and masked;
 //   * masked pairs get p = 0 explicitly, and a row whose lse is -inf
-//     contributes nothing: exp(-inf - -inf) is never formed;
-//   * arithmetic is f32 on the CUDA cores (scalar FMA), as in flash_fwd.cu.
+//     contributes nothing: exp(-inf - -inf) is never formed.
 //
 // Bound at the training shape (yi-6b: B=4, T=S=1024, H=32, K=4, D=128,
 // causal, bf16), computed from shapes, not measured:
 //   dq   6*D FLOP per unmasked (q,k) pair per head = 5.16e10 -> 52 us at
 //        989 TFLOP/s; ~110 MB moved -> 33 us at 3.35 TB/s;
 //   dk/dv 8*D FLOP per pair = 6.88e10 -> 70 us; ~85 MB -> 25 us;
-// so both are bound by operations on the tensor cores. These kernels use
-// none (67 TFLOP/s f32 peak): wgmma, TMA and pipelining are later work.
+// so both are bound by operations on the tensor cores.
 //
-// Warp layout (both kernels): tiles of 32 x 32 (q rows x keys); NWARPS
+// Scalar layout (dq, f32 dk/dv): tiles of 32 x 32 (q rows x keys); NWARPS
 // warps each own ROWS rows of the block's own tile, keep their f32
 // accumulators in registers (d = lane + 32 c), and let lane index the
 // other tile's rows when forming s and dp.
+//
+// bf16 dk/dv design (flash_bwd_dkv_wgmma_kernel), hopper.cuh for the
+// building blocks:
+//   * a block is one consumer warpgroup (128 threads) on a kv tile of 64
+//     keys; it steps over (query head g, q tile of 64 rows) and computes
+//     the transposed products, so that each accumulator feeds the next
+//     product as it lies:
+//       S^T  = K Q^T and dP^T = V dO^T   (wgmma m64n64k16, all K-major),
+//       P^T  = exp2(S^T scale log2 e - lse log2 e), masked,
+//       dS^T = P^T (dP^T - delta) scale  (lse, delta by the fragment's
+//              column, from shared memory),
+//       dV  += P^T dO and dK += dS^T Q  (wgmma m64nDk16, P^T and dS^T bf16
+//              register A operands, dO and Q the MN-major B operands of
+//              the same [t][d] tiles);
+//     dK and dV stay in f32 registers (D/2 each a thread) to the end;
+//   * K and V arrive once; the Q, dO, lse and delta of each step stream
+//     through a ring of STAGES by cp.async (16-byte chunks, zero-filled
+//     past T and S; lse and delta 4 bytes each);
+//   * causal imbalance: kv tile 0, which walks every q tile, launches
+//     first (the kv tile index is the grid's slowest dimension), and 64-key
+//     tiles give the training shape 256 blocks, two resident on each SM.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -222,18 +249,21 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // dk / dv
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NWARPS * 32)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int T_len, int S_len, int H, int KH,
-                     int64_t qsb, int64_t qst, int64_t qsh,
-                     int64_t ksb, int64_t kss, int64_t ksh,
-                     int64_t vsb, int64_t vss, int64_t vsh,
-                     int64_t dsb, int64_t dst, int64_t dsh,
-                     int causal, int window, float scale) {
+flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
+                         const float* __restrict__ k,
+                         const float* __restrict__ v,
+                         const float* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         float* __restrict__ dk, float* __restrict__ dv,
+                         int T_len, int S_len, int H, int KH,
+                         int64_t qsb, int64_t qst, int64_t qsh,
+                         int64_t ksb, int64_t kss, int64_t ksh,
+                         int64_t vsb, int64_t vss, int64_t vsh,
+                         int64_t dsb, int64_t dst, int64_t dsh,
+                         int causal, int window, float scale) {
   constexpr int DP = D + 4;
   constexpr int NC = D / 32;
   extern __shared__ float4 smem4[];
@@ -253,14 +283,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
-  const T* kb = k + b * ksb + kh * ksh;
-  const T* vb = v + b * vsb + kh * vsh;
+  const float* kb = k + b * ksb + kh * ksh;
+  const float* vb = v + b * vsb + kh * vsh;
   for (int i = threadIdx.x; i < BK * D; i += blockDim.x) {
     const int r = i / D, d = i % D;
     const int s = k0 + r;
     const bool in = s < S_len;
-    sk[i] = in ? to_f32(kb[s * kss + d]) : 0.f;
-    sv[i] = in ? to_f32(vb[s * vss + d]) : 0.f;
+    sk[i] = in ? kb[s * kss + d] : 0.f;
+    sv[i] = in ? vb[s * vss + d] : 0.f;
   }
 
   float acc_k[ROWS][NC], acc_v[ROWS][NC];
@@ -282,8 +312,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int g = 0; g < G; ++g) {
     const int h = kh * G + g;
-    const T* qb = q + b * qsb + h * qsh;
-    const T* dob = dout + b * dsb + h * dsh;
+    const float* qb = q + b * qsb + h * qsh;
+    const float* dob = dout + b * dsb + h * dsh;
     const int64_t lrow = (static_cast<int64_t>(b) * H + h) * T_len;
     for (int q0 = lo; q0 < hi; q0 += BQ) {
       __syncthreads();  // previous tile fully read (and the K, V tiles stored)
@@ -291,8 +321,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const int r = i / D, d = i % D;
         const int t = q0 + r;
         const bool in = t < T_len;
-        sq[r * DP + d] = in ? to_f32(qb[t * qst + d]) : 0.f;
-        sdo[r * DP + d] = in ? to_f32(dob[t * dst + d]) : 0.f;
+        sq[r * DP + d] = in ? qb[t * qst + d] : 0.f;
+        sdo[r * DP + d] = in ? dob[t * dst + d] : 0.f;
       }
       for (int r = threadIdx.x; r < BQ; r += blockDim.x) {
         const int t = q0 + r;
@@ -371,8 +401,189 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int64_t off = ((static_cast<int64_t>(b) * S_len + key) * KH + kh) * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      store(dk + off + c * 32 + lane, acc_k[j][c]);
-      store(dv + off + c * 32 + lane, acc_v[j][c]);
+      dk[off + c * 32 + lane] = acc_k[j][c];
+      dv[off + c * 32 + lane] = acc_v[j][c];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dk / dv, bf16: wgmma
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+constexpr int DKV_BK = 64;   // keys a block: one consumer warpgroup
+constexpr int DKV_BQ = 64;   // query rows a step
+
+template <int D>
+struct DkvSmem {
+  static constexpr int STAGES = 2;                 // Q/dO/lse/delta ring
+  static constexpr int KV_BYTES = DKV_BK * D * 2;
+  static constexpr int Q_BYTES = DKV_BQ * D * 2;
+  // K, V, then STAGES x (Q, dO), then STAGES x (lse, delta); 1024 more to
+  // align the base
+  static constexpr int ROWS_OFF = 2 * KV_BYTES + STAGES * 2 * Q_BYTES;
+  static constexpr int BYTES = ROWS_OFF + STAGES * 2 * DKV_BQ * 4 + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(128, 2)
+flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
+                           const bf16* __restrict__ k,
+                           const bf16* __restrict__ v,
+                           const bf16* __restrict__ dout,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           bf16* __restrict__ dk, bf16* __restrict__ dv,
+                           int T_len, int S_len, int H, int KH,
+                           int64_t qsb, int64_t qst, int64_t qsh,
+                           int64_t ksb, int64_t kss, int64_t ksh,
+                           int64_t vsb, int64_t vss, int64_t vsh,
+                           int64_t dsb, int64_t dst, int64_t dsh,
+                           int causal, int window, float scale) {
+  using namespace hopper;
+  using Smem = DkvSmem<D>;
+  constexpr int STAGES = Smem::STAGES;
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(sm);
+  const uint32_t sk = base, sv = base + Smem::KV_BYTES;
+  auto sq = [&](int s) { return base + 2 * Smem::KV_BYTES + s * 2 * Smem::Q_BYTES; };
+  auto sdo = [&](int s) { return sq(s) + Smem::Q_BYTES; };
+  auto srow = [&](int s) {  // lse at [0, BQ), delta at [BQ, 2 BQ)
+    return reinterpret_cast<float*>(sm + Smem::ROWS_OFF) + s * 2 * DKV_BQ;
+  };
+
+  const int kh = blockIdx.x;
+  const int b = blockIdx.y;
+  const int k0 = blockIdx.z * DKV_BK;
+  const int G = H / KH;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+
+  // q band of this kv tile: rows in [lo, lo + n_qt * BQ)
+  int lo = 0, hi = T_len;
+  if (causal) lo = k0;
+  if (window > 0) hi = min(T_len, k0 + DKV_BK - 1 + window);
+  lo = lo / DKV_BQ * DKV_BQ;
+  const int n_qt = hi > lo ? (hi - lo + DKV_BQ - 1) / DKV_BQ : 0;
+  const int n_steps = G * n_qt;
+
+  load_tile<DKV_BK, D>(sk, k + b * ksb + kh * ksh + k0 * kss, kss, S_len - k0,
+                       tid, 128);
+  load_tile<DKV_BK, D>(sv, v + b * vsb + kh * vsh + k0 * vss, vss, S_len - k0,
+                       tid, 128);
+  cp_async_commit();
+  // step i: query head kh * G + i / n_qt, q tile i % n_qt
+  auto load_step = [&](int i) {
+    const int h = kh * G + i / n_qt;
+    const int t0 = lo + (i % n_qt) * DKV_BQ;
+    const int s = i % STAGES;
+    load_tile<DKV_BQ, D>(sq(s), q + b * qsb + h * qsh + t0 * qst, qst,
+                         T_len - t0, tid, 128);
+    load_tile<DKV_BQ, D>(sdo(s), dout + b * dsb + h * dsh + t0 * dst, dst,
+                         T_len - t0, tid, 128);
+    const int r = tid % DKV_BQ;
+    const float* src = (tid < DKV_BQ ? lse : delta) +
+                       (static_cast<int64_t>(b) * H + h) * T_len;
+    const bool in = t0 + r < T_len;
+    cp_async_4(smem_u32(srow(s) + tid), in ? src + t0 + r : src, in ? 4 : 0);
+  };
+#pragma unroll
+  for (int i = 0; i < STAGES - 1; ++i) {
+    if (i < n_steps) load_step(i);
+    cp_async_commit();
+  }
+
+  // this thread's two keys: key (d[4j+0..1]) and key + 8 (d[4j+2..3])
+  const int key0 = k0 + warp * 16 + lane / 4;
+  const int keys[2] = {key0, key0 + 8};
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  const float scale_log2 = scale * LOG2E;
+
+  for (int i = 0; i < n_steps; ++i) {
+    cp_async_wait<STAGES - 2>();  // step i (and K, V) landed for this thread
+    fence_proxy_async();
+    __syncthreads();              // ... for all; step i-1 fully read
+    if (i + STAGES - 1 < n_steps) load_step(i + STAGES - 1);
+    cp_async_commit();
+
+    const int s = i % STAGES;
+    const int t0 = lo + (i % n_qt) * DKV_BQ;
+    float st[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(st, desc_k<DKV_BK, D>(sk, 0, kk),
+                   desc_k<DKV_BQ, D>(sq(s), 0, kk), kk);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dp, desc_k<DKV_BK, D>(sv, 0, kk),
+                   desc_k<DKV_BQ, D>(sdo(s), 0, kk), kk);
+    wgmma_commit();
+    wgmma_wait<0>();
+
+    // rows >= T have zero q and do: they add nothing; keys >= S are never
+    // written. Only the causal diagonal and the window's edge need a mask.
+    const bool edge = (causal && k0 + DKV_BK - 1 > t0) ||
+                      (window > 0 && k0 <= t0 + DKV_BQ - 1 - window);
+    const float* rl = srow(s);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * j + 2 * (lane % 4) + e;
+        const float l = rl[c];
+        // a row with lse = -inf has p = 0: subtract +inf
+        const float l2 = l == -INFINITY ? INFINITY : l * LOG2E;
+        const float dl = rl[DKV_BQ + c];
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int idx = 4 * j + 2 * rr + e;
+          float p = exp2f(st[idx] * scale_log2 - l2);
+          const int t = t0 + c, key = keys[rr];
+          if (edge && !((!causal || key <= t) &&
+                        (window <= 0 || key > t - window)))
+            p = 0.f;
+          st[idx] = p;
+          dp[idx] = p * (dp[idx] - dl) * scale;
+        }
+      }
+    }
+    uint32_t pa[DKV_BQ / 16][4], da[DKV_BQ / 16][4];
+    pack_a<DKV_BQ / 16>(st, pa);
+    pack_a<DKV_BQ / 16>(dp, da);
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DKV_BQ / 16; ++kk)
+      wgmma_rs<D>(dv_acc, pa[kk], desc_mn<DKV_BQ, D>(sdo(s), kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < DKV_BQ / 16; ++kk)
+      wgmma_rs<D>(dk_acc, da[kk], desc_mn<DKV_BQ, D>(sq(s), kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int key = keys[rr];
+    if (key >= S_len) continue;
+    const int64_t off =
+        ((static_cast<int64_t>(b) * S_len + key) * KH + kh) * D;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const int col = 8 * c + 2 * (lane % 4);
+      const int i = 4 * c + 2 * rr;
+      *reinterpret_cast<__nv_bfloat162*>(dk + off + col) =
+          __floats2bfloat162_rn(dk_acc[i], dk_acc[i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off + col) =
+          __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
     }
   }
 }
@@ -391,8 +602,12 @@ struct Args {
   float scale;
 };
 
+// what the entries write to *launched: the kernel they launched
+constexpr int LAUNCHED_SCALAR = 0;
+constexpr int LAUNCHED_WGMMA = 1;
+
 template <typename T, int D>
-cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
+cudaError_t launch_dq(const Args& a, cudaStream_t stream, int* launched) {
   constexpr size_t bytes = dq_smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -405,52 +620,83 @@ cudaError_t launch_dq(const Args& a, cudaStream_t stream) {
       a.delta, static_cast<T*>(a.dq), a.T_len, a.S_len, a.H, a.KH, a.st[0],
       a.st[1], a.st[2], a.st[3], a.st[4], a.st[5], a.st[6], a.st[7], a.st[8],
       a.st[9], a.st[10], a.st[11], a.causal, a.window, a.scale);
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err == cudaSuccess) *launched = LAUNCHED_SCALAR;
+  return err;
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const Args& a, cudaStream_t stream) {
+template <int D>
+cudaError_t launch_dkv_f32(const Args& a, cudaStream_t stream, int* launched) {
   constexpr size_t bytes = dkv_smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dkv_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.S_len + BK - 1) / BK, a.KH, a.B);
-  flash_bwd_dkv_kernel<T, D><<<grid, NWARPS * 32, bytes, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.T_len,
+  flash_bwd_dkv_f32_kernel<D><<<grid, NWARPS * 32, bytes, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.dk), static_cast<float*>(a.dv),
+      a.T_len, a.S_len, a.H, a.KH, a.st[0], a.st[1], a.st[2], a.st[3],
+      a.st[4], a.st[5], a.st[6], a.st[7], a.st[8], a.st[9], a.st[10],
+      a.st[11], a.causal, a.window, a.scale);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) *launched = LAUNCHED_SCALAR;
+  return err;
+}
+
+template <int D>
+cudaError_t launch_dkv_wgmma(const Args& a, cudaStream_t stream,
+                             int* launched) {
+  constexpr int bytes = DkvSmem<D>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.KH, a.B, (a.S_len + DKV_BK - 1) / DKV_BK);
+  flash_bwd_dkv_wgmma_kernel<D><<<grid, 128, bytes, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
+      a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.T_len,
       a.S_len, a.H, a.KH, a.st[0], a.st[1], a.st[2], a.st[3], a.st[4],
       a.st[5], a.st[6], a.st[7], a.st[8], a.st[9], a.st[10], a.st[11],
       a.causal, a.window, a.scale);
-  return cudaGetLastError();
+  err = cudaGetLastError();
+  if (err == cudaSuccess) *launched = LAUNCHED_WGMMA;
+  return err;
 }
 
-template <typename T>
-cudaError_t dispatch(int which, int D, const Args& a, cudaStream_t s) {
-  switch (D) {
-    case 32: return which == 0 ? launch_dq<T, 32>(a, s) : launch_dkv<T, 32>(a, s);
-    case 64: return which == 0 ? launch_dq<T, 64>(a, s) : launch_dkv<T, 64>(a, s);
-    case 128: return which == 0 ? launch_dq<T, 128>(a, s) : launch_dkv<T, 128>(a, s);
-    default: return cudaErrorInvalidValue;
-  }
+// which: 0 = dq (scalar, f32 or bf16), 1 = dk/dv (scalar f32, wgmma bf16)
+template <int D>
+cudaError_t dispatch(int which, int dtype, const Args& a, cudaStream_t s,
+                     int* launched) {
+  if (which == 0)
+    return dtype == 0 ? launch_dq<float, D>(a, s, launched)
+                      : launch_dq<bf16, D>(a, s, launched);
+  return dtype == 0 ? launch_dkv_f32<D>(a, s, launched)
+                    : launch_dkv_wgmma<D>(a, s, launched);
 }
 
 int run(int which, const void* q, const void* k, const void* v,
         const void* dout, const void* lse, const void* delta, void* dq,
         void* dk, void* dv, int B, int T_len, int S_len, int H, int KH, int D,
         const long long* st, int causal, int window, float scale, int dtype,
-        void* stream) {
-  if (B <= 0 || T_len <= 0 || S_len <= 0 || KH <= 0 || H % KH != 0)
+        void* stream, int* launched) {
+  if (B <= 0 || T_len <= 0 || S_len <= 0 || KH <= 0 || H % KH != 0 ||
+      B > 65535 || (S_len + DKV_BK - 1) / DKV_BK > 65535)
     return cudaErrorInvalidValue;
   Args a{q, k, v, dout, static_cast<const float*>(lse),
          static_cast<const float*>(delta), dq, dk, dv, B, T_len, S_len, H, KH,
          {}, causal, window, scale};
   for (int i = 0; i < 12; ++i) a.st[i] = st[i];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch<float>(which, D, a, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(which, D, a, s);
-  return cudaErrorInvalidValue;
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  switch (D) {
+    case 32: return dispatch<32>(which, dtype, a, s, launched);
+    case 64: return dispatch<64>(which, dtype, a, s, launched);
+    case 128: return dispatch<128>(which, dtype, a, s, launched);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -461,7 +707,8 @@ int run(int which, const void* q, const void* k, const void* v,
 // flash_bwd_dq writes dq (B,T,H,D) contiguous; flash_bwd_dkv writes dk and
 // dv (B,S,K,D) contiguous; both in the inputs' dtype.
 // dtype: 0 = float32, 1 = bfloat16. window <= 0 means no window.
-// Each returns the cudaError_t of its launch (0 on success).
+// Each returns the cudaError_t of its launch (0 on success); on success
+// *launched names the kernel that ran: 0 a scalar one, 1 the wgmma one.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dq, int B, int T_len,
@@ -470,11 +717,13 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             long long kss, long long ksh, long long vsb,
                             long long vss, long long vsh, long long dsb,
                             long long dst, long long dsh, int causal,
-                            int window, float scale, int dtype, void* stream) {
+                            int window, float scale, int dtype, void* stream,
+                            int* launched) {
   const long long st[12] = {qsb, qst, qsh, ksb, kss, ksh,
                             vsb, vss, vsh, dsb, dst, dsh};
   return run(0, q, k, v, dout, lse, delta, dq, nullptr, nullptr, B, T_len,
-             S_len, H, KH, D, st, causal, window, scale, dtype, stream);
+             S_len, H, KH, D, st, causal, window, scale, dtype, stream,
+             launched);
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -486,9 +735,26 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              long long vsb, long long vss, long long vsh,
                              long long dsb, long long dst, long long dsh,
                              int causal, int window, float scale, int dtype,
-                             void* stream) {
+                             void* stream, int* launched) {
   const long long st[12] = {qsb, qst, qsh, ksb, kss, ksh,
                             vsb, vss, vsh, dsb, dst, dsh};
   return run(1, q, k, v, dout, lse, delta, nullptr, dk, dv, B, T_len, S_len,
-             H, KH, D, st, causal, window, scale, dtype, stream);
+             H, KH, D, st, causal, window, scale, dtype, stream, launched);
+}
+
+// The bf16 dk/dv kernel at head_dim D: its dynamic shared memory in
+// *smem_bytes and how many of its blocks fit an SM in *blocks_per_sm.
+// Returns the query's cudaError_t.
+extern "C" int flash_bwd_dkv_wgmma_info(int D, int* smem_bytes,
+                                        int* blocks_per_sm) {
+  switch (D) {
+    case 32: *smem_bytes = DkvSmem<32>::BYTES; break;
+    case 64: *smem_bytes = DkvSmem<64>::BYTES; break;
+    case 128: *smem_bytes = DkvSmem<128>::BYTES; break;
+    default: return cudaErrorInvalidValue;
+  }
+  auto kernel = D == 32 ? flash_bwd_dkv_wgmma_kernel<32>
+                : D == 64 ? flash_bwd_dkv_wgmma_kernel<64>
+                          : flash_bwd_dkv_wgmma_kernel<128>;
+  return hopper::occupancy(kernel, 128, *smem_bytes, blocks_per_sm);
 }

@@ -10,7 +10,10 @@ kernels; :class:`FlashAttention` ties the two into a
 tensor takes :mod:`.ref`. There is no fallback from one to the other.
 
 Launch counts, plain integers on ``flash_attention``: ``launches``
-(forward), ``bwd_dq_launches`` and ``bwd_dkv_launches``.
+(forward), ``bwd_dq_launches`` and ``bwd_dkv_launches``; beside them
+``launches_by_variant`` (:data:`.kernel.launches_by_variant`) counts each
+kernel launch under "<kernel>/<variant>" (``fwd``, ``dq``, ``dkv``;
+``wgmma`` or ``scalar``) as the C entry reports the kernel it ran.
 """
 from __future__ import annotations
 
@@ -57,6 +60,7 @@ def flash_attention(
 flash_attention.launches = 0
 flash_attention.bwd_dq_launches = 0
 flash_attention.bwd_dkv_launches = 0
+flash_attention.launches_by_variant = kernel.launches_by_variant
 
 
 def flash_attention_bwd(

@@ -50,7 +50,9 @@ def generate(model: Model, prompts: torch.Tensor, gen: int
     then one per decode step. The caches are allocated once at P + gen
     slots. Records ``serve/prefill`` and ``serve/decode_step`` regions.
     ``stats["prefill_kernel_launches"]`` counts each kernel's launches in
-    the prefill, by name.
+    the prefill, by name, and ``stats["prefill_launches_by_variant"]`` the
+    flash-attention launches by variant (``flash_attention.
+    launches_by_variant``).
     """
     cfg, device = model.cfg, model.device
     B, P = prompts.shape
@@ -58,6 +60,7 @@ def generate(model: Model, prompts: torch.Tensor, gen: int
     decode = make_decode_step(cfg)
     caches = model.alloc_cache(B, P + gen)
     launches0 = _launches()
+    variants0 = dict(flash_attention.launches_by_variant)
     with torch.no_grad():
         with regions.annotate_torch("serve/prefill", category="api") as box:
             logits = prefill(model, {"tokens": prompts}, caches)
@@ -66,6 +69,9 @@ def generate(model: Model, prompts: torch.Tensor, gen: int
         finite = torch.isfinite(logits).all()
         prefill_launches = {name: n - launches0[name]
                             for name, n in _launches().items()}
+        prefill_variants = {
+            k: n - variants0[k]
+            for k, n in flash_attention.launches_by_variant.items()}
         token = logits[:, 0].argmax(dim=-1).to(torch.int32)[:, None]
         out_tokens = [token]
         t0 = time.perf_counter()
@@ -87,6 +93,7 @@ def generate(model: Model, prompts: torch.Tensor, gen: int
         "decode_s": dt,
         "decode_tok_s": B * gen / dt if gen else float("nan"),
         "prefill_kernel_launches": prefill_launches,
+        "prefill_launches_by_variant": prefill_variants,
         "logits_finite": bool(finite),
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
                               if device.type == "cuda" else None),

@@ -121,12 +121,14 @@ def main(argv=None) -> Tuple[List[float], Dict[str, Any]]:
     losses: List[float] = []
     step_ms: List[float] = []
     launches: List[Dict[str, int]] = []
+    by_variant: List[Dict[str, int]] = []
     for step in range(start_step, args.steps):
         with regions.annotate("train/step", category="app", step=step):
             with regions.annotate("train/data", category="data"):
                 batch = {k: torch.from_numpy(v).long().to(device)
                          for k, v in data.batch_at(step).items()}
             before = _launch_counts()
+            before_v = dict(flash_attention.launches_by_variant)
             t0 = time.perf_counter()
             with regions.annotate("train/compute", category="api"):
                 metrics = step_fn(model, opt_state, batch)
@@ -134,6 +136,8 @@ def main(argv=None) -> Tuple[List[float], Dict[str, Any]]:
             dt = time.perf_counter() - t0
             after = _launch_counts()
             launches.append({k: after[k] - before[k] for k in after})
+            by_variant.append({k: n - before_v[k] for k, n in
+                               flash_attention.launches_by_variant.items()})
             detector.record(rank=0, step=step, duration_s=dt)
             losses.append(loss)
             step_ms.append(dt * 1e3)
@@ -175,6 +179,7 @@ def main(argv=None) -> Tuple[List[float], Dict[str, Any]]:
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
                               if device.type == "cuda" else None),
         "launches": launches,
+        "launches_by_variant": by_variant,
         "tree": gf.to_dict(),
     }
     return losses, stats
