@@ -8,8 +8,11 @@ Phases, each of which fails the run (non-zero exit, no final line):
   2. build the CUDA kernels (flash-attention forward; backward dq and
      dk/dv; selective scan) from this checkout's sources, one nvcc per
      source, in parallel; print what ptxas says of each instantiation
-     (registers, spills) and the dynamic shared memory and blocks an SM
-     of the bf16 tensor-core (wgmma) forward and dk/dv kernels;
+     (registers, spills), the dynamic shared memory and blocks an SM of
+     the bf16 tensor-core (wgmma) forward, dq and dk/dv kernels and of
+     the scan, and check in the scan's SASS (cuobjdump) that every
+     special-function instruction is one MUFU.EX2, four to a step (one a
+     state);
   3. hold one 64 x N x 16 wgmma product to torch.matmul, then the forward
      kernel to its plain PyTorch version on the card: the yi-6b serving
      shape (B=4, T=1024, H=32, K=4, D=128, bf16, causal), a ragged length,
@@ -29,8 +32,10 @@ Phases, each of which fails the run (non-zero exit, no final line):
      attention went through the wgmma forward;
   6. hold the dq and dk/dv kernels to the plain backward on the card: the
      yi-6b training shape (the serving shape above), a ragged length, a
-     window, non-causal, f32 at D=64, and the bf16 cases of phase 3 (T
-     of 1 as non-causal S != T); bf16 must launch the wgmma dk/dv;
+     window, non-causal, jamba's K=8, f32 at D=64, and the bf16 cases of
+     phase 3 (T of 1 as non-causal S != T); bf16 must launch the wgmma
+     dq and dk/dv, f32 the scalar ones; two launches of the wgmma dq on
+     the training shape must give bit-identical dq;
   7. time both backward kernels, the plain backward and the backward of
      scaled_dot_product_attention (yardstick only) at the training shape;
   8. one train step of the port on the card against the same step on the
@@ -39,11 +44,11 @@ Phases, each of which fails the run (non-zero exit, no final line):
      ``repro_torch.launch.train.main`` (batch 4, seq 1024, 6 steps, bf16
      compute, f32 master weights, full remat, AdamW) and check the kernel
      launches of every step: 2 forward (the forward and the remat
-     recompute), 1 dq and 1 dk/dv per layer, the forward and dk/dv on the
-     wgmma variants;
+     recompute), 1 dq and 1 dk/dv per layer, all on the wgmma variants;
  10. hold the selective-scan kernel to its plain PyTorch version on the
      card: the jamba serving shape (B=4, T=1024, d_inner 8192, d_state 16,
-     x bf16, dt/B/C f32), a ragged length and width, f32, and all-bf16;
+     x bf16, dt/B/C f32), a ragged length and width, f32, all-bf16, and
+     d_state 4 and 8 at the serving width (one and two lanes a channel);
  11. time the scan kernel and its plain version at the serving shape, with
      CUDA events; compute the least time the card could take;
  12. the port's jamba model on the card against the same model on the CPU:
@@ -63,6 +68,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -106,8 +112,9 @@ SCAN_STATE_TOL = 1e-4
 JAMBA_LAYERS = 16    # of jamba's 32: 52 GB of bf16 weights; 32 need ~103 GB
 JAMBA_CHECK_WIDTH = 512  # d_expert and d_ff of the card-vs-CPU jamba model
 # each kernel's design on the bf16 main paths
-DESIGN = {"flash_attention_fwd": "wgmma", "flash_attention_bwd_dq": "scalar",
-          "flash_attention_bwd_dkv": "wgmma", "selective_scan": "scalar"}
+DESIGN = {"flash_attention_fwd": "wgmma", "flash_attention_bwd_dq": "wgmma",
+          "flash_attention_bwd_dkv": "wgmma",
+          "selective_scan": "states split over lanes, cp.async ring"}
 # bf16 edge cases of phases 3 and 6: head dims 32 and 64, lengths shorter
 # than a tile and not multiples of it, a window that starts inside a 64-key
 # tile, non-causal S != T, and G = H/K of 1 and 8 (K = 2 and 4)
@@ -190,18 +197,15 @@ def ptxas_report(log: str):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             entry = m.group(1)
-            t = re.search(r"(flash_(?:bwd_dq|bwd_dkv)_kernel)"
-                          r"I(f|13__nv_bfloat16)Li(\d+)E", entry)
             u = re.search(r"(selective_scan_kernel)I(f|13__nv_bfloat16)"
                           r"(f|13__nv_bfloat16|S\d*_)Li(\d+)E", entry)
             w = re.search(r"((?:flash_fwd_wgmma|flash_fwd_f32|"
+                          r"flash_bwd_dq_wgmma|flash_bwd_dq_f32|"
                           r"flash_bwd_dkv_wgmma|flash_bwd_dkv_f32|"
                           r"wgmma_probe)_kernel)"
                           r"ILi(\d+)E", entry)
             if w:
                 entry = f"{w.group(1)}<{w.group(2)}>"
-            elif t:
-                entry = f"{t.group(1)}<{types[t.group(2)]},{t.group(3)}>"
             elif u:
                 # a repeated type is a substitution (S<n>_): bf16, bf16
                 entry = (f"{u.group(1)}<x {types[u.group(2)]}, dt/B/C "
@@ -295,12 +299,11 @@ def read_variants() -> dict:
 def variants_of(cases: dict) -> dict:
     """The variant counts that a run of the given launches must show;
     ``cases`` maps (kernel, dtype) to a count. Every bf16 launch of the
-    forward and dk/dv runs on the tensor cores (wgmma), f32 on the scalar
-    kernels, and dq is scalar in both."""
+    forward, dq and dk/dv runs on the tensor cores (wgmma), every f32
+    launch on the scalar kernels."""
     want = {}
     for (name, dtype), n in cases.items():
-        tensor_cores = dtype == "bfloat16" and name in ("fwd", "dkv")
-        key = f"{name}/{'wgmma' if tensor_cores else 'scalar'}"
+        key = f"{name}/{'wgmma' if dtype == 'bfloat16' else 'scalar'}"
         want[key] = want.get(key, 0) + n
     return {k: n for k, n in want.items() if n}
 
@@ -321,6 +324,7 @@ def backward_phases(qkv) -> dict:
         ("ragged T=1000", dict(training, T=1000)),
         ("window=256", dict(training, window=256)),
         ("non-causal", dict(training, causal=False)),
+        ("jamba K=8", dict(training, K=8)),
         ("f32 D=64", dict(B=2, T=512, H=8, K=2, D=64, dtype="float32",
                           causal=True, window=None)),
         *SMALL_BF16_CASES,
@@ -359,6 +363,18 @@ def backward_phases(qkv) -> dict:
         if label == "training":
             result["abs_err"] = {"dq": abss[0], "dkv": max(abss[1:])}
             result["rel_err"] = {"dq": rels[0], "dkv": max(rels[1:])}
+            # each block owns its dq tile: no atomics, the same bits twice
+            delta = (do.float() * out.float()).sum(-1).transpose(
+                1, 2).contiguous()
+            lse_c = lse.contiguous()
+            twice = [kernel.flash_bwd_dq(q, k, v, do, lse_c, delta)
+                     for _ in range(2)]
+            torch.cuda.synchronize()
+            same = torch.equal(*twice)
+            print(f"[6] training dq, two launches bit-identical: {same}",
+                  flush=True)
+            check(same, "two launches of the dq kernel differ")
+            del delta, lse_c, twice
         del q, k, v, out, lse, do, got, want
     torch.cuda.empty_cache()
 
@@ -519,6 +535,8 @@ def scan_phases(sms: int, clock_hz: float) -> dict:
         ("ragged T=1000 dI=8000", dict(serving, T=1000, dI=8000)),
         ("f32", dict(B=2, T=512, dI=1024, N=16, x="float32", p="float32")),
         ("all-bf16", dict(serving, p="bfloat16")),
+        ("d_state 4", dict(serving, N=4)),
+        ("d_state 8", dict(serving, N=8)),
     ]
     result = {}
     for label, c in cases:
@@ -720,13 +738,49 @@ def card_info():
     return kind, count, card, sms, clock_hz
 
 
+def scan_sass(lib) -> str:
+    """Count, in the SASS of every scan kernel in library ``lib``
+    (``cuobjdump -sass``), the special-function (MUFU) instructions and
+    the MUFU.EX2 among them; fail unless each kernel's are all EX2 and a
+    multiple of four: one a state, four states a lane and a step."""
+    import re
+
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300)
+    check(sass.returncode == 0, f"cuobjdump failed: {sass.stderr.strip()}")
+    counts, fn = {}, None
+    for line in sass.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = [0, 0]
+        elif fn and "MUFU" in line:
+            counts[fn][0] += 1
+            counts[fn][1] += "MUFU.EX2" in line
+    check(bool(counts), "no kernel in the scan library's SASS")
+    ok = all(mufu == ex2 and ex2 % 4 == 0 and ex2 > 0
+             for mufu, ex2 in counts.values())
+    summary = sorted({f"{mufu} MUFU, {ex2} MUFU.EX2"
+                      for mufu, ex2 in counts.values()})
+    print(f"    scan SASS, {len(counts)} kernels: {'; '.join(summary)} a "
+          f"kernel (four EX2 a step body: one a state)", flush=True)
+    check(ok, f"scan SASS: a MUFU other than EX2, or EX2 not four a step: "
+          f"{counts}")
+    return "; ".join(summary)
+
+
 def build_phase() -> dict:
     """Phase 2: build every kernel, one nvcc per source, all started
-    together, and print what ptxas says of each instantiation, and the
-    shared memory and blocks an SM of the wgmma kernels. Returns
-    {instantiation: ptxas report}."""
+    together, and print what ptxas says of each instantiation, the shared
+    memory and blocks an SM of the wgmma kernels and of the scan, and the
+    scan's special-function instructions (:func:`scan_sass`). Returns
+    {instantiation: report}."""
+    import torch
+
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel
+    from repro_torch.kernels.mamba_scan import kernel as scan_kernel
 
     t0 = time.perf_counter()
     libs = build.build()
@@ -740,13 +794,25 @@ def build_phase() -> dict:
             for kernel_name, report in ptxas_report(log.read_text()):
                 print(f"    ptxas {kernel_name}: {report}")
                 reports[kernel_name] = report
-    for name in ("fwd", "dkv"):
+    for name in ("fwd", "dq", "dkv"):
         for D in kernel.HEAD_DIMS:
             smem, blocks = kernel.wgmma_info(name, D)
             reports[f"{name} wgmma D={D} smem"] = (
                 f"{smem} B dynamic shared memory, {blocks} blocks an SM")
             print(f"    {name} wgmma D={D}: {smem} B dynamic shared memory, "
                   f"{blocks} blocks an SM", flush=True)
+    for x_dt, p_dt in ((torch.bfloat16, torch.float32),
+                       (torch.float32, torch.float32),
+                       (torch.bfloat16, torch.bfloat16)):
+        for N in scan_kernel.STATE_SIZES:
+            smem, blocks = scan_kernel.selective_scan_info(N, x_dt, p_dt)
+            label = (f"scan x {str(x_dt)[6:]}, dt/B/C {str(p_dt)[6:]}, "
+                     f"N={N}")
+            reports[f"{label} smem"] = (
+                f"{smem} B dynamic shared memory, {blocks} blocks an SM")
+            print(f"    {label}: {smem} B dynamic shared memory, {blocks} "
+                  f"blocks an SM", flush=True)
+    reports["scan sass"] = scan_sass(libs["selective_scan"])
     return reports
 
 
@@ -993,11 +1059,8 @@ def main() -> None:
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": bwd["library_ms"],
-            "ptxas": reports.get(
-                "flash_bwd_dkv_wgmma_kernel<128>" if part == "dkv"
-                else "flash_bwd_dq_kernel<bf16,128>"),
-            "smem": reports.get("dkv wgmma D=128 smem") if part == "dkv"
-            else None,
+            "ptxas": reports.get(f"flash_bwd_{part}_wgmma_kernel<128>"),
+            "smem": reports.get(f"{part} wgmma D=128 smem"),
             "shape": shape,
             "card": card,
         })
@@ -1016,10 +1079,15 @@ def main() -> None:
         "err_beyond_rounding": scan["serving"]["y_beyond_rounding"],
         "state_max_abs_err": scan["serving"]["state"],
         "ms": t["ms"],
+        "ms_again": t["ms_again"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
         "library_ms": None,
+        "ptxas": reports.get("selective_scan_kernel<x bf16, dt/B/C f32, "
+                             "N=16>"),
+        "smem": reports.get("scan x bfloat16, dt/B/C float32, N=16 smem"),
+        "sass": reports.get("scan sass"),
         "shape": "B=4 T=1024 dI=8192 N=16 x bf16 dt/B/C f32",
         "card": card,
     })

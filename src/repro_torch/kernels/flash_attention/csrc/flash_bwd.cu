@@ -9,11 +9,11 @@
 //   dq = ds k,    dk = ds^T q,    dv = p^T do.
 //
 // Kernels, picked by dtype before the launch:
-//   * dq: flash_bwd_dq_kernel, scalar f32 FMA on the CUDA cores, for f32
-//     and bf16 inputs;
-//   * dk/dv, bf16: flash_bwd_dkv_wgmma_kernel, on the tensor cores;
-//   * dk/dv, f32: flash_bwd_dkv_f32_kernel, scalar f32 FMA (true f32, no
-//     TF32).
+//   * bf16: flash_bwd_dq_wgmma_kernel and flash_bwd_dkv_wgmma_kernel, on
+//     the tensor cores;
+//   * f32: flash_bwd_dq_f32_kernel and flash_bwd_dkv_f32_kernel, scalar
+//     f32 FMA on the CUDA cores (true f32, no TF32), which the f32 model
+//     checks depend on.
 //
 // All of them, against the TPU version:
 //   * the TPU grid carries a dq (or dk/dv) sum in scratch across its
@@ -39,7 +39,7 @@
 //   dk/dv 8*D FLOP per pair = 6.88e10 -> 70 us; ~85 MB -> 25 us;
 // so both are bound by operations on the tensor cores.
 //
-// Scalar layout (dq, f32 dk/dv): tiles of 32 x 32 (q rows x keys); NWARPS
+// f32 layout: tiles of 32 x 32 (q rows x keys); NWARPS
 // warps each own ROWS rows of the block's own tile, keep their f32
 // accumulators in registers (d = lane + 32 c), and let lane index the
 // other tile's rows when forming s and dp.
@@ -64,6 +64,34 @@
 //   * causal imbalance: kv tile 0, which walks every q tile, launches
 //     first (the kv tile index is the grid's slowest dimension), and 64-key
 //     tiles give the training shape 256 blocks, two resident on each SM.
+//
+// bf16 dq design (flash_bwd_dq_wgmma_kernel), row-major like the forward
+// (flash_fwd.cu), whose layout it follows:
+//   * a block is 2 consumer warpgroups (256 threads) on a q tile of 128
+//     rows, 64 rows each, of one (batch, head); its Q and dO tiles arrive
+//     once, and each thread reads the lse and delta of its two rows once
+//     into registers (lse -inf, or a row past T, gives p = 0);
+//   * it walks the kv tiles (64 keys) of the causal/window band; K and V
+//     stream through a ring of STAGES = 3 by 16-byte cp.async, the copies
+//     of tile j+2 running while tile j is multiplied;
+//   * per kv tile: S = Q K^T and dP = dO V^T (wgmma m64n64k16, all
+//     K-major) as two commit groups, so that P = exp2(S scale log2 e -
+//     lse log2 e), masked at the causal diagonal, the window's edge and
+//     keys >= S, is formed while dP is still on the tensor cores; then
+//     dS = P (dP - delta) scale, rounded once to bf16 pairs as the
+//     register A operand of dQ += dS K (wgmma m64nDk16), K the MN-major B
+//     operand of the same [s][d] tile, as V is in the forward's O += P V;
+//   * dQ stays in f32 registers (D/2 a thread) and is written as bf16
+//     pairs from the fragment; each block owns its dq tile: no atomics,
+//     and the result is bit-identical from launch to launch;
+//   * a warpgroup whose rows see no key of a tile skips it; under a
+//     causal mask the heaviest q tiles launch first (the q tile index
+//     runs backwards through the grid's slowest dimension);
+//   * 128 rows and not 64: Q and dO (64 KB at D = 128) are loaded once
+//     for twice the rows, and each K/V tile serves two warpgroups. The
+//     f32 accumulators (dQ 64, S 32, dP 32 a thread at D = 128) allow one
+//     block an SM either way, so its 161 KB of shared memory (3 stages)
+//     costs no occupancy.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -78,11 +106,6 @@ constexpr int BQ = 32;
 constexpr int BK = 32;
 constexpr int NWARPS = 4;
 constexpr int ROWS = 32 / NWARPS;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 __device__ __forceinline__ bool allowed(int row, int key, int T_len, int S_len,
                                         int causal, int window) {
@@ -107,21 +130,23 @@ constexpr int dkv_smem_floats() {
 }
 
 // ---------------------------------------------------------------------------
-// dq
+// dq, f32: scalar FMA
 // ---------------------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NWARPS * 32)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
-                    int T_len, int S_len, int H, int KH,
-                    int64_t qsb, int64_t qst, int64_t qsh,
-                    int64_t ksb, int64_t kss, int64_t ksh,
-                    int64_t vsb, int64_t vss, int64_t vsh,
-                    int64_t dsb, int64_t dst, int64_t dsh,
-                    int causal, int window, float scale) {
+flash_bwd_dq_f32_kernel(const float* __restrict__ q,
+                        const float* __restrict__ k,
+                        const float* __restrict__ v,
+                        const float* __restrict__ dout,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        float* __restrict__ dq, int T_len, int S_len, int H,
+                        int KH, int64_t qsb, int64_t qst, int64_t qsh,
+                        int64_t ksb, int64_t kss, int64_t ksh,
+                        int64_t vsb, int64_t vss, int64_t vsh,
+                        int64_t dsb, int64_t dst, int64_t dsh,
+                        int causal, int window, float scale) {
   constexpr int DP = D + 4;
   constexpr int NC = D / 32;
   extern __shared__ float4 smem4[];
@@ -138,17 +163,17 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
 
-  const T* qb = q + b * qsb + h * qsh;
-  const T* dob = dout + b * dsb + h * dsh;
-  const T* kb = k + b * ksb + kh * ksh;
-  const T* vb = v + b * vsb + kh * vsh;
+  const float* qb = q + b * qsb + h * qsh;
+  const float* dob = dout + b * dsb + h * dsh;
+  const float* kb = k + b * ksb + kh * ksh;
+  const float* vb = v + b * vsb + kh * vsh;
 
   for (int i = threadIdx.x; i < BQ * D; i += blockDim.x) {
     const int r = i / D, d = i % D;
     const int t = q0 + r;
     const bool in = t < T_len;
-    sq[i] = in ? to_f32(qb[t * qst + d]) : 0.f;
-    sdo[i] = in ? to_f32(dob[t * dst + d]) : 0.f;
+    sq[i] = in ? qb[t * qst + d] : 0.f;
+    sdo[i] = in ? dob[t * dst + d] : 0.f;
   }
 
   float row_lse[ROWS], row_delta[ROWS], acc[ROWS][NC];
@@ -178,8 +203,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = i / D, d = i % D;
       const int s = k0 + r;
       const bool in = s < S_len;
-      sk[r * DP + d] = in ? to_f32(kb[s * kss + d]) : 0.f;
-      sv[r * DP + d] = in ? to_f32(vb[s * vss + d]) : 0.f;
+      sk[r * DP + d] = in ? kb[s * kss + d] : 0.f;
+      sv[r * DP + d] = in ? vb[s * vss + d] : 0.f;
     }
     __syncthreads();
 
@@ -239,9 +264,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < ROWS; ++i) {
     const int row = q0 + warp * ROWS + i;
     if (row >= T_len) continue;
-    T* o = dq + ((static_cast<int64_t>(b) * T_len + row) * H + h) * D;
+    float* o = dq + ((static_cast<int64_t>(b) * T_len + row) * H + h) * D;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) store(o + c * 32 + lane, acc[i][c]);
+    for (int c = 0; c < NC; ++c) o[c * 32 + lane] = acc[i][c];
   }
 }
 
@@ -589,6 +614,195 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// dq, bf16: wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int DQ_BQ = 128;   // q rows a block: 64 a consumer warpgroup
+constexpr int DQ_BK = 64;    // keys a kv tile
+constexpr int DQ_THREADS = 256;
+
+template <int D>
+struct DqSmem {
+  static constexpr int STAGES = 3;                 // K/V ring
+  static constexpr int Q_BYTES = DQ_BQ * D * 2;
+  static constexpr int KV_BYTES = DQ_BK * D * 2;
+  // Q, dO, then STAGES x (K, V); every tile a multiple of 1024 bytes; 1024
+  // more to align the base
+  static constexpr int BYTES = 2 * Q_BYTES + STAGES * 2 * KV_BYTES + 1024;
+};
+
+// Tells the compiler that the wgmma accumulator `d` changes here, so that
+// it neither reads nor moves those registers earlier, while a product that
+// writes them may still be in flight.
+template <int N>
+__device__ __forceinline__ void fence_accumulator(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int D>
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dq, int T_len, int S_len, int H,
+                          int KH, int64_t qsb, int64_t qst, int64_t qsh,
+                          int64_t ksb, int64_t kss, int64_t ksh,
+                          int64_t vsb, int64_t vss, int64_t vsh,
+                          int64_t dsb, int64_t dst, int64_t dsh,
+                          int causal, int window, float scale) {
+  using namespace hopper;
+  using Smem = DqSmem<D>;
+  constexpr int STAGES = Smem::STAGES;
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t sq = base, sdo = base + Smem::Q_BYTES;
+  const uint32_t skv = base + 2 * Smem::Q_BYTES;  // stage s: K, then V
+  auto sk = [&](int s) { return skv + s * 2 * Smem::KV_BYTES; };
+  auto sv = [&](int s) { return skv + s * 2 * Smem::KV_BYTES + Smem::KV_BYTES; };
+
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = qt * DQ_BQ;
+  const int kh = h / (H / KH);
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+
+  const bf16* kb = k + b * ksb + kh * ksh;
+  const bf16* vb = v + b * vsb + kh * vsh;
+
+  // kv band of this q tile: keys in [lo, lo + n_tiles * BK)
+  int lo = 0, hi = S_len;
+  if (causal) hi = min(S_len, q0 + DQ_BQ);
+  if (window > 0) lo = max(0, q0 - window + 1);
+  lo = lo / DQ_BK * DQ_BK;
+  const int n_tiles = hi > lo ? (hi - lo + DQ_BK - 1) / DQ_BK : 0;
+
+  auto load_kv = [&](int j) {
+    const int k0 = lo + j * DQ_BK;
+    const int s = j % STAGES;
+    load_tile<DQ_BK, D>(sk(s), kb + k0 * kss, kss, S_len - k0, tid,
+                        DQ_THREADS);
+    load_tile<DQ_BK, D>(sv(s), vb + k0 * vss, vss, S_len - k0, tid,
+                        DQ_THREADS);
+  };
+  load_tile<DQ_BQ, D>(sq, q + b * qsb + h * qsh + q0 * qst, qst, T_len - q0,
+                      tid, DQ_THREADS);
+  load_tile<DQ_BQ, D>(sdo, dout + b * dsb + h * dsh + q0 * dst, dst,
+                      T_len - q0, tid, DQ_THREADS);
+  cp_async_commit();
+#pragma unroll
+  for (int j = 0; j < STAGES - 1; ++j) {
+    if (j < n_tiles) load_kv(j);
+    cp_async_commit();
+  }
+
+  // this thread's two rows: r (d[4j+0..1]) and r + 8 (d[4j+2..3]), with
+  // their lse in the log2 domain (+inf for a row past T or with lse -inf,
+  // so that p = 0) and their delta
+  const int r_lo = q0 + wg * 64;             // the warpgroup's first row
+  const int row0 = r_lo + warp * 16 + lane / 4;
+  const int rows[2] = {row0, row0 + 8};
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int64_t idx = (static_cast<int64_t>(b) * H + h) * T_len + rows[rr];
+    const float l = rows[rr] < T_len ? lse[idx] : -INFINITY;
+    lse2[rr] = l == -INFINITY ? INFINITY : l * LOG2E;
+    dl[rr] = rows[rr] < T_len ? delta[idx] : 0.f;
+  }
+  const float scale_log2 = scale * LOG2E;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<STAGES - 2>();  // tile j (and Q, dO) landed for this thread
+    fence_proxy_async();
+    __syncthreads();              // ... for all; tile j-1 fully read
+    if (j + STAGES - 1 < n_tiles) load_kv(j + STAGES - 1);
+    cp_async_commit();
+
+    const int k0 = lo + j * DQ_BK;
+    const int s = j % STAGES;
+    // a warpgroup whose rows see no key of this tile (or lie past T) skips it
+    if (r_lo >= T_len || (causal && k0 > r_lo + 63) ||
+        (window > 0 && k0 + DQ_BK - 1 <= r_lo - window))
+      continue;
+
+    // S = Q K^T, then dP = dO V^T, as two groups: P is formed from S while
+    // dP is still on the tensor cores
+    float sc[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(sc, desc_k<DQ_BQ, D>(sq, wg * 64, kk),
+                   desc_k<DQ_BK, D>(sk(s), 0, kk), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dp, desc_k<DQ_BQ, D>(sdo, wg * 64, kk),
+                   desc_k<DQ_BK, D>(sv(s), 0, kk), kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_accumulator(sc);
+
+    const bool edge = k0 + DQ_BK > S_len ||
+                      (causal && k0 + DQ_BK - 1 > r_lo) ||
+                      (window > 0 && k0 <= r_lo + 63 - window);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int key = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i & 1);
+      const int rr = (i / 2) & 1;
+      float p = exp2f(sc[i] * scale_log2 - lse2[rr]);
+      if (edge && !allowed(rows[rr], key, T_len, S_len, causal, window))
+        p = 0.f;
+      sc[i] = p;
+    }
+    wgmma_wait<0>();
+    fence_accumulator(dp);
+    // dS = P (dP - delta) scale, rounded to bf16 pairs as the A operand
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int rr = (i / 2) & 1;
+      sc[i] = sc[i] * (dp[i] - dl[rr]) * scale;
+    }
+    uint32_t da[DQ_BK / 16][4];
+    pack_a<DQ_BK / 16>(sc, da);
+
+    // dQ += dS K, K the MN-major B operand of the same [s][d] tile
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DQ_BK / 16; ++kk)
+      wgmma_rs<D>(acc, da[kk], desc_mn<DQ_BK, D>(sk(s), kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_accumulator(acc);
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = rows[rr];
+    if (row >= T_len) continue;
+    bf16* orow = dq + ((static_cast<int64_t>(b) * T_len + row) * H + h) * D;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c) {
+      const int col = 8 * c + 2 * (lane % 4);
+      *reinterpret_cast<__nv_bfloat162*>(orow + col) = __floats2bfloat162_rn(
+          acc[4 * c + 2 * rr], acc[4 * c + 2 * rr + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -606,22 +820,42 @@ struct Args {
 constexpr int LAUNCHED_SCALAR = 0;
 constexpr int LAUNCHED_WGMMA = 1;
 
-template <typename T, int D>
-cudaError_t launch_dq(const Args& a, cudaStream_t stream, int* launched) {
+template <int D>
+cudaError_t launch_dq_f32(const Args& a, cudaStream_t stream, int* launched) {
   constexpr size_t bytes = dq_smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq_f32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bytes));
   if (err != cudaSuccess) return err;
   const dim3 grid((a.T_len + BQ - 1) / BQ, a.H, a.B);
-  flash_bwd_dq_kernel<T, D><<<grid, NWARPS * 32, bytes, stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.delta, static_cast<T*>(a.dq), a.T_len, a.S_len, a.H, a.KH, a.st[0],
-      a.st[1], a.st[2], a.st[3], a.st[4], a.st[5], a.st[6], a.st[7], a.st[8],
-      a.st[9], a.st[10], a.st[11], a.causal, a.window, a.scale);
+  flash_bwd_dq_f32_kernel<D><<<grid, NWARPS * 32, bytes, stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.lse, a.delta, static_cast<float*>(a.dq), a.T_len, a.S_len, a.H, a.KH,
+      a.st[0], a.st[1], a.st[2], a.st[3], a.st[4], a.st[5], a.st[6], a.st[7],
+      a.st[8], a.st[9], a.st[10], a.st[11], a.causal, a.window, a.scale);
   err = cudaGetLastError();
   if (err == cudaSuccess) *launched = LAUNCHED_SCALAR;
+  return err;
+}
+
+template <int D>
+cudaError_t launch_dq_wgmma(const Args& a, cudaStream_t stream,
+                            int* launched) {
+  constexpr int bytes = DqSmem<D>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_wgmma_kernel<D>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(a.H, a.B, (a.T_len + DQ_BQ - 1) / DQ_BQ);
+  flash_bwd_dq_wgmma_kernel<D><<<grid, DQ_THREADS, bytes, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
+      a.delta, static_cast<bf16*>(a.dq), a.T_len, a.S_len, a.H, a.KH,
+      a.st[0], a.st[1], a.st[2], a.st[3], a.st[4], a.st[5], a.st[6], a.st[7],
+      a.st[8], a.st[9], a.st[10], a.st[11], a.causal, a.window, a.scale);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) *launched = LAUNCHED_WGMMA;
   return err;
 }
 
@@ -666,13 +900,13 @@ cudaError_t launch_dkv_wgmma(const Args& a, cudaStream_t stream,
   return err;
 }
 
-// which: 0 = dq (scalar, f32 or bf16), 1 = dk/dv (scalar f32, wgmma bf16)
+// which: 0 = dq, 1 = dk/dv; each scalar for f32 (dtype 0), wgmma for bf16
 template <int D>
 cudaError_t dispatch(int which, int dtype, const Args& a, cudaStream_t s,
                      int* launched) {
   if (which == 0)
-    return dtype == 0 ? launch_dq<float, D>(a, s, launched)
-                      : launch_dq<bf16, D>(a, s, launched);
+    return dtype == 0 ? launch_dq_f32<D>(a, s, launched)
+                      : launch_dq_wgmma<D>(a, s, launched);
   return dtype == 0 ? launch_dkv_f32<D>(a, s, launched)
                     : launch_dkv_wgmma<D>(a, s, launched);
 }
@@ -683,7 +917,8 @@ int run(int which, const void* q, const void* k, const void* v,
         const long long* st, int causal, int window, float scale, int dtype,
         void* stream, int* launched) {
   if (B <= 0 || T_len <= 0 || S_len <= 0 || KH <= 0 || H % KH != 0 ||
-      B > 65535 || (S_len + DKV_BK - 1) / DKV_BK > 65535)
+      B > 65535 || (S_len + DKV_BK - 1) / DKV_BK > 65535 ||
+      (T_len + DQ_BQ - 1) / DQ_BQ > 65535)
     return cudaErrorInvalidValue;
   Args a{q, k, v, dout, static_cast<const float*>(lse),
          static_cast<const float*>(delta), dq, dk, dv, B, T_len, S_len, H, KH,
@@ -708,7 +943,9 @@ int run(int which, const void* q, const void* k, const void* v,
 // dv (B,S,K,D) contiguous; both in the inputs' dtype.
 // dtype: 0 = float32, 1 = bfloat16. window <= 0 means no window.
 // Each returns the cudaError_t of its launch (0 on success); on success
-// *launched names the kernel that ran: 0 a scalar one, 1 the wgmma one.
+// *launched names the kernel that ran: 0 the scalar one (f32), 1 the
+// wgmma one (bf16, which needs 16-byte aligned pointers and strides: the
+// wrapper checks).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dq, int B, int T_len,
@@ -740,6 +977,23 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                             vsb, vss, vsh, dsb, dst, dsh};
   return run(1, q, k, v, dout, lse, delta, nullptr, dk, dv, B, T_len, S_len,
              H, KH, D, st, causal, window, scale, dtype, stream, launched);
+}
+
+// The bf16 dq kernel at head_dim D: its dynamic shared memory in
+// *smem_bytes and how many of its blocks fit an SM in *blocks_per_sm.
+// Returns the query's cudaError_t.
+extern "C" int flash_bwd_dq_wgmma_info(int D, int* smem_bytes,
+                                       int* blocks_per_sm) {
+  switch (D) {
+    case 32: *smem_bytes = DqSmem<32>::BYTES; break;
+    case 64: *smem_bytes = DqSmem<64>::BYTES; break;
+    case 128: *smem_bytes = DqSmem<128>::BYTES; break;
+    default: return cudaErrorInvalidValue;
+  }
+  auto kernel = D == 32 ? flash_bwd_dq_wgmma_kernel<32>
+                : D == 64 ? flash_bwd_dq_wgmma_kernel<64>
+                          : flash_bwd_dq_wgmma_kernel<128>;
+  return hopper::occupancy(kernel, DQ_THREADS, *smem_bytes, blocks_per_sm);
 }
 
 // The bf16 dk/dv kernel at head_dim D: its dynamic shared memory in

@@ -2,13 +2,12 @@
 (``csrc/flash_fwd.cu``) and the two backward kernels, dq and dk/dv
 (``csrc/flash_bwd.cu``).
 
-The dtype picks each kernel's variant (:func:`variant`): bfloat16 runs the
-forward and dk/dv on the tensor cores (``wgmma``, fed by ``cp.async``
-copies, which need 16-byte aligned pointers and strides: :func:`check_aligned`
-raises before the launch otherwise); float32 runs them as scalar f32 FMA.
-dq is scalar in both dtypes. Each C entry reports the kernel it launched,
-and :data:`launches_by_variant` counts every launch under
-"<kernel>/<variant>" from that report.
+The dtype picks each kernel's variant (:func:`variant`): bfloat16 runs all
+three on the tensor cores (``wgmma``, fed by ``cp.async`` copies, which need
+16-byte aligned pointers and strides: :func:`check_aligned` raises before the
+launch otherwise); float32 runs them as scalar f32 FMA. Each C entry reports
+the kernel it launched, and :data:`launches_by_variant` counts every launch
+under "<kernel>/<variant>" from that report.
 
 The libraries are built at first use by :mod:`repro_torch.kernels.build`
 (``flash_fwd`` and ``flash_bwd``) and bound here with ``ctypes``. Nothing
@@ -30,7 +29,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the variant each kernel launches, by input dtype
 VARIANTS = {
     "fwd": {torch.float32: "scalar", torch.bfloat16: "wgmma"},
-    "dq": {torch.float32: "scalar", torch.bfloat16: "scalar"},
+    "dq": {torch.float32: "scalar", torch.bfloat16: "wgmma"},
     "dkv": {torch.float32: "scalar", torch.bfloat16: "wgmma"},
 }
 
@@ -86,8 +85,9 @@ def _library(name: str) -> ctypes.CDLL:
         lib.flash_bwd_dkv.argtypes = ([ptr] * 8 + [i32] * 6 + [i64] * 12
                                       + [i32, i32, f32, i32, ptr, ptr])
         lib.flash_bwd_dkv.restype = i32
-        lib.flash_bwd_dkv_wgmma_info.argtypes = [i32, ptr, ptr]
-        lib.flash_bwd_dkv_wgmma_info.restype = i32
+        for info in ("flash_bwd_dq_wgmma_info", "flash_bwd_dkv_wgmma_info"):
+            getattr(lib, info).argtypes = [i32, ptr, ptr]
+            getattr(lib, info).restype = i32
     return lib
 
 
@@ -242,9 +242,10 @@ def wgmma_probe(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor
 
 def wgmma_info(name: str, head_dim: int) -> Tuple[int, int]:
     """(dynamic shared memory in bytes, blocks that fit an SM) of the bf16
-    tensor-core kernel ``name`` ("fwd" or "dkv") at ``head_dim``, from the
+    tensor-core kernel ``name`` (fwd, dq, dkv) at ``head_dim``, from the
     CUDA runtime on the current card."""
     fn = {"fwd": ("flash_fwd", "flash_fwd_wgmma_info"),
+          "dq": ("flash_bwd", "flash_bwd_dq_wgmma_info"),
           "dkv": ("flash_bwd", "flash_bwd_dkv_wgmma_info")}[name]
     smem, blocks = ctypes.c_int(), ctypes.c_int()
     rc = getattr(_library(fn[0]), fn[1])(head_dim, ctypes.byref(smem),

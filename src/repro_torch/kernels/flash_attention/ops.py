@@ -13,7 +13,9 @@ Launch counts, plain integers on ``flash_attention``: ``launches``
 (forward), ``bwd_dq_launches`` and ``bwd_dkv_launches``; beside them
 ``launches_by_variant`` (:data:`.kernel.launches_by_variant`) counts each
 kernel launch under "<kernel>/<variant>" (``fwd``, ``dq``, ``dkv``;
-``wgmma`` or ``scalar``) as the C entry reports the kernel it ran.
+``wgmma`` or ``scalar``) as the C entry reports the kernel it ran: bf16
+inputs run all three on the tensor cores (``wgmma``), f32 inputs on the
+scalar f32 kernels.
 """
 from __future__ import annotations
 

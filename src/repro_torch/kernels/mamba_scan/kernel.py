@@ -25,6 +25,8 @@ def _library() -> ctypes.CDLL:
     lib.selective_scan.argtypes = [ptr] * 8 + [i32] * 4 + [i64] * 8 + [
         i32, i32, ptr]
     lib.selective_scan.restype = i32
+    lib.selective_scan_info.argtypes = [i32] * 3 + [ptr] * 2
+    lib.selective_scan_info.restype = i32
     return lib
 
 
@@ -87,3 +89,17 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"selective_scan launch failed: cudaError_t {rc}")
     return y, h
+
+
+def selective_scan_info(N: int, x_dtype: torch.dtype, p_dtype: torch.dtype
+                        ) -> Tuple[int, int]:
+    """(dynamic shared memory in bytes, blocks that fit an SM) of the kernel
+    for state size ``N``, x in ``x_dtype`` and dt, Bc, Cc in ``p_dtype``,
+    from the CUDA runtime on the current card."""
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    rc = _library().selective_scan_info(N, _DTYPES[x_dtype], _DTYPES[p_dtype],
+                                        ctypes.byref(smem),
+                                        ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"selective_scan_info failed: cudaError_t {rc}")
+    return smem.value, blocks.value

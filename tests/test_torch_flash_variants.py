@@ -1,8 +1,8 @@
 """Which flash-attention kernel a launch takes, and the checks made before it.
 
-The dtype picks the variant: bfloat16 runs the forward and dk/dv on the
-tensor cores (``wgmma``), float32 on the scalar f32 kernels; dq is scalar in
-both. The wgmma variants copy 16-byte chunks, so their wrappers raise
+The dtype picks the variant: bfloat16 runs the forward, dq and dk/dv on the
+tensor cores (``wgmma``), float32 on the scalar f32 kernels. The wgmma
+variants copy 16-byte chunks, so their wrappers raise
 ``ValueError`` on a base address or stride that is not a multiple of 16
 bytes, before any build or launch; that is testable here, on the CPU.
 Launches are counted by variant beside the existing counters
@@ -21,7 +21,7 @@ BF16, F32 = torch.bfloat16, torch.float32
 @pytest.mark.parametrize("name,dtype,want", [
     ("fwd", BF16, "wgmma"), ("fwd", F32, "scalar"),
     ("dkv", BF16, "wgmma"), ("dkv", F32, "scalar"),
-    ("dq", BF16, "scalar"), ("dq", F32, "scalar"),
+    ("dq", BF16, "wgmma"), ("dq", F32, "scalar"),
 ])
 def test_variant_by_dtype(name, dtype, want):
     assert kernel.variant(name, dtype) == want
@@ -34,7 +34,8 @@ def test_variant_refuses_other_dtypes():
 
 def test_counters_name_every_variant():
     assert set(ops.flash_attention.launches_by_variant) == {
-        "fwd/wgmma", "fwd/scalar", "dq/scalar", "dkv/wgmma", "dkv/scalar"}
+        "fwd/wgmma", "fwd/scalar", "dq/wgmma", "dq/scalar", "dkv/wgmma",
+        "dkv/scalar"}
 
 
 def test_ops_and_kernel_share_one_variant_count():
@@ -54,6 +55,7 @@ def _entry(rc, code):
 @pytest.mark.parametrize("name,code,key", [
     ("fwd", 0, "fwd/scalar"), ("fwd", 1, "fwd/wgmma"),
     ("dkv", 0, "dkv/scalar"), ("dkv", 1, "dkv/wgmma"), ("dq", 0, "dq/scalar"),
+    ("dq", 1, "dq/wgmma"),
 ])
 def test_launch_counts_the_kernel_the_entry_reports(monkeypatch, name, code,
                                                    key):
@@ -118,6 +120,8 @@ def test_alignment_refuses_misaligned_tensors(make):
 
 @pytest.mark.parametrize("fn,which", [
     ("flash_fwd", "q"), ("flash_fwd", "k"), ("flash_fwd", "v"),
+    ("flash_bwd_dq", "q"), ("flash_bwd_dq", "k"), ("flash_bwd_dq", "v"),
+    ("flash_bwd_dq", "do"),
     ("flash_bwd_dkv", "q"), ("flash_bwd_dkv", "k"), ("flash_bwd_dkv", "v"),
     ("flash_bwd_dkv", "do"),
 ])
@@ -136,13 +140,12 @@ def test_wrappers_check_alignment_before_any_launch(tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("fn", ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
-def test_f32_and_dq_take_no_alignment_check(tmp_path, monkeypatch, fn):
-    """The scalar kernels load element by element: a misaligned f32 tensor,
-    or bf16 for dq, gets past the alignment check to the device check."""
+def test_f32_takes_no_alignment_check(tmp_path, monkeypatch, fn):
+    """The scalar f32 kernels load element by element: a misaligned f32
+    tensor gets past the alignment check to the device check."""
     monkeypatch.setattr(kbuild, "BUILD_DIR", tmp_path)
-    dtype = BF16 if fn == "flash_bwd_dq" else F32
-    q = _shifted((2, 40, 4, 32), dtype)
-    _, k, v = _model_layout(dtype=dtype)
+    q = _shifted((2, 40, 4, 32), F32)
+    _, k, v = _model_layout(dtype=F32)
     rows = torch.zeros(2, 4, 40)
     args = (q, k, v) if fn == "flash_fwd" else (q, k, v, q, rows, rows)
     with pytest.raises(ValueError, match="CUDA tensors"):

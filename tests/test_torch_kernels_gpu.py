@@ -10,8 +10,8 @@ to 256 keys. Gradients are held to max|err| / max|ref| below 1e-4 in f32
 (``tests/test_kernels_flash.py``) and 2e-2 in bf16, whose outputs round to
 8 bits of mantissa.
 
-bf16 runs the forward and dk/dv on the tensor-core (wgmma) kernels, f32 on
-the scalar ones, as ``flash_attention.launches_by_variant`` shows; the bf16
+bf16 runs the forward, dq and dk/dv on the tensor-core (wgmma) kernels, f32
+on the scalar ones, as ``flash_attention.launches_by_variant`` shows; the bf16
 cases below cover head dims 32, 64 and 128, lengths 1, 17, 200 and 1000
 (shorter than a tile and not multiples of it), a window of 48 that starts
 inside a 64-key tile, non-causal attention with S != T at the kernel level,
@@ -162,7 +162,7 @@ def test_bf16_dkv_runs_on_the_tensor_cores(D, T, causal, window, G):
     got = flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
                               window=window)
     torch.cuda.synchronize()
-    assert _delta(before) == {"dq/scalar": 1, "dkv/wgmma": 1}
+    assert _delta(before) == {"dq/wgmma": 1, "dkv/wgmma": 1}
     want = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
                                    window=window)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
@@ -227,6 +227,37 @@ def test_misaligned_bf16_input_raises_before_launch():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("which", ["q", "k", "v", "do"])
+def test_misaligned_bf16_dq_raises_before_launch(which):
+    q, k, v, do = _bf16_inputs(64, 40, 2)
+    t = {"q": q, "k": k, "v": v, "do": do}
+    flat = torch.empty(t[which].numel() + 1, dtype=q.dtype, device=q.device)
+    t[which] = flat[1:].view(t[which].shape)
+    rows = torch.zeros(2, 4, 40, device=q.device)
+    before = _variants()
+    with pytest.raises(ValueError, match="16-byte"):
+        kernel.flash_bwd_dq(t["q"], t["k"], t["v"], t["do"], rows, rows)
+    assert _variants() == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,T,causal,window,G", [
+    (128, 1000, True, None, 8), (64, 200, False, 48, 2)])
+def test_bf16_dq_is_bit_identical_from_launch_to_launch(D, T, causal, window,
+                                                         G):
+    """Each block owns its dq tile and sums in a fixed order: no atomics."""
+    q, k, v, do = _bf16_inputs(D, T, G)
+    out, lse = flash_attention_ref(q, k, v, causal=causal, window=window)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    lse = lse.contiguous()
+    first, second = (kernel.flash_bwd_dq(q, k, v, do, lse, delta,
+                                         causal=causal, window=window)
+                     for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("D", [32, 64, 128])
 def test_one_wgmma_product_matches_matmul(D):
     """c1 = a b^T through wgmma m64n64k16 with both operands K-major in
@@ -258,6 +289,9 @@ SCAN_CASES = [
     (torch.bfloat16, torch.float32, 1, 200, 300, 16),   # ragged T and dI
     (torch.float32, torch.float32, 2, 128, 256, 8),
     (torch.bfloat16, torch.bfloat16, 2, 64, 128, 4),
+    # one and two lanes a channel, ragged T and dI
+    (torch.bfloat16, torch.float32, 2, 77, 200, 4),
+    (torch.bfloat16, torch.bfloat16, 3, 100, 136, 8),
 ]
 
 
@@ -284,4 +318,24 @@ def test_cuda_scan_matches_plain_version(x_dtype, p_dtype, B, T, dI, N):
     assert y.dtype == x_dtype and y.shape == y_ref.shape
     err = (y.float() - y_ref).abs() - SCAN_ROUNDING[x_dtype] * y_ref.abs()
     assert float(err.max()) < SCAN_TOL[x_dtype]
+    assert float((h - h_ref).abs().max()) < 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,N", [(256, 16), (3, 16), (5, 8)])
+def test_cuda_scan_takes_strided_slices(R, N):
+    """dt, Bc and Cc sliced from one projection (B, T, dI + R + 2N) as the
+    mamba mixer slices them: 16-byte copies where the slices are aligned,
+    element by element where they are not."""
+    x, _, A, _, _, D = _scan_inputs(torch.bfloat16, torch.float32, 2, 70,
+                                    192, N)
+    gen = torch.Generator(device="cuda").manual_seed(R)
+    proj = torch.randn(2, 70, 192 + R + 2 * N, generator=gen, device="cuda")
+    dt = torch.nn.functional.softplus(proj[..., :192] - 2)
+    Bc, Cc = proj[..., 192 + R:192 + R + N], proj[..., 192 + R + N:]
+    y, h = selective_scan(x, dt, A, Bc, Cc, D, return_state=True)
+    torch.cuda.synchronize()
+    y_ref, h_ref = selective_scan_ref(x, dt, A, Bc, Cc, D)
+    err = (y.float() - y_ref).abs() - SCAN_ROUNDING[x.dtype] * y_ref.abs()
+    assert float(err.max()) < SCAN_TOL[x.dtype]
     assert float((h - h_ref).abs().max()) < 1e-4
