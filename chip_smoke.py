@@ -19,8 +19,9 @@ Phases, each of which fails the run (non-zero exit, no final line):
      a window, non-causal, the jamba prefill's K=8, f32 at D=64, and bf16
      at D=32 and 64, T of 1
      and 17, a window of 48 that starts inside a tile, non-causal S != T,
-     and G = H/K of 1 and 8; every bf16 case must launch the wgmma
-     variant and every f32 case the scalar one;
+     and G = H/K of 1 and 8, and head dim 16 in bf16 and f32 (the
+     default commands' shape among them); every bf16 case must launch the
+     wgmma variant and every f32 case the scalar one;
   4. time the forward kernel, its plain version and PyTorch's
      scaled_dot_product_attention (yardstick only) at the serving shape,
      with CUDA events, turn about; compute the least time the card could
@@ -30,6 +31,10 @@ Phases, each of which fails the run (non-zero exit, no final line):
      at full width through ``repro_torch.launch.serve.main`` (batch 4,
      prompt 1024, 32 generated tokens) and check that every prefill
      attention went through the wgmma forward;
+ 5c. the bf16 forward on yi-6b's own q, k and v of every layer (a
+     prefill of its own, of the same model and prompts, outside the
+     serving path's counts and memory) against the f32 plain version: the
+     largest error must stay under the reference's bf16 bound;
   6. hold the dq and dk/dv kernels to the plain backward on the card: the
      yi-6b training shape (the serving shape above), a ragged length, a
      window, non-causal, jamba's K=8, f32 at D=64, and the bf16 cases of
@@ -58,6 +63,17 @@ Phases, each of which fails the run (non-zero exit, no final line):
      ``repro_torch.launch.serve.generate`` (batch 4, prompt 1024, 32
      generated tokens) and check that every mamba prefill went through the
      scan kernel and every attention prefill through the wgmma forward;
+ 15. the default commands on the card (``launch.serve`` for yi-6b and for
+     jamba, ``launch.train``; the smoke preset: bf16, head dim 16), each
+     held to the same call with ``--device cpu``: the prefill logits, the
+     first tokens where no near tie decides them, the train losses, and
+     every attention on the wgmma D = 16 variants;
+ 16. time the D = 16 forward, dq and dk/dv at the default training shape,
+     beside their plain versions and scaled_dot_product_attention;
+ 17. the COMB-style halo app (``launch.halo``) under all four comm
+     backends at box 128 a rank on 8 ranks: explicit against vendor
+     output, the card against the CPU at box 16 (output, checksum, fabric
+     counters), wall ms a run, and the Figure 2/3 comparison trees;
  14. print one JSON line with every ported kernel, then the result line.
 
 Exits non-zero without a result line when no CUDA card is present or the
@@ -111,6 +127,14 @@ SCAN_ROUNDING = {"float32": 2.0 ** -24, "bfloat16": 2.0 ** -8}
 SCAN_STATE_TOL = 1e-4
 JAMBA_LAYERS = 16    # of jamba's 32: 52 GB of bf16 weights; 32 need ~103 GB
 JAMBA_CHECK_WIDTH = 512  # d_expert and d_ff of the card-vs-CPU jamba model
+# the default commands (bf16 smoke preset) card vs CPU: prefill logits as
+# max|err| / max|ref| (the kernels' bf16 bound; one bf16 ulp at the
+# logits' |0.6| is 2^-9), train losses absolute (f32 losses of bf16
+# compute, ~5.5)
+DEFAULT_LOGITS_TOL = 2e-2
+DEFAULT_LOSS_TOL = 1e-3
+HALO_BOX = 128       # per rank; 8 ranks: a 256^3 f32 field of 64 MiB
+HALO_TOL = 1e-5      # f32 stencil sums, explicit vs vendor, card vs CPU
 # each kernel's design on the bf16 main paths
 DESIGN = {"flash_attention_fwd": "wgmma", "flash_attention_bwd_dq": "wgmma",
           "flash_attention_bwd_dkv": "wgmma",
@@ -120,6 +144,24 @@ DESIGN = {"flash_attention_fwd": "wgmma", "flash_attention_bwd_dq": "wgmma",
 # tile, non-causal S != T, and G = H/K of 1 and 8 (K = 2 and 4)
 _SMALL = dict(B=2, T=200, H=16, K=2, D=128, dtype="bfloat16", causal=True,
               window=None)
+# the attention of the default commands: the smoke preset's 4 heads of
+# D = 16 (4 kv heads), at the default training batch (B=8, T=256), bf16
+DEFAULT_ATTENTION = dict(B=8, T=256, H=4, K=4, D=16, dtype="bfloat16",
+                         causal=True, window=None)
+# head dim 16 in bf16 (wgmma, 32-byte swizzle, m64n16k16) and f32 (the
+# scalar kernels with half a warp's lanes on the head dim), for phases 3
+# and 6
+D16_CASES = [
+    ("bf16 D=16 default commands", DEFAULT_ATTENTION),
+    ("bf16 D=16 T=200 G=8", dict(_SMALL, D=16)),
+    ("bf16 D=16 T=1000 window=48", dict(_SMALL, D=16, T=1000, window=48)),
+    ("bf16 D=16 T=17 G=1", dict(_SMALL, D=16, T=17, H=2)),
+    ("bf16 D=16 T=160 S=300 non-causal", dict(_SMALL, D=16, T=160, S=300,
+                                               causal=False)),
+    ("f32 D=16 T=200", dict(_SMALL, D=16, dtype="float32")),
+    ("f32 D=16 T=17 window=8", dict(_SMALL, D=16, T=17, window=8,
+                                     dtype="float32")),
+]
 SMALL_BF16_CASES = [
     ("bf16 D=64 T=17 G=8", dict(_SMALL, T=17, D=64)),
     ("bf16 D=32 T=200", dict(_SMALL, D=32)),
@@ -328,6 +370,7 @@ def backward_phases(qkv) -> dict:
         ("f32 D=64", dict(B=2, T=512, H=8, K=2, D=64, dtype="float32",
                           causal=True, window=None)),
         *SMALL_BF16_CASES,
+        *D16_CASES,
     ]
 
     def inputs(c):
@@ -338,7 +381,7 @@ def backward_phases(qkv) -> dict:
                                            window=c["window"])
         return q, k, v, out, lse, do
 
-    result = {"abs_err": {}, "rel_err": {}}
+    result = {"abs_err": {}, "rel_err": {}, "errs": {}}
     for label, c in cases:
         q, k, v, out, lse, do = inputs(c)
         mask = dict(causal=c["causal"], window=c["window"])
@@ -360,6 +403,8 @@ def backward_phases(qkv) -> dict:
               f"max|err| {abss[0]:.3e} / {abss[1]:.3e} / {abss[2]:.3e}; "
               f"{used} {'ok' if ok else 'FAIL'}", flush=True)
         check(ok, f"backward kernels disagree with the plain version: {label}")
+        result["errs"][label] = {"dq": abss[0], "dkv": max(abss[1:]),
+                                 "dq_rel": rels[0], "dkv_rel": max(rels[1:])}
         if label == "training":
             result["abs_err"] = {"dq": abss[0], "dkv": max(abss[1:])}
             result["rel_err"] = {"dq": rels[0], "dkv": max(rels[1:])}
@@ -717,6 +762,232 @@ def jamba_phases():
     return counts, numbers
 
 
+def default_commands_phase():
+    """Phase 15: ``python -m repro_torch.launch.serve`` (yi-6b and jamba)
+    and ``python -m repro_torch.launch.train`` with their default
+    arguments (the smoke preset: bf16, head dim 16) on the card, each held
+    to the same call with ``--device cpu``. Returns {path: launch counts}."""
+    import math
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.launch import serve, train
+
+    counts = {}
+    for path, argv in (("serve_default", []),
+                       ("serve_jamba_default", ["--arch", "jamba-v0.1-52b"])):
+        cfg = get_config(argv[1] if argv else "yi-6b", "smoke")
+        n_attn = cfg.n_groups * sum(s.mixer == "attn" for s in cfg.pattern)
+        n_mamba = cfg.n_groups * sum(s.mixer == "mamba" for s in cfg.pattern)
+        reset_counts()
+        tokens, stats = serve.main(argv)
+        counts[path] = read_counts()
+        used = read_variants()
+        cpu_tokens, cpu_stats = serve.main(argv + ["--device", "cpu"])
+        got, want = stats["prefill_logits"], cpu_stats["prefill_logits"]
+        err = rel_err(got, want)
+        top2 = want.topk(2, dim=-1).values
+        margin = top2[..., 0] - top2[..., 1]
+        clear = margin > 2 * float((got - want).abs().max())
+        first_ok = bool((tokens[:, :1].cpu() == cpu_tokens[:, :1])[clear].all())
+        same = float((tokens.cpu() == cpu_tokens).float().mean())
+        print(f"[15] {path}: {cfg.name} smoke (D={cfg.head_dim}, "
+              f"{cfg.dtype}): prefill logits card vs CPU max|err|/max|ref| "
+              f"{err:.3e} (< {DEFAULT_LOGITS_TOL:g}); first tokens agree "
+              f"where the CPU's top-2 margin exceeds twice the logits' error "
+              f"({int(clear.sum())} of {clear.numel()}): {first_ok}; all "
+              f"tokens equal {same:.3f}; launches {counts[path]} {used}",
+              flush=True)
+        check(err < DEFAULT_LOGITS_TOL,
+              f"{path}: prefill logits on the card disagree with the CPU")
+        check(first_ok, f"{path}: a clear first token differs from the CPU's")
+        check(stats["logits_finite"], f"{path}: non-finite logits")
+        check(used == {"fwd/wgmma": n_attn},
+              f"{path} launched {used}: {n_attn} bf16 D=16 forwards on the "
+              "wgmma variant expected")
+        check(counts[path]["selective_scan"] == n_mamba,
+              f"{path}: {counts[path]['selective_scan']} scans, expected "
+              f"{n_mamba}")
+
+    reset_counts()
+    losses, stats = train.main([])
+    counts["train_default"] = read_counts()
+    cpu_losses, _ = train.main(["--device", "cpu"])
+    diff = max(abs(a - b) for a, b in zip(losses, cpu_losses))
+    L = stats["layers"]
+    per_step = variants_of({("fwd", "bfloat16"): 2 * L, ("dq", "bfloat16"): L,
+                            ("dkv", "bfloat16"): L})
+    print(f"[15] train_default: yi-6b smoke, {len(losses)} steps: losses "
+          f"card vs CPU max|diff| {diff:.3e} (< {DEFAULT_LOSS_TOL:g}); first "
+          f"{losses[0]:.5f} / {cpu_losses[0]:.5f}, last {losses[-1]:.5f} / "
+          f"{cpu_losses[-1]:.5f}; launches {counts['train_default']}, each "
+          f"step {per_step}", flush=True)
+    check(len(losses) == len(cpu_losses) and all(
+        math.isfinite(x) for x in losses), "train_default: bad losses")
+    check(diff < DEFAULT_LOSS_TOL,
+          "train_default: losses on the card disagree with the CPU")
+    check(all({k: n for k, n in s.items() if n} == per_step
+              for s in stats["launches_by_variant"]),
+          f"train_default launches by variant {stats['launches_by_variant']}"
+          f", expected {per_step} a step")
+    return counts
+
+
+def d16_timing_phase(qkv) -> dict:
+    """Phase 16: the D = 16 forward, dq and dk/dv at the default commands'
+    training shape (``DEFAULT_ATTENTION``), with CUDA events, turn about
+    with their plain versions and scaled_dot_product_attention (yardstick
+    only); compute the least time the card could take."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel, ref
+
+    c = DEFAULT_ATTENTION
+    q, k, v = qkv(c["B"], c["T"], c["H"], c["K"], c["D"], c["dtype"])
+    do = torch.randn_like(q)
+    out, lse = kernel.flash_fwd(q, k, v)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    runs = {"fwd": lambda: kernel.flash_fwd(q, k, v),
+            "dq": lambda: kernel.flash_bwd_dq(q, k, v, do, lse, delta),
+            "dkv": lambda: kernel.flash_bwd_dkv(q, k, v, do, lse, delta)}
+    ms = {name: cuda_ms(fn, iters=50) for name, fn in runs.items()}
+    plain = {"fwd": cuda_ms(lambda: ref.flash_attention_ref(q, k, v)),
+             "bwd": cuda_ms(lambda: ref.flash_attention_bwd_ref(
+                 q, k, v, out, lse, do), iters=5)}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    lib = {"fwd": cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True),
+                          iters=50)}
+    ot = sdpa(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2).contiguous()
+    lib["bwd"] = cuda_ms(lambda: torch.autograd.grad(
+        ot, (qt, kt, vt), dot, retain_graph=True), iters=50)
+    again = {name: cuda_ms(fn, iters=50) for name, fn in runs.items()}
+    shape = (c["B"], c["T"], c["T"], c["H"], c["K"], c["D"], True, None, 2,
+             PEAK_BF16_FLOPS)
+    fb_ms, fb_by, f_flops, f_bytes = attention_bound_ms(*shape)
+    bounds = {"fwd": (fb_ms, fb_by, f_flops, f_bytes),
+              **backward_bound_ms(*shape)}
+    result = {}
+    for name in ("fwd", "dq", "dkv"):
+        b_ms, b_by, flops, nbytes = bounds[name]
+        result[name] = {
+            "ms": ms[name], "ms_again": again[name], "bound_ms": b_ms,
+            "bound_by": b_by,
+            "plain_ms": plain["fwd" if name == "fwd" else "bwd"],
+            "library_ms": lib["fwd" if name == "fwd" else "bwd"]}
+        print(f"[16] D=16 {name} (B={c['B']} T={c['T']} H={c['H']} "
+              f"K={c['K']} bf16 causal): kernel {ms[name]:.4f} / "
+              f"{again[name]:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
+              f"{flops:.3e} FLOP, {nbytes / 1e6:.2f} MB), kernel at "
+              f"{b_ms / ms[name]:.2%} of bound", flush=True)
+    print(f"[16] D=16 plain forward {plain['fwd']:.4f} ms, plain backward "
+          f"(dq, dk, dv) {plain['bwd']:.4f} ms; sdpa forward "
+          f"{lib['fwd']:.4f} ms, backward {lib['bwd']:.4f} ms", flush=True)
+    return result
+
+
+HALO_BACKENDS = ("xla_auto", "explicit_serial", "explicit_overlap",
+                 "explicit_serial_oversub")
+
+
+def halo_phase():
+    """Phase 17: the COMB-style halo app (``repro_torch.launch.halo``)
+    under all four comm backends at box 128 per rank on 8 ranks (a
+    2 x 2 x 2 mesh: a 256^3 f32 field), 4 steps, 5 timed runs; explicit
+    against vendor output; the card against the CPU at box 16 (output,
+    checksum, fabric counters); median wall ms per backend; the Figure 2/3
+    comparison trees against xla_auto. Returns (launch counts, numbers)."""
+    import statistics
+
+    import torch
+
+    from repro_torch.core.comparison import compare_frames
+    from repro_torch.core.graphframe import GraphFrame
+    from repro_torch.launch import halo as halo_app
+
+    box, steps, runs = HALO_BOX, 4, 5
+    outs, frames, numbers = {}, {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for be in HALO_BACKENDS:
+        payload, out = halo_app.run(be, box=box, steps=steps, runs=runs,
+                                    device="cuda")
+        outs[be] = out
+        frames[be] = [GraphFrame.from_dict(f) for f in payload["frames"]]
+        walls = [w * 1e3 for w in payload["walls"]]
+        numbers[be] = {"median_ms": statistics.median(walls),
+                       "min_ms": min(walls), "max_ms": max(walls),
+                       "walls_ms": walls, "checksum": payload["checksum"]}
+        check(payload["device"] == torch.cuda.get_device_name(0),
+              f"halo {be} ran on {payload['device']}")
+        check(bool(torch.isfinite(out).all())
+              and tuple(out.shape) == (2, 2, 2, box, box, box),
+              f"halo {be}: output {tuple(out.shape)} or not finite")
+        # where a run's time goes: each COMB segment's mean over the runs,
+        # summed over the cycles
+        agg = GraphFrame.aggregate(frames[be], metric="sum", how="mean")
+        segments = {}
+        for path, node in agg.walk():
+            if len(path) == 3 and path[0].startswith("cycle_"):
+                segments[path[2]] = (segments.get(path[2], 0.0)
+                                     + node.metric("value") * 1e3)
+        numbers[be]["segments_ms"] = segments
+        print(f"[17] halo {be}: box {box}^3 a rank, 8 ranks, {steps} steps: "
+              f"wall ms a run median {numbers[be]['median_ms']:.3f}, min "
+              f"{numbers[be]['min_ms']:.3f}, max {numbers[be]['max_ms']:.3f} "
+              f"over {runs} runs; checksum {payload['checksum']!r}; "
+              f"segment ms a run "
+              f"{ {k: round(v, 4) for k, v in sorted(segments.items())} }",
+              flush=True)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[17] halo launches {counts} (the stencil is plain PyTorch, no "
+          f"kernel of the port); peak memory {peak} B", flush=True)
+    check(not any(counts.values()), f"the halo app launched {counts}")
+    vendor = outs["xla_auto"]
+    for be in HALO_BACKENDS[1:]:
+        r = rel_err(outs[be], vendor)
+        print(f"[17] {be} vs xla_auto output max|err|/max|ref| {r:.3e} "
+              f"(< {HALO_TOL:g})", flush=True)
+        check(r < HALO_TOL, f"halo {be} disagrees with the vendor backend")
+        numbers[be]["vs_vendor"] = r
+    del outs, vendor
+    torch.cuda.empty_cache()
+
+    def timeless(counters):
+        return {k: v if not k.endswith("_ns") else v["count"]
+                for k, v in counters.items()}
+
+    for be in HALO_BACKENDS:
+        card, out_c = halo_app.run(be, box=16, steps=steps, runs=1,
+                                   device="cuda")
+        cpu, out_p = halo_app.run(be, box=16, steps=steps, runs=1,
+                                  device="cpu")
+        r = rel_err(out_c.cpu(), out_p)
+        same = timeless(card["counters"]) == timeless(cpu["counters"])
+        c_rel = abs(card["checksum"] - cpu["checksum"]) / cpu["checksum"]
+        print(f"[17] {be} box 16, card vs CPU: output {r:.3e}, checksum "
+              f"{c_rel:.3e} (< {HALO_TOL:g}); fabric counters equal (time "
+              f"counters by count): {same}", flush=True)
+        check(r < HALO_TOL and c_rel < HALO_TOL,
+              f"halo {be} on the card disagrees with the CPU")
+        check(same, f"halo {be}: fabric counters differ card vs CPU")
+
+    for fig, be in (("Fig 2 (before the fix)", "explicit_serial_oversub"),
+                    ("Fig 3 (after the fix)", "explicit_overlap")):
+        cmp = compare_frames(frames["xla_auto"], frames[be],
+                             baseline_name="xla_auto", experimental_name=be)
+        print(f"[17] {fig}: ratio tree xla_auto / {be} (values < 1: "
+              f"{be} slower), box {box}", flush=True)
+        print(cmp.tree(fmt="{:.3f}", skip_nan=True), flush=True)
+        numbers[be]["hotspots"] = [("/".join(p), v)
+                                   for p, v in cmp.hotspots(4)]
+        print(f"[17] hotspots: {numbers[be]['hotspots']}", flush=True)
+    numbers["peak_memory_bytes"] = peak
+    return counts, numbers
+
+
 def card_info():
     """(device name, device count, the card line of nvidia-smi, SM count,
     top SM clock in Hz)."""
@@ -887,6 +1158,7 @@ def main() -> None:
         ("f32 D=64", dict(B=2, T=512, H=8, K=2, D=64, dtype="float32",
                           causal=True, window=None)),
         *SMALL_BF16_CASES,
+        *D16_CASES,
     ]
     errs = {}
     for label, c in cases:
@@ -1003,14 +1275,67 @@ def main() -> None:
     check(0 <= int(tokens.min()) and int(tokens.max()) < full.vocab_size,
           "generated token out of range")
 
+    # 5c. the bf16 forward on yi-6b's own prefill activations (q, k, v of
+    # each layer at full width, the prompts of 5b) against the f32 plain
+    # version; a prefill of its own, outside the serving path's counts
+    from repro_torch.models import attention
+
+    captured = []
+    flash = attention.flash_attention
+
+    def keep_inputs(q, k, v, causal=True, window=None):
+        captured.append((q.clone(), k.clone(), v.clone(), causal, window))
+        return flash(q, k, v, causal=causal, window=window)
+
+    model = Model(full, dev).init_weights(0)
+    prompts = torch.randint(0, full.vocab_size, (B, P),
+                            generator=torch.Generator().manual_seed(1)).to(dev)
+    attention.flash_attention = keep_inputs
+    try:
+        with torch.no_grad():
+            make_prefill_step(full)(model, {"tokens": prompts},
+                                    model.alloc_cache(B, P))
+    finally:
+        attention.flash_attention = flash
+    del model, prompts
+    act = {"max_abs_err": 0.0}
+    for layer, (q, k, v, causal, window) in enumerate(captured):
+        out, _ = kernel.flash_fwd(q, k, v, causal=causal, window=window)
+        want, _ = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                          causal=causal, window=window)
+        err = (out.float() - want).abs()
+        e = float(err.max())
+        if e >= act["max_abs_err"]:
+            act = {"max_abs_err": e, "layer": layer,
+                   "abs_ref_there": float(want.flatten()[err.argmax()].abs()),
+                   "max_abs_ref": float(want.abs().max())}
+        del out, want, err
+    n_layers = len(captured)
+    del captured
+    torch.cuda.empty_cache()
+    print(f"[5c] bf16 forward on yi-6b's prefill activations (B={B}, "
+          f"T={P}, {n_layers} layers) against the f32 plain version: largest "
+          f"max|err| {act['max_abs_err']:.4e} at layer {act.get('layer')} "
+          f"(|ref| there {act.get('abs_ref_there', 0):.3f}, max|ref| "
+          f"{act.get('max_abs_ref', 0):.3f}); bound {OUT_TOL['bfloat16']:g}",
+          flush=True)
+    check(n_layers == full.n_layers, f"captured {n_layers} prefill layers")
+    check(act["max_abs_err"] < OUT_TOL["bfloat16"],
+          "the bf16 forward exceeds the reference's bound on the model's "
+          "own activations")
+
     bwd = backward_phases(qkv)
     train_counts, train_stats = train_phases()
     scan = scan_phases(sms, clock_hz)
     jamba_counts, jamba = jamba_phases()
+    default_counts = default_commands_phase()
+    d16 = d16_timing_phase(qkv)
+    halo_counts, halo = halo_phase()
 
     # 14. result lines
     paths = {"serve": serve_counts, "train": train_counts,
-             "serve_jamba": jamba_counts}
+             "serve_jamba": jamba_counts, **default_counts,
+             "halo": halo_counts}
 
     def launches_of(name):
         by_path = {p: c[name] for p, c in paths.items()}
@@ -1064,6 +1389,39 @@ def main() -> None:
             "shape": shape,
             "card": card,
         })
+    # the head-dim-16 instantiations, on the default commands' paths
+    d16_paths = ("serve_default", "serve_jamba_default", "train_default")
+    for part, name, replaces, source in (
+            ("fwd", "flash_attention_fwd", TPU_KERNEL, KERNEL_SOURCE),
+            ("dq", "flash_attention_bwd_dq", TPU_DQ, BWD_SOURCE),
+            ("dkv", "flash_attention_bwd_dkv", TPU_DKV, BWD_SOURCE)):
+        t = d16[part]
+        if part == "fwd":
+            err = errs["bf16 D=16 default commands"][0]
+        else:
+            err = bwd["errs"]["bf16 D=16 default commands"][part]
+        kernels.append({
+            "name": f"{name}[D=16]",
+            "route": "cuda",
+            "design": "wgmma, 32-byte swizzle",
+            "source": source,
+            "replaces": replaces,
+            "launches": sum(paths[p][name] for p in d16_paths),
+            "launches_by_path": {p: paths[p][name] for p in d16_paths},
+            "max_abs_err": err,
+            "ms": t["ms"],
+            "ms_again": t["ms_again"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "ptxas": reports.get(
+                f"{'flash_fwd' if part == 'fwd' else 'flash_bwd_' + part}"
+                f"_wgmma_kernel<16>"),
+            "smem": reports.get(f"{part} wgmma D=16 smem"),
+            "shape": "B=8 T=256 H=4 K=4 D=16 bf16 causal",
+            "card": card,
+        })
     total, by_path = launches_of("selective_scan")
     t = scan["timing"]
     kernels.append({
@@ -1095,7 +1453,9 @@ def main() -> None:
                       "train": {k: train_stats[k] for k in (
                           "layers", "params", "step_ms", "mean_step_ms",
                           "tokens_per_s", "peak_memory_bytes")},
-                      "serve_jamba": jamba}))
+                      "serve_jamba": jamba,
+                      "bf16_forward_on_yi6b_activations": act,
+                      "halo": halo}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
 

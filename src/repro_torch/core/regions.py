@@ -8,19 +8,31 @@
 Regions nest; the full path is recorded per event, which is what lets the
 GraphFrame reconstruct the hierarchical context tree (paper Fig. 1).
 
-A copy of ``annotate``/``configure``/``config`` from ``repro.core.regions``
-(the port imports nothing of the JAX package), plus :func:`annotate_torch`,
-the twin of ``annotate_jax``.
+Categories mirror ExaMPI's runtime-configurable profiling groups (§4.2):
+profiling of each category can be switched on/off at runtime to bound
+overhead and trace size. The default category set used by the framework:
+
+    app         user/application level phases
+    api         public framework entry points (the "MPI procedure calls")
+    collective  communication primitives
+    runtime     internal machinery (dispatch, queues, checkpoint I/O)
+    data        input pipeline
+
+A copy of ``repro.core.regions`` (the port imports nothing of the JAX
+package), with :func:`annotate_torch` in place of ``annotate_jax``.
 """
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
 import time
 from typing import Any, Dict, Iterator, Optional, Set
 
 from .collector import Collector, global_collector
 from .events import Event
+
+DEFAULT_CATEGORIES = ("app", "api", "collective", "runtime", "data")
 
 
 class ProfilingConfig:
@@ -66,6 +78,10 @@ def _stack() -> list:
     return st
 
 
+def current_path() -> tuple:
+    return tuple(name for name, _cat in _stack())
+
+
 def clock_ns() -> int:
     return time.perf_counter_ns()
 
@@ -105,17 +121,20 @@ def annotate(
         )
 
 
-def _devices(out: Any):
-    """CUDA devices of the tensors in a (nested) output."""
-    import torch
+def profiled(name: Optional[str] = None, category: str = "app", **attrs: Any):
+    """Decorator form of :func:`annotate`."""
 
-    if isinstance(out, torch.Tensor):
-        return {out.device} if out.is_cuda else set()
-    if isinstance(out, dict):
-        out = list(out.values())
-    if isinstance(out, (list, tuple)):
-        return set().union(*(_devices(o) for o in out)) if out else set()
-    return set()
+    def deco(fn):
+        region_name = name or fn.__name__
+
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            with annotate(region_name, category=category, **attrs):
+                return fn(*args, **kwargs)
+
+        return wrapper
+
+    return deco
 
 
 @contextlib.contextmanager
@@ -138,5 +157,7 @@ def annotate_torch(
         if _config.fence and "out" in box:
             import torch
 
-            for dev in _devices(box["out"]):
+            from ..device import cuda_devices
+
+            for dev in cuda_devices(box["out"]):
                 torch.cuda.synchronize(dev)

@@ -41,8 +41,9 @@
 //
 // f32 layout: tiles of 32 x 32 (q rows x keys); NWARPS
 // warps each own ROWS rows of the block's own tile, keep their f32
-// accumulators in registers (d = lane + 32 c), and let lane index the
-// other tile's rows when forming s and dp.
+// accumulators in registers (d = lane + 32 c; at D = 16 lanes 16 to 31
+// hold no column), and let lane index the other tile's rows when forming
+// s and dp.
 //
 // bf16 dk/dv design (flash_bwd_dkv_wgmma_kernel), hopper.cuh for the
 // building blocks:
@@ -148,7 +149,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
                         int64_t dsb, int64_t dst, int64_t dsh,
                         int causal, int window, float scale) {
   constexpr int DP = D + 4;
-  constexpr int NC = D / 32;
+  constexpr int NC = (D + 31) / 32;
   extern __shared__ float4 smem4[];
   float* sq = reinterpret_cast<float*>(smem4);
   float* sdo = sq + BQ * D;
@@ -162,6 +163,7 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
   const int kh = h / (H / KH);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const bool lane_col = D % 32 == 0 || lane < D % 32;  // holds column lane
 
   const float* qb = q + b * qsb + h * qsh;
   const float* dob = dout + b * dsb + h * dsh;
@@ -249,7 +251,8 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
     for (int j = 0; j < BK; ++j) {
       float kk[NC];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) kk[c] = sk[j * DP + c * 32 + lane];
+      for (int c = 0; c < NC; ++c)
+        kk[c] = lane_col ? sk[j * DP + c * 32 + lane] : 0.f;
 #pragma unroll
       for (int i = 0; i < ROWS; ++i) {
         const float ds = dsw[i * BK + j];
@@ -266,7 +269,8 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q,
     if (row >= T_len) continue;
     float* o = dq + ((static_cast<int64_t>(b) * T_len + row) * H + h) * D;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) o[c * 32 + lane] = acc[i][c];
+    for (int c = 0; c < NC; ++c)
+      if (lane_col) o[c * 32 + lane] = acc[i][c];
   }
 }
 
@@ -290,7 +294,7 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
                          int64_t dsb, int64_t dst, int64_t dsh,
                          int causal, int window, float scale) {
   constexpr int DP = D + 4;
-  constexpr int NC = D / 32;
+  constexpr int NC = (D + 31) / 32;
   extern __shared__ float4 smem4[];
   float* sk = reinterpret_cast<float*>(smem4);
   float* sv = sk + BK * D;
@@ -307,6 +311,7 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
   const int G = H / KH;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const bool lane_col = D % 32 == 0 || lane < D % 32;  // holds column lane
 
   const float* kb = k + b * ksb + kh * ksh;
   const float* vb = v + b * vsb + kh * vsh;
@@ -401,8 +406,8 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
         float qq[NC], oo[NC];
 #pragma unroll
         for (int c = 0; c < NC; ++c) {
-          qq[c] = sq[i * DP + c * 32 + lane];
-          oo[c] = sdo[i * DP + c * 32 + lane];
+          qq[c] = lane_col ? sq[i * DP + c * 32 + lane] : 0.f;
+          oo[c] = lane_col ? sdo[i * DP + c * 32 + lane] : 0.f;
         }
 #pragma unroll
         for (int j = 0; j < ROWS; ++j) {
@@ -426,6 +431,7 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
     const int64_t off = ((static_cast<int64_t>(b) * S_len + key) * KH + kh) * D;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
+      if (!lane_col) continue;
       dk[off + c * 32 + lane] = acc_k[j][c];
       dv[off + c * 32 + lane] = acc_v[j][c];
     }
@@ -927,6 +933,7 @@ int run(int which, const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   switch (D) {
+    case 16: return dispatch<16>(which, dtype, a, s, launched);
     case 32: return dispatch<32>(which, dtype, a, s, launched);
     case 64: return dispatch<64>(which, dtype, a, s, launched);
     case 128: return dispatch<128>(which, dtype, a, s, launched);
@@ -985,12 +992,14 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
 extern "C" int flash_bwd_dq_wgmma_info(int D, int* smem_bytes,
                                        int* blocks_per_sm) {
   switch (D) {
+    case 16: *smem_bytes = DqSmem<16>::BYTES; break;
     case 32: *smem_bytes = DqSmem<32>::BYTES; break;
     case 64: *smem_bytes = DqSmem<64>::BYTES; break;
     case 128: *smem_bytes = DqSmem<128>::BYTES; break;
     default: return cudaErrorInvalidValue;
   }
-  auto kernel = D == 32 ? flash_bwd_dq_wgmma_kernel<32>
+  auto kernel = D == 16   ? flash_bwd_dq_wgmma_kernel<16>
+                : D == 32 ? flash_bwd_dq_wgmma_kernel<32>
                 : D == 64 ? flash_bwd_dq_wgmma_kernel<64>
                           : flash_bwd_dq_wgmma_kernel<128>;
   return hopper::occupancy(kernel, DQ_THREADS, *smem_bytes, blocks_per_sm);
@@ -1002,12 +1011,14 @@ extern "C" int flash_bwd_dq_wgmma_info(int D, int* smem_bytes,
 extern "C" int flash_bwd_dkv_wgmma_info(int D, int* smem_bytes,
                                         int* blocks_per_sm) {
   switch (D) {
+    case 16: *smem_bytes = DkvSmem<16>::BYTES; break;
     case 32: *smem_bytes = DkvSmem<32>::BYTES; break;
     case 64: *smem_bytes = DkvSmem<64>::BYTES; break;
     case 128: *smem_bytes = DkvSmem<128>::BYTES; break;
     default: return cudaErrorInvalidValue;
   }
-  auto kernel = D == 32 ? flash_bwd_dkv_wgmma_kernel<32>
+  auto kernel = D == 16   ? flash_bwd_dkv_wgmma_kernel<16>
+                : D == 32 ? flash_bwd_dkv_wgmma_kernel<32>
                 : D == 64 ? flash_bwd_dkv_wgmma_kernel<64>
                           : flash_bwd_dkv_wgmma_kernel<128>;
   return hopper::occupancy(kernel, 128, *smem_bytes, blocks_per_sm);

@@ -43,8 +43,8 @@
 //     bit set) of the same [s][d] tile; O stays in f32 registers, and the
 //     row sum l is taken of P before its rounding;
 //   * Q and a ring of STAGES K/V tiles arrive by 16-byte cp.async (zero-
-//     filled past T and S) in the 128-byte swizzle (64-byte at D = 32) the
-//     descriptors name: the copies of tile j+STAGES-1 run while tile j is
+//     filled past T and S) in the 128-byte swizzle (64-byte at D = 32,
+//     32-byte at D = 16) the descriptors name: the copies of tile j+STAGES-1 run while tile j is
 //     multiplied;
 //   * under a causal mask the heaviest q tiles launch first (the q tile
 //     index runs backwards through the grid's slowest dimension), and a
@@ -69,8 +69,9 @@ constexpr int LAUNCHED_WGMMA = 1;
 // ---------------------------------------------------------------------------
 //
 // BQ = BK = 32; one key per lane for the scores; each of the NWARPS warps
-// owns ROWS query rows and keeps their m, l and ROWS x D/32 accumulator
-// columns (d = lane + 32 c) in registers.
+// owns ROWS query rows and keeps their m, l and ROWS x ceil(D/32)
+// accumulator columns (d = lane + 32 c) in registers; at D = 16 lanes 16
+// to 31 hold no column.
 
 constexpr int F32_BQ = 32;
 constexpr int F32_BK = 32;
@@ -96,7 +97,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      int causal, int window, float scale) {
   constexpr int BQ = F32_BQ, BK = F32_BK;
   constexpr int DP = D + 4;
-  constexpr int NC = D / 32;
+  constexpr int NC = (D + 31) / 32;
   extern __shared__ float4 smem4[];
   float* sq = reinterpret_cast<float*>(smem4);
   float* sk = sq + BQ * D;
@@ -109,6 +110,7 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int kh = h / (H / KH);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  const bool lane_col = D % 32 == 0 || lane < D % 32;  // holds column lane
 
   const float* qb = q + b * qsb + h * qsh;
   const float* kb = k + b * ksb + kh * ksh;
@@ -197,7 +199,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < BK; ++j) {
       float vv[NC];
 #pragma unroll
-      for (int c = 0; c < NC; ++c) vv[c] = sv[j * D + c * 32 + lane];
+      for (int c = 0; c < NC; ++c)
+        vv[c] = lane_col ? sv[j * D + c * 32 + lane] : 0.f;
 #pragma unroll
       for (int i = 0; i < ROWS; ++i) {
         const float p = pw[i * BK + j];
@@ -216,7 +219,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = 1.f / lc;
     float* o = out + ((static_cast<int64_t>(b) * T_len + row) * H + h) * D;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) o[c * 32 + lane] = acc[i][c] * inv;
+    for (int c = 0; c < NC; ++c)
+      if (lane_col) o[c * 32 + lane] = acc[i][c] * inv;
     if (lane == 0)
       lse[(static_cast<int64_t>(b) * H + h) * T_len + row] = m[i] + logf(lc);
   }
@@ -543,6 +547,10 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   const bool f32 = dtype == 0;
   if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
   switch (D) {
+    case 16:
+      return (f32 ? launch_f32<16> : launch_wgmma<16>)(
+          q, k, v, out, lse, B, T_len, S_len, H, KH, st, causal, window,
+          scale, s, launched);
     case 32:
       return (f32 ? launch_f32<32> : launch_wgmma<32>)(
           q, k, v, out, lse, B, T_len, S_len, H, KH, st, causal, window,
@@ -566,6 +574,7 @@ extern "C" int wgmma_probe(const void* a, const void* b, const void* v,
                            void* c1, void* c2, int D, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 16: return launch_probe<16>(a, b, v, c1, c2, s);
     case 32: return launch_probe<32>(a, b, v, c1, c2, s);
     case 64: return launch_probe<64>(a, b, v, c1, c2, s);
     case 128: return launch_probe<128>(a, b, v, c1, c2, s);
@@ -579,12 +588,14 @@ extern "C" int wgmma_probe(const void* a, const void* b, const void* v,
 extern "C" int flash_fwd_wgmma_info(int D, int* smem_bytes,
                                     int* blocks_per_sm) {
   switch (D) {
+    case 16: *smem_bytes = FwdSmem<16>::BYTES; break;
     case 32: *smem_bytes = FwdSmem<32>::BYTES; break;
     case 64: *smem_bytes = FwdSmem<64>::BYTES; break;
     case 128: *smem_bytes = FwdSmem<128>::BYTES; break;
     default: return cudaErrorInvalidValue;
   }
-  auto kernel = D == 32 ? flash_fwd_wgmma_kernel<32>
+  auto kernel = D == 16   ? flash_fwd_wgmma_kernel<16>
+                : D == 32 ? flash_fwd_wgmma_kernel<32>
                 : D == 64 ? flash_fwd_wgmma_kernel<64>
                           : flash_fwd_wgmma_kernel<128>;
   return hopper::occupancy(kernel, WG_THREADS, *smem_bytes, blocks_per_sm);

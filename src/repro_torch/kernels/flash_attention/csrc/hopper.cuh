@@ -6,8 +6,8 @@
 // Tile layout. A tile of R rows by D bf16 columns is stored as D*2/W
 // column blocks of R rows of W = min(2D, 128) bytes each, block after
 // block, each row's 16-byte chunks permuted by the 128-byte (W = 128, D >=
-// 64) or 64-byte (W = 64, D = 32) swizzle that the descriptor names:
-// byte offset o holds what the plain layout holds at
+// 64), 64-byte (W = 64, D = 32) or 32-byte (W = 32, D = 16) swizzle that
+// the descriptor names: byte offset o holds what the plain layout holds at
 // o ^ (((o >> 7) & (W/16 - 1)) << 4). Tiles start on 1024-byte
 // boundaries, so offsets and shared addresses agree in the bits the
 // swizzle reads. The same tile serves as a K-major operand (rows are M or
@@ -45,8 +45,11 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 template <int D>
 struct Tile {
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128,
+                "tiles of 16, 32, 64 or 128 bf16 columns");
   static constexpr int W = D * 2 >= 128 ? 128 : D * 2;  // bytes in a row
-  static constexpr int LAYOUT = W == 128 ? 1 : 2;        // 128B / 64B swizzle
+  // the descriptor's swizzle mode: 1 = 128B, 2 = 64B, 3 = 32B
+  static constexpr int LAYOUT = W == 128 ? 1 : W == 64 ? 2 : 3;
   static constexpr int CHUNKS = D / 8;                   // 16-byte chunks a row
   // byte offset of 16-byte chunk c of row r in a tile of R rows
   template <int R>
@@ -187,6 +190,23 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// D (64 x 16, f32) (+)= A (64 x 16, bf16 pairs in registers, in
+// the accumulator's fragment layout) * B (16 x 16, shared, MN-major).
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(scale_d));
+}
+
 // D (64 x 32, f32) (+)= A (64 x 16, bf16 pairs in registers, in
 // the accumulator's fragment layout) * B (16 x 32, shared, MN-major).
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
@@ -275,12 +295,14 @@ template <int N>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b,
                                          int scale_d) {
-  if constexpr (N == 32) {
+  if constexpr (N == 16) {
+    wgmma_rs_n16(d, a, b, scale_d);
+  } else if constexpr (N == 32) {
     wgmma_rs_n32(d, a, b, scale_d);
   } else if constexpr (N == 64) {
     wgmma_rs_n64(d, a, b, scale_d);
   } else {
-    static_assert(N == 128, "wgmma_rs: N is 32, 64 or 128");
+    static_assert(N == 128, "wgmma_rs: N is 16, 32, 64 or 128");
     wgmma_rs_n128(d, a, b, scale_d);
   }
 }

@@ -24,7 +24,7 @@ import torch
 
 from .. import build
 
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the variant each kernel launches, by input dtype
 VARIANTS = {

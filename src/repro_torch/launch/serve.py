@@ -52,7 +52,8 @@ def generate(model: Model, prompts: torch.Tensor, gen: int
     ``stats["prefill_kernel_launches"]`` counts each kernel's launches in
     the prefill, by name, and ``stats["prefill_launches_by_variant"]`` the
     flash-attention launches by variant (``flash_attention.
-    launches_by_variant``).
+    launches_by_variant``); ``stats["prefill_logits"]`` holds the
+    prefill's logits (f32, on the CPU).
     """
     cfg, device = model.cfg, model.device
     B, P = prompts.shape
@@ -67,6 +68,7 @@ def generate(model: Model, prompts: torch.Tensor, gen: int
             box["out"] = logits
             _sync(device)
         finite = torch.isfinite(logits).all()
+        prefill_logits = logits.float().cpu()
         prefill_launches = {name: n - launches0[name]
                             for name, n in _launches().items()}
         prefill_variants = {
@@ -95,6 +97,7 @@ def generate(model: Model, prompts: torch.Tensor, gen: int
         "prefill_kernel_launches": prefill_launches,
         "prefill_launches_by_variant": prefill_variants,
         "logits_finite": bool(finite),
+        "prefill_logits": prefill_logits,
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
                               if device.type == "cuda" else None),
     }

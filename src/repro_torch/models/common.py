@@ -88,11 +88,50 @@ def cast_params(module: nn.Module, dtype: torch.dtype) -> Dict[str, Any]:
     return out
 
 
-def init_param_(p: torch.Tensor, spec: ParamSpec, gen: torch.Generator) -> None:
+# splitmix64's finalizer constants, as signed 64-bit integers
+_MIX1 = 0xBF58476D1CE4E5B9 - (1 << 64)
+_MIX2 = 0x94D049BB133111EB - (1 << 64)
+_NORMAL_CHUNK = 1 << 21
+
+
+def _srl(x: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64 ``x`` by ``s`` bits."""
+    return (x >> s) & ((1 << (64 - s)) - 1)
+
+
+def _mix(x: torch.Tensor) -> torch.Tensor:
+    """splitmix64's finalizer on int64 tensors (wrapping products)."""
+    x = (x ^ _srl(x, 30)) * _MIX1
+    x = (x ^ _srl(x, 27)) * _MIX2
+    return x ^ _srl(x, 31)
+
+
+def normal_(p: torch.Tensor, seed: int) -> None:
+    """Fill contiguous ``p`` in place with standard normals that depend on
+    ``seed`` and each element's index only, not on the device: a hash of
+    (seed, index) in integer arithmetic gives two 24-bit uniforms, and
+    Box-Muller one normal. The same model made on the card and on the CPU
+    so holds the same weights, up to an ulp of f32 ``log`` and ``cos``
+    (``torch.Generator`` draws other numbers on each device). Drawn in
+    chunks, so the integer temporaries stay small at any width."""
+    flat = p.view(-1)
+    key = int(_mix(torch.tensor([seed], dtype=torch.int64))[0])
+    for lo in range(0, flat.numel(), _NORMAL_CHUNK):
+        n = min(_NORMAL_CHUNK, flat.numel() - lo)
+        i = torch.arange(2 * lo, 2 * (lo + n), dtype=torch.int64,
+                         device=p.device) + key
+        u = ((_srl(_mix(i), 40) + 0.5) * 2.0 ** -24).to(torch.float32)
+        u1, u2 = u[0::2], u[1::2]
+        flat[lo:lo + n] = (torch.sqrt(-2.0 * torch.log(u1))
+                           * torch.cos(2.0 * math.pi * u2))
+
+
+def init_param_(p: torch.Tensor, spec: ParamSpec, seed: int) -> None:
     """Fill ``p`` in place from ``spec`` (same initializers as the JAX
-    package, not the same random numbers). ``scaled`` divides by the
-    fan-in, ``shape[-2]`` (``shape[0]`` of a 1-D spec): the input width of
-    a matrix, and of each expert's matrix in an (experts, in, out) stack."""
+    package, not the same random numbers; normals from :func:`normal_`).
+    ``scaled`` divides by the fan-in, ``shape[-2]`` (``shape[0]`` of a 1-D
+    spec): the input width of a matrix, and of each expert's matrix in an
+    (experts, in, out) stack."""
     if spec.init == "zeros":
         p.zero_()
     elif spec.init == "ones":
@@ -110,8 +149,8 @@ def init_param_(p: torch.Tensor, spec: ParamSpec, gen: torch.Generator) -> None:
             fan_in = spec.shape[-2] if len(spec.shape) > 1 else (
                 spec.shape[0] if spec.shape else 1)
             std = spec.scale / math.sqrt(max(1, fan_in))
-        x = torch.randn(spec.shape, generator=gen, device=p.device,
-                        dtype=torch.float32)
+        x = torch.empty(spec.shape, dtype=torch.float32, device=p.device)
+        normal_(x, seed)
         p.copy_(x.mul_(std))
     else:
         raise NotImplementedError(f"initializer {spec.init!r}")
@@ -121,17 +160,16 @@ def init_module_(module: nn.Module, specs_by_prefix: Dict[str, ParamSpec],
                  seed: int) -> None:
     """Seeded init of every parameter named in ``specs_by_prefix``.
 
-    Each tensor draws from its own generator, seeded from ``seed`` and a
-    stable hash of its path (``zlib.crc32``; Python's ``hash`` is salted
-    per process), so a tensor's values do not depend on init order.
+    Each tensor draws from its own seed, made from ``seed`` and a stable
+    hash of its path (``zlib.crc32``; Python's ``hash`` is salted per
+    process), so a tensor's values depend neither on init order nor on
+    the device.
     """
     params = dict(module.named_parameters())
     for path, spec in specs_by_prefix.items():
-        p = params[path]
-        gen = torch.Generator(device=p.device)
-        gen.manual_seed(zlib.crc32(f"{seed}:{path}".encode()))
         with torch.no_grad():
-            init_param_(p, spec, gen)
+            init_param_(params[path], spec,
+                        zlib.crc32(f"{seed}:{path}".encode()))
 
 
 # ---------------------------------------------------------------------------

@@ -339,3 +339,136 @@ def test_cuda_scan_takes_strided_slices(R, N):
     err = (y.float() - y_ref).abs() - SCAN_ROUNDING[x.dtype] * y_ref.abs()
     assert float(err.max()) < SCAN_TOL[x.dtype]
     assert float((h - h_ref).abs().max()) < 1e-4
+
+
+# ------------------------------------------------------------ head dim 16
+#
+# The smoke preset's head dim: bf16 on the tensor cores (32-byte swizzled
+# tiles, m64n16k16 products), f32 on the scalar kernels with half a warp's
+# lanes on the head dim. Bounds as above.
+
+D16_CASES = [
+    ("bfloat16", True, None, 256, 4, 4),     # the default commands' shape
+    ("bfloat16", True, None, 200, 8, 2),
+    ("bfloat16", True, 48, 1000, 8, 2),
+    ("bfloat16", False, None, 17, 2, 2),
+    ("float32", True, None, 200, 8, 2),
+    ("float32", True, 8, 17, 4, 1),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,causal,window,T,H,K", D16_CASES)
+def test_head_dim_16_kernels_match_plain_versions(dtype, causal, window, T,
+                                                  H, K):
+    q, k, v, do = _inputs(dtype, 16, T, H=H, K=K)
+    before = _variants()
+    out, lse = flash_attention(q, k, v, causal=causal, window=window)
+    dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                     window=window)
+    torch.cuda.synchronize()
+    v_name = "wgmma" if dtype == "bfloat16" else "scalar"
+    assert _delta(before) == {f"fwd/{v_name}": 1, f"dq/{v_name}": 1,
+                              f"dkv/{v_name}": 1}
+    r_out, r_lse = flash_attention_ref(q, k, v, causal=causal, window=window)
+    assert float((out.float() - r_out.float()).abs().max()) < TOL[dtype]
+    assert float((lse - r_lse).abs().max()) < 1e-3
+    want = flash_attention_bwd_ref(q, k, v, r_out, r_lse, do, causal=causal,
+                                   window=window)
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert _rel(got, ref) < GRAD_TOL[dtype]
+
+
+@pytest.mark.gpu
+def test_one_wgmma_product_matches_matmul_at_head_dim_16():
+    test_one_wgmma_product_matches_matmul(16)
+
+
+# ------------------------------------------------- the default commands
+#
+# serve.main and train.main with their default arguments (the smoke
+# preset: bf16 compute, head dim 16) on the card, held to the same call
+# with --device cpu. Weights are drawn alike on both devices
+# (models.common.normal_). Prefill logits within 2e-2 of max|ref| (the
+# kernels' bf16 bound); greedy tokens may differ only where bf16 rounding
+# flips a near tie, so the first token is held only where the CPU's top-2
+# margin exceeds twice the logits' error; losses within 1e-3 (f32 losses
+# of bf16 compute, ~5.5).
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("argv", [[], ["--arch", "jamba-v0.1-52b"]],
+                         ids=["yi-6b", "jamba"])
+def test_default_serve_command_on_the_card_matches_cpu(argv):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.launch import serve
+
+    before = _variants()
+    tokens, stats = serve.main(argv)
+    used = _delta(before)
+    cpu_tokens, cpu_stats = serve.main(argv + ["--device", "cpu"])
+    got, want = stats["prefill_logits"], cpu_stats["prefill_logits"]
+    assert _rel(got, want) < 2e-2
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * float((got - want).abs().max())
+    assert bool((tokens[:, :1].cpu() == cpu_tokens[:, :1])[clear].all())
+    assert set(used) == {"fwd/wgmma"}
+
+
+@pytest.mark.gpu
+def test_default_train_command_on_the_card_matches_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.launch import train
+
+    losses, stats = train.main(["--steps", "4"])
+    cpu_losses, _ = train.main(["--steps", "4", "--device", "cpu"])
+    assert max(abs(a - b) for a, b in zip(losses, cpu_losses)) < 1e-3
+    for step in stats["launches_by_variant"]:
+        assert {k: n for k, n in step.items() if n} == {
+            "fwd/wgmma": 2, "dq/wgmma": 1, "dkv/wgmma": 1}
+
+
+# ------------------------------------------------------------ the halo app
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["xla_auto", "explicit_serial",
+                                     "explicit_overlap",
+                                     "explicit_serial_oversub"])
+def test_halo_app_on_the_card_matches_cpu(backend):
+    """Output within 1e-5 relative (f32 stencil sums), the same checksum,
+    and the same fabric counters but for sampled times."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.launch import halo
+
+    card, out_c = halo.run(backend, box=16, steps=3, runs=1, device="cuda")
+    cpu, out_p = halo.run(backend, box=16, steps=3, runs=1, device="cpu")
+    assert out_c.is_cuda
+    assert _rel(out_c.cpu(), out_p) < 1e-5
+    assert abs(card["checksum"] - cpu["checksum"]) < 1e-5 * cpu["checksum"]
+    timeless = lambda c: {k: v["count"] if k.endswith("_ns") else v
+                          for k, v in c.items()}
+    assert timeless(card["counters"]) == timeless(cpu["counters"])
+
+
+@pytest.mark.gpu
+def test_progress_engine_issues_on_its_own_stream():
+    """The engine's thread issues on a stream other than the caller's, so
+    the exchange can overlap the caller's interior stencil; Request.wait
+    orders the caller's stream after it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.comm.progress import ProgressEngine
+
+    eng = ProgressEngine("incoming")
+    try:
+        x = torch.arange(1 << 20, device="cuda", dtype=torch.float32)
+        caller = torch.cuda.current_stream()
+        req = eng.submit(lambda t: (torch.cuda.current_stream(), t * 2), x)
+        stream, y = req.wait(timeout=30)
+        assert stream == eng.stream and stream != caller
+        assert torch.equal(y, x * 2)
+    finally:
+        eng.shutdown()
