@@ -74,6 +74,19 @@ Phases, each of which fails the run (non-zero exit, no final line):
      backends at box 128 a rank on 8 ranks: explicit against vendor
      output, the card against the CPU at box 16 (output, checksum, fabric
      counters), wall ms a run, and the Figure 2/3 comparison trees;
+ 18. device traces of the main paths, each one profiled call with its
+     model alive (inside phases 5c, 9 and 13): a yi-6b train step, a yi-6b
+     prefill and decode step, a jamba prefill; for each the card's busy
+     and idle share, the top kernels, the longest idle gaps and the host
+     span open in each, the roofline of the counted FLOPs and bytes, the
+     model FLOPs and the MFU; every hand-written kernel the call launched
+     must be in the trace under its symbol as often as its wrapper
+     counted, and a trace without a kernel fails the run;
+ 19. the halo app's device timeline (inside phase 17): each backend's
+     serialization report from one profiled run, the explicit backends'
+     collective lane on the progress engine's stream; then one
+     explicit_overlap run recorded (``repro_torch.trace``) and replayed
+     under both queue disciplines against the record-time counters;
  14. print one JSON line with every ported kernel, then the result line.
 
 Exits non-zero without a result line when no CUDA card is present or the
@@ -183,16 +196,6 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def unmasked_pairs(T, S, causal, window):
-    """(query, key) pairs that the causal/window mask lets through."""
-    pairs = 0
-    for t in range(T):
-        hi = min(t, S - 1) if causal else S - 1
-        lo = max(0, t - window + 1) if window else 0
-        pairs += max(0, hi - lo + 1)
-    return pairs
-
-
 def least_ms(flops, nbytes, peak):
     """Least time: the larger of the FLOP over the peak rate and the bytes
     over the memory rate. Returns (ms, what bounds it)."""
@@ -202,28 +205,27 @@ def least_ms(flops, nbytes, peak):
 
 
 def attention_bound_ms(B, T, S, H, K, D, causal, window, itemsize, peak):
-    """Least time for one forward call: useful FLOP (4·D per unmasked
-    (q, k) pair per head: s and p·v) and bytes (q, k, v read once; out,
-    lse written once)."""
-    flops = 4 * D * B * H * unmasked_pairs(T, S, causal, window)
-    nbytes = (2 * B * T * H * D + 2 * B * S * K * D) * itemsize + B * H * T * 4
+    """Least time for one forward call, from the FLOPs and bytes that
+    ``repro_torch.core.cost.attention_work`` counts (4·D per unmasked
+    (q, k) pair per head; q, k, v read once, out and lse written once)."""
+    from repro_torch.core.cost import attention_work
+
+    flops, nbytes = attention_work(B, T, S, H, K, D, causal, window, itemsize)
     ms, by = least_ms(flops, nbytes, peak)
     return ms, by, flops, nbytes
 
 
 def backward_bound_ms(B, T, S, H, K, D, causal, window, itemsize, peak):
-    """Least time of each backward kernel: useful FLOP 6·D per unmasked
-    pair per head for dq (s, dp, ds·k) and 8·D for dk/dv (s, dp, pᵀ·do,
-    dsᵀ·q); bytes: q, k, v, do, lse, delta read once, dq (or dk, dv)
-    written once. Returns {"dq": (ms, by, flops, bytes), "dkv": ...}."""
-    pairs = B * H * unmasked_pairs(T, S, causal, window)
-    reads = ((2 * B * T * H * D + 2 * B * S * K * D) * itemsize
-             + 2 * B * H * T * 4)
+    """Least time of each backward kernel, from the FLOPs and bytes that
+    ``repro_torch.core.cost.backward_work`` counts (6·D per unmasked pair
+    per head for dq, 8·D for dk/dv; q, k, v, do, lse, delta read once, the
+    gradients written once). Returns {"dq": (ms, by, flops, bytes),
+    "dkv": ...}."""
+    from repro_torch.core.cost import backward_work
+
     out = {}
-    for name, per_pair, written in (("dq", 6, B * T * H * D),
-                                    ("dkv", 8, 2 * B * S * K * D)):
-        flops = per_pair * D * pairs
-        nbytes = reads + written * itemsize
+    for name, (flops, nbytes) in backward_work(
+            B, T, S, H, K, D, causal, window, itemsize).items():
         out[name] = (*least_ms(flops, nbytes, peak), flops, nbytes)
     return out
 
@@ -260,16 +262,15 @@ def ptxas_report(log: str):
 
 
 def scan_bound_ms(B, T, dI, N, x_item, p_item, sms, clock_hz):
-    """Least time for one scan call. Bytes: x, dt, B, C, A, D read once, y
-    and the final state written once. Operations: 6 f32 flops per (b, t,
-    d, n) (dt·A, dx·B, two FMAs) and 3 per (b, t, d) (dt·x, an FMA with
-    D), at the f32 peak; and one ex2 per (b, t, d, n) on the SFU, at
+    """Least time for one scan call, from the work that
+    ``repro_torch.core.cost.scan_work`` counts: the bytes (x, dt, B, C, A,
+    D read once, y and the final state written once), the f32 FLOPs at
+    the f32 peak, and one ex2 per (b, t, d, n) on the SFU, at
     ``SFU_PER_CLOCK_SM`` a clock on each SM at the card's top SM clock.
     Returns (ms, what bounds it, detail)."""
-    nbytes = (B * T * dI * (2 * x_item + p_item) + 2 * B * T * N * p_item
-              + dI * N * 4 + dI * 4 + B * dI * N * 4)
-    flops = B * T * dI * (6 * N + 3)
-    exps = B * T * dI * N
+    from repro_torch.core.cost import scan_work
+
+    flops, exps, nbytes = scan_work(B, T, dI, N, x_item, p_item)
     t_bytes = nbytes / PEAK_BYTES
     t_flops = flops / PEAK_F32_FLOPS
     t_exps = exps / (sms * SFU_PER_CLOCK_SM * clock_hz)
@@ -462,8 +463,8 @@ def backward_phases(qkv) -> dict:
 
 def train_phases():
     """Phase 8: one train step on the card against the CPU; phase 9: the
-    training path at the slice's size. Returns (launch counts of the
-    training path, its stats)."""
+    training path at the slice's size; phase 18: a profiled step. Returns
+    (launch counts of the training path, its stats, the traced step)."""
     import math
 
     import torch
@@ -551,7 +552,31 @@ def train_phases():
                      "selective_scan": 0},
           f"launches over the run {counts}, expected {steps} x {per_step} "
           "and no scan")
-    return counts, stats
+
+    # 18. one profiled step of the same model and shape (train.main frees
+    # its model when it returns: a model of the same seed takes its place)
+    import gc
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_config("yi-6b", "full"), n_layers=L)
+    model = Model(cfg, dev, trainable=True).init_weights(0)
+    opt_state = adamw.init_state(dict(model.named_parameters()))
+    batch = {k: torch.from_numpy(v).long().to(dev) for k, v in
+             SyntheticTokens(cfg, DataConfig(batch=B, seq_len=T)
+                             ).batch_at(0).items()}
+    step = make_train_step(cfg, adamw.AdamWConfig())
+    traced = traced_call(f"yi-6b train step ({L} layers, B={B} T={T})",
+                         lambda: step(model, opt_state, batch), cfg,
+                         ShapeConfig("train", T, B, "train"),
+                         phases=TRAIN_PHASES)
+    del model, opt_state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, stats, traced
 
 
 def scan_phases(sms: int, clock_hz: float) -> dict:
@@ -634,8 +659,8 @@ def scan_phases(sms: int, clock_hz: float) -> dict:
 
 def jamba_phases():
     """Phase 12: the jamba model on the card against the CPU; phase 13:
-    serve jamba at the slice's size. Returns (launch counts of the serving
-    path, its numbers)."""
+    serve jamba at the slice's size, then (phase 18) one profiled
+    prefill. Returns (launch counts of the serving path, its numbers)."""
     import gc
 
     import torch
@@ -728,9 +753,6 @@ def jamba_phases():
         "prefill_launches_by_variant": {
             k: n for k, n in stats["prefill_launches_by_variant"].items() if n},
     }
-    del model, prompts
-    gc.collect()
-    torch.cuda.empty_cache()
     print(f"[13] serve jamba full width, {cfg.n_layers} of {full.n_layers} "
           f"layers, {n_params:,} params (init {init_s:.1f} s), B={B} P={P} "
           f"G={G}: prefill {stats['prefill_ms']:.1f} ms; decode ms a step "
@@ -759,6 +781,20 @@ def jamba_phases():
     check(tuple(tokens.shape) == (B, G + 1), f"tokens {tuple(tokens.shape)}")
     check(0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size,
           "generated token out of range")
+
+    # 18. one profiled prefill of the served model
+    from repro_torch.configs.base import ShapeConfig
+
+    caches = model.alloc_cache(B, P)
+    prefill = make_prefill_step(cfg)
+    with torch.no_grad():
+        numbers["trace"] = traced_call(
+            f"jamba prefill ({cfg.n_layers} layers, B={B} P={P})",
+            lambda: prefill(model, {"tokens": prompts}, caches), cfg,
+            ShapeConfig("prefill", P, B, "prefill"))
+    del model, prompts, caches
+    gc.collect()
+    torch.cuda.empty_cache()
     return counts, numbers
 
 
@@ -887,6 +923,106 @@ def d16_timing_phase(qkv) -> dict:
     return result
 
 
+# the symbol of each hand-written kernel in a device trace, by the
+# launch count that counts it (flash: launches_by_variant's keys)
+SYMBOLS = {"fwd/wgmma": "flash_fwd_wgmma_kernel",
+           "fwd/scalar": "flash_fwd_f32_kernel",
+           "dq/wgmma": "flash_bwd_dq_wgmma_kernel",
+           "dq/scalar": "flash_bwd_dq_f32_kernel",
+           "dkv/wgmma": "flash_bwd_dkv_wgmma_kernel",
+           "dkv/scalar": "flash_bwd_dkv_f32_kernel",
+           "selective_scan": "selective_scan_kernel"}
+TRAIN_PHASES = ("train/forward", "train/backward", "train/update",
+                "model/layer")
+
+
+def traced_call(label: str, fn, cfg, shape, phases=()) -> dict:
+    """Phase 18: one call of ``fn`` (a step of a main path, its model
+    alive), after a warm-up call, three times: timed on the host clock to
+    its end, profiled (``repro_torch.core.device_timeline.profile``), and
+    counted (``repro_torch.core.cost.count_cost``). Prints the card's busy
+    and idle share, the top 10 kernels, the 5 longest idle gaps with the
+    host span open in each, and the roofline of the counted work against
+    ``launch.flops.model_flops(cfg, shape)`` with the MFU of the timed
+    call. Fails unless every hand-written kernel the call launched is in
+    the trace under its symbol as often as its wrapper counted it."""
+    import torch
+
+    from repro_torch.core import cost, device_timeline
+    from repro_torch.core.roofline import HW, Roofline
+    from repro_torch.kernels.mamba_scan.ops import selective_scan
+    from repro_torch.launch.flops import model_flops
+
+    check(HW["peak_flops_bf16"] == PEAK_BF16_FLOPS
+          and HW["hbm_bw"] == PEAK_BYTES,
+          f"roofline.HW {HW} differs from this script's peaks")
+    phase_t0 = time.perf_counter()
+    fn()                                              # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    _, trace = device_timeline.profile(fn)
+    profiled_s = time.perf_counter() - t0
+    counted = dict(read_variants())
+    if selective_scan.launches:
+        counted["selective_scan"] = selective_scan.launches
+    seen = device_timeline.launches_by_symbol(trace, list(SYMBOLS.values()))
+    want = {SYMBOLS[k]: counted.get(k, 0) for k in SYMBOLS}
+    _, tally = cost.step_cost(fn)
+    torch.cuda.synchronize()
+    rep = device_timeline.device_report(trace, phases=phases)
+    mf = model_flops(cfg, shape)
+    roof = Roofline(flops=tally.flops, hbm_bytes=tally.bytes, wire_bytes=0,
+                    n_chips=1, model_flops=mf)
+    step_mfu = mf / (wall_s * PEAK_BF16_FLOPS)     # model FLOPs utilization
+    print(f"[18] {label}: wall {wall_s * 1e3:.2f} ms unprofiled, "
+          f"{profiled_s * 1e3:.2f} ms profiled (the trace written and read "
+          f"included); card window "
+          f"{rep['window_ms']:.2f} ms, busy {rep['busy_ms']:.2f} ms: busy "
+          f"share {rep['busy_share']:.4f}, idle share "
+          f"{rep['idle_share']:.4f}; {rep['events']} events on streams "
+          f"{ {k: round(v['ms'], 3) for k, v in rep['streams'].items()} }",
+          flush=True)
+    for k in rep["kernels"]:
+        print(f"[18]   kernel {k['ms']:9.3f} ms {k['launches']:5d}x  "
+              f"{k['name'][:110]}", flush=True)
+    for g in rep["idle_gaps"]:
+        print(f"[18]   idle {g['ms']:8.3f} ms at {g['at_ms']:9.3f} ms, host "
+              f"in {' < '.join(g['host_path']) or '(no span)'}", flush=True)
+    for key, row in sorted(rep["by_phase"].items()):
+        print(f"[18]   phase {key or '(none)'}: "
+              f"{ {c: round(ms, 3) for c, ms in sorted(row.items())} } ms",
+              flush=True)
+    ops = {k: f"{v:.3e}" for k, v in tally.flops_by_op.items()}
+    ops.update({k: f"{v['flops']:.3e}" for k, v in tally.kernels.items()})
+    print(f"[18]   roofline: {roof.summary()}; counted {tally.flops:.4e} "
+          f"FLOP ({ops}), {tally.bytes:.4e} B (upper estimate); model "
+          f"{mf:.4e} FLOP; "
+          f"useful-flops share {roof.useful_flops_fraction:.4f}; MFU "
+          f"{step_mfu:.4f} (model FLOP / ({wall_s * 1e3:.2f} ms x "
+          f"{PEAK_BF16_FLOPS:.3g} FLOP/s))", flush=True)
+    print(f"[18]   hand-written kernels in the trace {seen}, counted by "
+          f"the wrappers {counted}", flush=True)
+    check(seen == want, f"{label}: the trace shows {seen}, the wrappers "
+          f"counted {want}")
+    phase_s = time.perf_counter() - phase_t0
+    print(f"[18]   {label}: the four calls took {phase_s:.1f} s", flush=True)
+    return {"wall_ms": wall_s * 1e3, "profiled_wall_ms": profiled_s * 1e3,
+            "window_ms": rep["window_ms"], "busy_ms": rep["busy_ms"],
+            "idle_share": rep["idle_share"], "phase_s": phase_s,
+            "kernels": [dict(k, name=k["name"][:100])
+                        for k in rep["kernels"]],
+            "idle_gaps": rep["idle_gaps"], "by_phase": rep["by_phase"],
+            "counted_flops": tally.flops, "counted_bytes": tally.bytes,
+            "model_flops": mf, "useful_flops_fraction":
+            roof.useful_flops_fraction, "mfu": step_mfu,
+            "launches_in_trace": seen}
+
+
 HALO_BACKENDS = ("xla_auto", "explicit_serial", "explicit_overlap",
                  "explicit_serial_oversub")
 
@@ -912,13 +1048,14 @@ def halo_phase():
     reset_counts()
     for be in HALO_BACKENDS:
         payload, out = halo_app.run(be, box=box, steps=steps, runs=runs,
-                                    device="cuda")
+                                    device="cuda", emit_device_timeline=True)
         outs[be] = out
+        numbers[be] = {"device_timeline": halo_timeline(be, payload)}
         frames[be] = [GraphFrame.from_dict(f) for f in payload["frames"]]
         walls = [w * 1e3 for w in payload["walls"]]
-        numbers[be] = {"median_ms": statistics.median(walls),
+        numbers[be].update({"median_ms": statistics.median(walls),
                        "min_ms": min(walls), "max_ms": max(walls),
-                       "walls_ms": walls, "checksum": payload["checksum"]}
+                       "walls_ms": walls, "checksum": payload["checksum"]})
         check(payload["device"] == torch.cuda.get_device_name(0),
               f"halo {be} ran on {payload['device']}")
         check(bool(torch.isfinite(out).all())
@@ -985,7 +1122,101 @@ def halo_phase():
                                    for p, v in cmp.hotspots(4)]
         print(f"[17] hotspots: {numbers[be]['hotspots']}", flush=True)
     numbers["peak_memory_bytes"] = peak
+    numbers["trace_replay"] = halo_record_replay(box, steps)
     return counts, numbers
+
+
+def halo_timeline(be: str, payload: dict) -> dict:
+    """Phase 19: the serialization report of the halo app's profiled run
+    (``--emit-device-timeline``); for an explicit backend, check that the
+    collective lane is the progress engine's stream."""
+    dt = payload["device_timeline"]
+    ser, dev = dt["serialization"], dt["device"]
+    print(f"[19] halo {be}: {ser['summary']}; exposed fraction "
+          f"{ser['exposed_fraction']:.4f}; card window "
+          f"{dev['window_ms']:.3f} ms, idle share {dev['idle_share']:.4f}, "
+          f"profiled run {dt['profiled_wall_s'] * 1e3:.3f} ms; side streams "
+          f"(the engine's) {dt['engine_streams']}; streams "
+          f"{dev['streams']}; collectives {dt['collectives']}", flush=True)
+    for g in dev["idle_gaps"]:
+        print(f"[19]   idle {g['ms']:8.3f} ms at {g['at_ms']:9.3f} ms, host "
+              f"in {' < '.join(g['host_path']) or '(no span)'}", flush=True)
+    if be != "xla_auto":
+        eng = dt["engine_streams"]
+        coll = {s: v["collective_events"] for s, v in dev["streams"].items()
+                if v["collective_events"]}
+        check(len(eng) == 1 and list(coll) == eng
+              and coll[eng[0]] == dev["streams"][eng[0]]["events"]
+              and len(dev["streams"]) > 1 and ser["n_collectives"] > 0,
+              f"halo {be}: collective events by stream {coll}, side "
+              f"streams {eng}: the collective lane must be the engine's one "
+              "stream, and only its")
+    return {"serialization": ser, "idle_share": dev["idle_share"],
+            "window_ms": dev["window_ms"],
+            "profiled_wall_ms": dt["profiled_wall_s"] * 1e3,
+            "collectives": dt["collectives"]}
+
+
+def halo_record_replay(box: int, steps: int) -> dict:
+    """Phase 19: record one explicit_overlap run (``record_collectives``
+    and the progress engine's ``trace=``), replay it under both queue
+    disciplines, and hold each replay to the record: no divergent match,
+    and every non-time counter of every rank equal to the record-time
+    ``snap``."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.comm.halo import HaloProgram
+    from repro_torch.comm.mesh import Mesh
+    from repro_torch.comm.progress import ProgressEngine
+    from repro_torch.core import analyses
+    from repro_torch.trace import record_collectives, replay
+
+    t0 = time.perf_counter()
+    mesh = Mesh((2, 2, 2), ("x", "y", "z"), device="cuda")
+    u = mesh.shard(torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2 * box,) * 3)).to(torch.float32))
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "halo.jsonl")
+        with record_collectives(path, mode="binned",
+                                meta={"backend": "explicit_overlap"}) as fab:
+            engine = ProgressEngine("incoming", trace=fab.trace)
+            try:
+                HaloProgram(mesh, explicit=True).run(u, steps=steps,
+                                                     engine=engine)
+            finally:
+                engine.shutdown()
+        size = os.path.getsize(path)
+        for disc in ("shared", "incoming"):
+            res = replay(path, progress_mode=disc)
+            rec = res.recorded_stats
+            got = res.totals_by_rank()
+            same = {r: {k: (s.count, s.total, s.vmin, s.vmax)
+                        for k, s in stats.items() if not k.endswith("_ns")}
+                    == {k: (s.count, s.total, s.vmin, s.vmax)
+                        for k, s in got.get(r, {}).items()
+                        if not k.endswith("_ns")}
+                    for r, stats in rec.items()}
+            found = analyses.contention(res.progress_events)
+            out[disc] = {"ops": len(res.matches),
+                         "divergences": len(res.divergences),
+                         "phases": len(res.phases), "ranks": len(rec),
+                         "lock_events": len(res.progress_events),
+                         "contention_findings": len(found)}
+            print(f"[19] record explicit_overlap box {box}, {steps} steps "
+                  f"({size} B trace), replayed under {disc}: "
+                  f"{out[disc]}; non-time counters equal to the record's "
+                  f"snap on every rank: {all(same.values())}", flush=True)
+            check(rec and not res.divergences and all(same.values()),
+                  f"halo trace replay under {disc} disagrees with the "
+                  f"record: {len(res.divergences)} divergences, counters "
+                  f"equal by rank {same}")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[19] record and replays took {out['phase_s']:.1f} s", flush=True)
+    return out
 
 
 def card_info():
@@ -1297,7 +1528,25 @@ def main() -> None:
                                     model.alloc_cache(B, P))
     finally:
         attention.flash_attention = flash
-    del model, prompts
+
+    # 18. one profiled prefill and one profiled decode step of this model
+    from repro_torch.configs.base import ShapeConfig
+
+    caches = model.alloc_cache(B, P + 1)
+    prefill, decode = make_prefill_step(full), make_decode_step(full)
+    serve_trace = {}
+    with torch.no_grad():
+        serve_trace["prefill"] = traced_call(
+            f"yi-6b prefill (32 layers, B={B} P={P})",
+            lambda: prefill(model, {"tokens": prompts}, caches), full,
+            ShapeConfig("prefill", P, B, "prefill"))
+        token = prefill(model, {"tokens": prompts}, caches)[:, 0].argmax(
+            dim=-1).to(torch.int32)[:, None]
+        serve_trace["decode"] = traced_call(
+            f"yi-6b decode step (32 layers, B={B}, position {P})",
+            lambda: decode(model, caches, {"tokens": token}, P), full,
+            ShapeConfig("decode", P, B, "decode"))
+    del model, prompts, caches, token
     act = {"max_abs_err": 0.0}
     for layer, (q, k, v, causal, window) in enumerate(captured):
         out, _ = kernel.flash_fwd(q, k, v, causal=causal, window=window)
@@ -1325,7 +1574,7 @@ def main() -> None:
           "own activations")
 
     bwd = backward_phases(qkv)
-    train_counts, train_stats = train_phases()
+    train_counts, train_stats, train_trace = train_phases()
     scan = scan_phases(sms, clock_hz)
     jamba_counts, jamba = jamba_phases()
     default_counts = default_commands_phase()
@@ -1455,7 +1704,10 @@ def main() -> None:
                           "tokens_per_s", "peak_memory_bytes")},
                       "serve_jamba": jamba,
                       "bf16_forward_on_yi6b_activations": act,
-                      "halo": halo}))
+                      "halo": halo,
+                      "device_traces": {"train": train_trace,
+                                        "serve": serve_trace,
+                                        "serve_jamba": jamba["trace"]}}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": count}}), flush=True)
 

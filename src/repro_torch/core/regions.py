@@ -19,7 +19,9 @@ overhead and trace size. The default category set used by the framework:
     data        input pipeline
 
 A copy of ``repro.core.regions`` (the port imports nothing of the JAX
-package), with :func:`annotate_torch` in place of ``annotate_jax``.
+package), with :func:`annotate_torch` in place of ``annotate_jax``; while
+a ``torch.profiler`` runs, each region is also a ``record_function`` span
+(:func:`profiler_span`).
 """
 from __future__ import annotations
 
@@ -28,6 +30,8 @@ import functools
 import threading
 import time
 from typing import Any, Dict, Iterator, Optional, Set
+
+import torch
 
 from .collector import Collector, global_collector
 from .events import Event
@@ -102,7 +106,8 @@ def annotate(
     st.append((name, category))
     t0 = clock_ns()
     try:
-        yield
+        with profiler_span(name):
+            yield
     finally:
         t1 = clock_ns()
         path = tuple(n for n, _c in st)
@@ -119,6 +124,15 @@ def annotate(
                 attrs=dict(attrs) if attrs else None,
             )
         )
+
+
+def profiler_span(name: str):
+    """A ``record_function`` span named ``name`` while a ``torch.profiler``
+    runs (so a device trace shows which region launched what, and what
+    the host was in while the card idled), else a no-op context."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return contextlib.nullcontext()
 
 
 def profiled(name: Optional[str] = None, category: str = "app", **attrs: Any):
@@ -155,8 +169,6 @@ def annotate_torch(
     with annotate(name, category=category, collector=collector, **attrs):
         yield box
         if _config.fence and "out" in box:
-            import torch
-
             from ..device import cuda_devices
 
             for dev in cuda_devices(box["out"]):

@@ -15,7 +15,8 @@ Launch counts, plain integers on ``flash_attention``: ``launches``
 kernel launch under "<kernel>/<variant>" (``fwd``, ``dq``, ``dkv``;
 ``wgmma`` or ``scalar``) as the C entry reports the kernel it ran: bf16
 inputs run all three on the tensor cores (``wgmma``), f32 inputs on the
-scalar f32 kernels.
+scalar f32 kernels. Inside a :func:`repro_torch.core.cost.count_cost`
+block each launch also adds its FLOPs and bytes, from its shapes.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...core import cost
 from . import kernel
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
@@ -43,6 +45,12 @@ def _check_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention runs on cuda or cpu, not {q.device}")
 
 
+def _dims(q: torch.Tensor, k: torch.Tensor) -> Tuple[int, ...]:
+    """(B, T, S, H, K, D) of model-layout q and k."""
+    B, T, H, D = q.shape
+    return B, T, k.shape[1], H, k.shape[2], D
+
+
 def flash_attention(
     q: torch.Tensor,             # (B, T, H, D)
     k: torch.Tensor,             # (B, S, K, D)
@@ -55,6 +63,9 @@ def flash_attention(
     if q.is_cuda:
         out = kernel.flash_fwd(q, k, v, causal=causal, window=window)
         flash_attention.launches += 1
+        if cost.counting():
+            cost.add_kernel("flash_attention_fwd", *cost.attention_work(
+                *_dims(q, k), causal, window, q.element_size()))
         return out
     return flash_attention_ref(q, k, v, causal=causal, window=window)
 
@@ -88,6 +99,11 @@ def flash_attention_bwd(
     dk, dv = kernel.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal,
                                   window=window)
     flash_attention.bwd_dkv_launches += 1
+    if cost.counting():
+        work = cost.backward_work(*_dims(q, k), causal, window,
+                                  q.element_size())
+        cost.add_kernel("flash_attention_bwd_dq", *work["dq"])
+        cost.add_kernel("flash_attention_bwd_dkv", *work["dkv"])
     return dq, dk, dv
 
 

@@ -5,7 +5,9 @@ the CPU.
 ``repro.kernels.mamba_scan``: x, dt (B, T, dI), A (dI, N), Bc, Cc
 (B, T, N), D (dI,). A CUDA tensor launches the kernel of :mod:`.kernel`;
 a CPU tensor takes :mod:`.ref`. There is no fallback from one to the
-other. ``selective_scan.launches`` counts the kernel's launches.
+other. ``selective_scan.launches`` counts the kernel's launches; inside a
+:func:`repro_torch.core.cost.count_cost` block each launch also adds its
+FLOPs and bytes, from its shapes.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from typing import Tuple, Union
 
 import torch
 
+from ...core import cost
 from . import kernel
 from .ref import selective_scan_ref
 
@@ -34,6 +37,11 @@ def selective_scan(
         y, h = kernel.selective_scan(x, dt, A, Bc, Cc, D,
                                      return_state=return_state)
         selective_scan.launches += 1
+        if cost.counting():
+            B, T, dI = x.shape
+            flops, _exps, nbytes = cost.scan_work(
+                B, T, dI, A.shape[1], x.element_size(), dt.element_size())
+            cost.add_kernel("selective_scan", flops, nbytes)
     elif x.device.type == "cpu":
         y, h = selective_scan_ref(x, dt, A, Bc, Cc, D)
         y = y.to(x.dtype)

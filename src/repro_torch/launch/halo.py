@@ -18,10 +18,19 @@ JSON object: per-run GraphFrames, wall times, the warm-up's checksum,
 the fabric's counters, and with ``--trace-out`` writes the last run's
 chrome trace there. :func:`main` returns the same payload as a dict;
 :func:`run` also returns the last run's output field (stacked blocks).
+
+``--emit-device-timeline`` (on the card only; the counterpart of
+``halo_child.py --emit-hlo-stats``) profiles one more run with
+``torch.profiler`` (the progress engine's stream is the collective
+lane) and adds ``device_timeline`` (its serialization report,
+its collectives and the card's report on that run) and ``hlo_stats``
+(the reference's keys ``count``, ``operand_bytes``, ``wire_bytes``,
+``by_opcode``, read from the run's collective regions).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 from typing import Any, Dict, Optional, Tuple
@@ -34,8 +43,9 @@ from ..comm.backends import BACKENDS, get_backend
 from ..comm.halo import HaloProgram
 from ..comm.mesh import Mesh
 from ..comm.progress import ProgressEngine
-from ..core import regions, timeline
+from ..core import device_timeline, regions, timeline
 from ..core.collector import reset_global_collector
+from ..core.cost import collective_stats
 from ..core.counters import CounterRegistry
 from ..core.graphframe import GraphFrame
 from ..device import resolve_device
@@ -54,11 +64,14 @@ def _counters(stats) -> Dict[str, Dict[str, float]]:
 
 def run(backend: str = "explicit_overlap", ranks: int = 8, box: int = 32,
         steps: int = 4, runs: int = 5, device: str = "cuda", seed: int = 0,
-        trace_out: Optional[str] = None
+        trace_out: Optional[str] = None, emit_device_timeline: bool = False
         ) -> Tuple[Dict[str, Any], torch.Tensor]:
     """Run the halo app; return (payload, output of the last run as the
     mesh's stacked blocks)."""
     dev = resolve_device(device)
+    if emit_device_timeline and dev.type != "cuda":
+        raise ValueError("--emit-device-timeline reads the card's clock: it "
+                         "needs --device cuda")
     be = get_backend(backend)
     dims = MESH_DIMS[ranks]
     mesh = Mesh(dims, ("x", "y", "z"), device=dev)
@@ -99,6 +112,8 @@ def run(backend: str = "explicit_overlap", ranks: int = 8, box: int = 32,
             frames.append(GraphFrame.from_events(events).to_dict())
             if trace_out and r == runs - 1:
                 trace = timeline.to_chrome_trace(events)
+        timed = (_device_timeline(run_once, u0, mesh)
+                 if emit_device_timeline else {})
     finally:
         collectives.configure_matching(None)
         if engine is not None:
@@ -118,8 +133,33 @@ def run(backend: str = "explicit_overlap", ranks: int = 8, box: int = 32,
         "checksum": checksum,
         "counters": _counters(registry.drain()),
         "trace": trace_out if trace is not None else None,
+        "device_timeline": timed.get("device_timeline"),
+        "hlo_stats": timed.get("hlo_stats"),
     }
     return payload, out
+
+
+def _device_timeline(run_once, u0: torch.Tensor, mesh: Mesh
+                     ) -> Dict[str, Any]:
+    """One more run under the profiler: the payload's ``device_timeline``
+    and ``hlo_stats``."""
+    col = reset_global_collector()
+    t0 = time.perf_counter()
+    _, trace = device_timeline.profile(run_once, u0 * 1.0)
+    wall = time.perf_counter() - t0
+    stats = collective_stats(col.drain(), mesh.shape)
+    report = device_timeline.serialization_report(
+        device_timeline.extract_schedule(trace))
+    return {"hlo_stats": stats, "device_timeline": {
+        "serialization": dict(dataclasses.asdict(report),
+                              exposed_fraction=report.exposed_fraction,
+                              summary=report.summary()),
+        "collectives": stats,
+        "device": device_timeline.device_report(trace),
+        "engine_streams": [str(s) for s in
+                           device_timeline.side_streams(trace)],
+        "profiled_wall_s": wall,
+    }}
 
 
 def main(argv=None) -> Dict[str, Any]:
@@ -135,11 +175,15 @@ def main(argv=None) -> Dict[str, Any]:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--trace-out", default=None,
                     help="write the last run's chrome trace here")
+    ap.add_argument("--emit-device-timeline", action="store_true",
+                    help="profile one more run on the card: serialization "
+                         "report, collective stats, device report")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; cuda without a card raises")
     args = ap.parse_args(argv)
     payload, _ = run(args.backend, args.devices, args.box, args.steps,
-                     args.runs, args.device, args.seed, args.trace_out)
+                     args.runs, args.device, args.seed, args.trace_out,
+                     args.emit_device_timeline)
     print(json.dumps(payload))
     return payload
 

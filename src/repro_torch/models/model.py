@@ -22,8 +22,10 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..configs.base import ModelConfig
-from .blocks import alloc_cache, block_apply, block_specs
+from ..configs.base import LayerSpec, ModelConfig
+from ..core.regions import profiler_span
+from . import attention, mamba, moe
+from .blocks import alloc_cache, block_apply, block_specs, mlp_specs
 from .common import (ParamSpec, SpecModule, cast_params, init_module_,
                      param_dtype, rms_norm)
 
@@ -143,8 +145,11 @@ class Model(nn.Module):
         cfg = self.cfg
 
         def run(x):
-            return block_apply(cast_params(layer, self.compute_dtype), x, cfg,
-                               lspec, 0, None, mode="train")[0]
+            # a span of its own, so a device trace tells the remat's second
+            # forward (inside train/backward) from the first
+            with profiler_span("model/layer"):
+                return block_apply(cast_params(layer, self.compute_dtype), x,
+                                   cfg, lspec, 0, None, mode="train")[0]
 
         if cfg.remat == "none":
             return run(x)
@@ -193,3 +198,69 @@ def mask_pad_logits(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         return logits
     valid = torch.arange(Vp, device=logits.device) < cfg.vocab_size
     return torch.where(valid, logits, torch.full_like(logits, -1e30))
+
+
+# ---------------------------------------------------------------------------
+# parameter counts (the JAX ``param_count``/``active_param_count``), over the
+# reference's spec layout for every layer kind, ported or not
+# ---------------------------------------------------------------------------
+
+def _xlstm_shapes(cfg: ModelConfig, mixer: str) -> List[Tuple[int, ...]]:
+    """Parameter shapes of an xlstm mixer, as ``repro.models.xlstm``'s
+    ``mlstm_specs``/``slstm_specs`` declare them (the layers themselves
+    are not ported yet: ROADMAP Queue 1)."""
+    E, H = cfg.d_model, cfg.n_heads
+    if mixer == "mlstm":
+        dI = int(E * cfg.xlstm.proj_factor_mlstm)
+        return [(E, 2 * dI), (cfg.xlstm.conv_kernel, dI), (dI,), (dI, dI),
+                (dI, dI), (dI, dI), (dI, 2 * H), (2 * H,), (dI,), (dI,),
+                (dI, E)]
+    Dh, F = E // H, int(E * cfg.xlstm.proj_factor_slstm)
+    return [(E, 4 * E), (H, Dh, 4 * Dh), (4 * E,), (E,), (E, F), (E, F),
+            (F, E)]
+
+
+def _layer_shapes(cfg: ModelConfig, spec: LayerSpec) -> List[Tuple[int, ...]]:
+    """Shapes of one pattern position's parameters (the reference's
+    ``block_specs``): pre-norms, the mixer, cross-attention, the FFN."""
+    def of(specs) -> List[Tuple[int, ...]]:
+        return [s.shape for s in specs.values()]
+
+    E = cfg.d_model
+    shapes = [(E,)]
+    if spec.mixer == "attn":
+        shapes += of(attention.attn_specs(cfg))
+    elif spec.mixer == "mamba":
+        shapes += of(mamba.mamba_specs(cfg))
+    elif spec.mixer in ("mlstm", "slstm"):
+        shapes += _xlstm_shapes(cfg, spec.mixer)
+    if spec.cross_attn:                 # norm, projections, a scalar gate
+        shapes += [(E,), *of(attention.attn_specs(cfg)), ()]
+    if spec.ffn == "mlp":
+        shapes += [(E,), *of(mlp_specs(cfg))]
+    elif spec.ffn == "moe":
+        shapes += [(E,), *of(moe.moe_specs(cfg))]
+    return shapes
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Every parameter of ``cfg``'s model: the embedding (token input),
+    each pattern position times ``n_groups``, the final norm, the lm head."""
+    Vp, E = cfg.padded_vocab_size, cfg.d_model
+    n = 0 if cfg.input_mode == "frames" else Vp * E
+    for spec in cfg.pattern:
+        n += cfg.n_groups * sum(math.prod(s) for s in _layer_shapes(cfg, spec))
+    return n + E + E * cfg.n_codebooks * Vp
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters touched per token (MoE: top_k + shared experts only;
+    padded dead experts never receive tokens)."""
+    total = param_count(cfg)
+    if cfg.moe is None:
+        return total
+    m = cfg.moe
+    n_moe_layers = sum(1 for s in cfg.pattern if s.ffn == "moe") * cfg.n_groups
+    per_expert = 3 * cfg.d_model * m.d_expert
+    inactive = n_moe_layers * (cfg.padded_n_experts - m.top_k) * per_expert
+    return total - inactive

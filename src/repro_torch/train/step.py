@@ -5,7 +5,9 @@ The training step differentiates the model with autograd, where the JAX
 package uses ``jax.value_and_grad``: gradients land in each parameter's
 ``.grad`` (f32, as the master weights) and stay there after the step, and
 :func:`repro_torch.optim.adamw.apply_updates` then updates the weights in
-place.
+place. While a ``torch.profiler`` runs, the step's forward, backward and
+update are ``record_function`` spans (``train/forward``, ``train/backward``,
+``train/update``), so a device trace splits the step by phase.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..core.regions import profiler_span
 from ..models.model import Cache, Model
 from ..optim import adamw
 from .losses import chunked_ce_loss
@@ -53,16 +56,19 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
         labels = batch["labels"].split(B // microbatches)
         loss_sum = torch.zeros((), device=batch["tokens"].device)
         for tok, lab in zip(tokens, labels):
-            loss, metrics = _loss(model, tok, lab, cfg)
-            loss.backward()
+            with profiler_span("train/forward"):
+                loss, metrics = _loss(model, tok, lab, cfg)
+            with profiler_span("train/backward"):
+                loss.backward()
             loss_sum = loss_sum + loss.detach()
-        if microbatches > 1:
-            for p in params.values():
-                p.grad.div_(microbatches)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics.update(adamw.apply_updates(
-            params, {n: p.grad for n, p in params.items()}, opt_state,
-            opt_cfg))
+        with profiler_span("train/update"):
+            if microbatches > 1:
+                for p in params.values():
+                    p.grad.div_(microbatches)
+            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics.update(adamw.apply_updates(
+                params, {n: p.grad for n, p in params.items()}, opt_state,
+                opt_cfg))
         metrics["loss"] = loss_sum / microbatches
         return metrics
 

@@ -472,3 +472,42 @@ def test_progress_engine_issues_on_its_own_stream():
         assert torch.equal(y, x * 2)
     finally:
         eng.shutdown()
+
+
+@pytest.mark.gpu
+def test_profile_of_one_bf16_forward_shows_the_wgmma_kernel_once():
+    from repro_torch.core import device_timeline
+
+    q, k, v, _ = _inputs("bfloat16", 128, 256)
+    flash_attention(q, k, v)                        # warm-up
+    torch.cuda.synchronize()
+    before = dict(flash_attention.launches_by_variant)
+    (out, _), trace = device_timeline.profile(flash_attention, q, k, v)
+    assert flash_attention.launches_by_variant["fwd/wgmma"] == (
+        before["fwd/wgmma"] + 1)
+    seen = device_timeline.launches_by_symbol(
+        trace, ["flash_fwd_wgmma_kernel", "flash_fwd_f32_kernel"])
+    assert seen == {"flash_fwd_wgmma_kernel": 1, "flash_fwd_f32_kernel": 0}
+    rep = device_timeline.device_report(trace)
+    assert 0 < rep["busy_ms"] <= rep["window_ms"]
+    assert torch.isfinite(out.float()).all()
+
+
+@pytest.mark.gpu
+def test_profiled_overlap_halo_step_puts_its_collectives_on_the_engine():
+    from repro_torch.launch import halo as halo_app
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    payload, _ = halo_app.run("explicit_overlap", box=16, steps=1, runs=1,
+                              device="cuda", emit_device_timeline=True)
+    dt = payload["device_timeline"]
+    streams = dt["device"]["streams"]
+    assert len(dt["engine_streams"]) == 1 and len(streams) > 1
+    engine = dt["engine_streams"][0]
+    assert streams[engine]["collective_events"] == streams[engine]["events"]
+    assert all(v["collective_events"] == 0
+               for s, v in streams.items() if s != engine)
+    assert dt["serialization"]["n_collectives"] > 0
+    assert payload["hlo_stats"]["count"] == 6
+    assert set(payload["hlo_stats"]["by_opcode"]) == {"collective-permute"}
