@@ -87,6 +87,19 @@ Phases, each of which fails the run (non-zero exit, no final line):
      collective lane on the progress engine's stream; then one
      explicit_overlap run recorded (``repro_torch.trace``) and replayed
      under both queue disciplines against the record-time counters;
+ 20. (run right after phase 5, before any profiler) serve yi-6b again as
+     in phase 5 (full width, 32 layers, bf16, the same seed and
+     requests) with ``--telemetry`` while a client thread reads
+     ``/metrics`` and ``/findings`` during decode and one frame of
+     ``/stream``: the same tokens as phase 5, 32 wgmma forwards in the
+     prefill, the bridge's polls and its no-loss accounting over the
+     global counter registry (seeded with a host-side leaky-UMQ storm),
+     and every serving region in the watched collector; then the same
+     requests with the bridge alone and with no telemetry, and decode ms
+     a step of the four serves in turns; then the host packages on this
+     machine: live progress records under both disciplines, the smoke
+     scenario sweep against its committed baseline, the committed trace
+     corpus through a spawn pool of two;
  14. print one JSON line with every ported kernel, then the result line.
 
 Exits non-zero without a result line when no CUDA card is present or the
@@ -1219,6 +1232,219 @@ def halo_record_replay(box: int, steps: int) -> dict:
     return out
 
 
+def decode_steps(stats) -> dict:
+    """The ``serve/decode_step`` metrics (seconds) of a serve run's region
+    tree, with ``mean_ms`` added."""
+    dec = dict({c["name"]: c["metrics"]
+                for c in stats["tree"]["children"]}["serve/decode_step"])
+    dec["mean_ms"] = dec["sum"] / dec["count"] * 1e3
+    return dec
+
+
+def _telemetry_client(url: str, stop, log: dict) -> None:
+    """Phase 20's HTTP client: wait for the server, read one ``/stream``
+    frame, then read ``/metrics`` and ``/findings`` every 50 ms until
+    ``stop`` or until the server has gone, logging the host clock
+    (``perf_counter_ns``, the clock of the region events) around each
+    read."""
+    import urllib.error
+    import urllib.request
+
+    def get(path):
+        with urllib.request.urlopen(url + path, timeout=5) as r:
+            return r.read()
+
+    try:
+        while not stop.is_set():
+            try:
+                get("/")
+                break
+            except urllib.error.URLError:
+                time.sleep(0.005)       # the server is not up yet
+        with urllib.request.urlopen(url + "/stream", timeout=5) as r:
+            buf = b""
+            while not log["stream"]:
+                chunk = r.read(1)
+                if not chunk:
+                    break
+                buf += chunk
+                if buf.endswith(b"\n\n"):
+                    if buf.startswith(b"data: "):
+                        log["stream"].append(json.loads(buf[6:]))
+                    buf = b""
+        while not stop.is_set():
+            for path in ("/metrics", "/findings"):
+                t0 = time.perf_counter_ns()
+                try:
+                    body = json.loads(get(path))
+                except (urllib.error.URLError, ConnectionError):
+                    return            # the run ended and its server stopped
+                log[path].append((t0, time.perf_counter_ns(), body))
+            stop.wait(0.05)
+    except Exception as e:            # reported and failed by the phase
+        log["errors"].append(repr(e))
+
+
+def telemetry_phase(B: int, P: int, G: int, want_tokens, want_logits,
+                    plain_step_ms: float):
+    """Phase 20: serve yi-6b at full width with ``--telemetry`` (the
+    arguments and seed of phase 5) while a client thread reads the HTTP
+    endpoints; the same requests with the bridge alone and with no
+    telemetry (decode ms a step in turns); then the host packages on this
+    machine. Returns (launch counts, report)."""
+    import random
+    import socket
+    import threading
+
+    import torch
+
+    from repro_torch import corpus, workloads
+    from repro_torch.comm.progress import ProgressEngine
+    from repro_torch.configs.archs import get_config
+    from repro_torch.core.collector import global_collector
+    from repro_torch.core.counters import (global_registry,
+                                           reset_global_registry)
+    from repro_torch.launch import serve
+
+    full = get_config("yi-6b", "full")
+    argv = ["--arch", "yi-6b", "--preset", "full", "--batch", str(B),
+            "--prompt-len", str(P), "--gen", str(G), "--seed", "0"]
+
+    def seed_registry():
+        # counters that a host-side exchange (the leaky-UMQ storm, smoke
+        # size) left pending in the global registry: the bridge's first
+        # poll adopts them, so its no-loss accounting and its detectors
+        # have work
+        reset_global_registry()
+        storm = workloads.get("unexpected_storm")
+        storm.drive(workloads.build_fabric(storm, "leaky_umq",
+                                           registry=global_registry()),
+                    random.Random(0), storm.params("smoke"))
+
+    seed_registry()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    log = {"stream": [], "/metrics": [], "/findings": [], "errors": []}
+    stop = threading.Event()
+    client = threading.Thread(target=_telemetry_client, daemon=True,
+                              args=(f"http://127.0.0.1:{port}", stop, log))
+    client.start()
+    reset_counts()
+    try:
+        tokens, stats = serve.main(argv + ["--telemetry", "--telemetry-port",
+                                           str(port)])
+    finally:
+        stop.set()
+        client.join(timeout=30)
+    counts = read_counts()
+    torch.cuda.empty_cache()
+    tel = stats["telemetry"]
+    drain = global_registry().drain_stats()
+    events = global_collector().drain()
+    reset_global_registry()
+    names = [e.name for e in events]
+    decode = [e for e in events if e.name == "serve/decode_step"]
+    lo, hi = min(e.t_start for e in decode), max(e.t_end for e in decode)
+    during = {path: sum(lo <= t0 and t1 <= hi for t0, t1, _ in log[path])
+              for path in ("/metrics", "/findings")}
+    dec = decode_steps(stats)
+    step_ms = dec["mean_ms"]
+    logits_err = float((stats["prefill_logits"] - want_logits).abs().max())
+    kinds = sorted({f["kind"] for f in tel["findings"]})
+    prefill_used = {k: n for k, n in
+                    stats["prefill_launches_by_variant"].items() if n}
+    print(f"[20] serve --telemetry: {tel['url']}, {tel['polls']} polls, "
+          f"{tel['deltas_total']} deltas (registry merged "
+          f"{drain['deltas_merged']}, pending {drain['pending']}), live "
+          f"findings {kinds}", flush=True)
+    print(f"[20] decode step ms with telemetry {step_ms:.2f} (min "
+          f"{dec['min'] * 1e3:.2f}, max {dec['max'] * 1e3:.2f}) beside "
+          f"phase 5's {plain_step_ms:.2f}; prefill {stats['prefill_ms']:.1f}"
+          f" ms; tokens equal phase 5's: "
+          f"{torch.equal(tokens, want_tokens)}; prefill logits max|diff| "
+          f"{logits_err:.3e}; prefill launches {prefill_used}", flush=True)
+    print(f"[20] client: {len(log['/metrics'])} /metrics and "
+          f"{len(log['/findings'])} /findings reads, {during} inside the "
+          f"decode window; /stream frames {[f['t'] for f in log['stream']]};"
+          f" errors {log['errors']}", flush=True)
+    check(torch.equal(tokens, want_tokens),
+          "serving with --telemetry changed the tokens of phase 5")
+    check(prefill_used == {"fwd/wgmma": full.n_layers}
+          and counts["flash_attention_fwd"] == full.n_layers,
+          f"telemetry serve launched {prefill_used} ({counts}): "
+          f"{full.n_layers} wgmma forwards expected in the prefill")
+    check(tel["polls"] >= 1, "the telemetry bridge never polled")
+    check(tel["deltas_total"] == drain["deltas_merged"] > 0
+          and drain["pending"] == 0,
+          f"bridge adopted {tel['deltas_total']} deltas, the registry "
+          f"merged {drain['deltas_merged']} ({drain['pending']} pending)")
+    check(not log["errors"], f"telemetry client failed: {log['errors']}")
+    check(during["/metrics"] >= 1 and during["/findings"] >= 1,
+          f"no /metrics or /findings read inside the decode window: {during}")
+    check(bool(log["stream"]), "no frame read from /stream")
+    check(names.count("serve/prefill") == 1
+          and names.count("serve/decode_step") == G,
+          f"the regions collector holds {names.count('serve/prefill')} "
+          f"prefill and {names.count('serve/decode_step')} decode events")
+
+    # the same requests with the bridge polling the same registry but no
+    # client, then with no telemetry: decode ms a step in turns (plain,
+    # bridge and client, bridge alone, plain), reported, not gated
+    turns = {"plain (phase 5)": plain_step_ms, "bridge and client": step_ms}
+    for label, extra in (("bridge alone", ["--telemetry"]),
+                         ("plain again", [])):
+        seed_registry()
+        again, again_stats = serve.main(argv + extra)
+        reset_global_registry()
+        torch.cuda.empty_cache()
+        check(torch.equal(again, want_tokens),
+              f"{label}: the tokens differ from phase 5's")
+        turns[label] = decode_steps(again_stats)["mean_ms"]
+    print(f"[20] decode ms a step in turns: "
+          f"{ {k: round(v, 2) for k, v in turns.items()} }", flush=True)
+
+    # the host packages on this machine's Python
+    t0 = time.perf_counter()
+    live = {}
+    for mode in ("shared", "incoming"):
+        recs = workloads.live_progress_records(mode)
+        evs = [r["ev"] for r in recs]
+        live[mode] = {"submit": evs.count("submit"), "proc": evs.count("proc")}
+        check(live[mode] == {"submit": workloads.bench.PE_REQUESTS,
+                             "proc": workloads.bench.PE_REQUESTS},
+              f"live progress records under {mode}: {live[mode]}")
+    engine = ProgressEngine(process_fn=lambda _r: None)
+    has_stream = engine.stream is not None
+    engine.shutdown()
+    check(has_stream, "the progress engine made no CUDA stream on the card")
+    sweep = workloads.sweep(size="smoke", seed=0)
+    with open(os.path.join(HERE, "benchmarks", "baselines",
+                           "scenario_baseline_smoke.json")) as f:
+        baseline = json.load(f)
+    gate = workloads.check(sweep) + workloads.compare_to_baseline(sweep,
+                                                                  baseline)
+    store = corpus.CorpusStore.load(os.path.join(HERE, "tests", "corpus"))
+    with corpus.ReplayPool(jobs=2) as pool:
+        run = corpus.run_corpus(store, pool=pool)
+    host_s = time.perf_counter() - t0
+    print(f"[20] host: live progress records {live}, progress engine stream "
+          f"{has_stream}; smoke sweep {len(sweep['scenarios'])} scenarios, "
+          f"gate failures {gate}; {run.render().splitlines()[0]} "
+          f"(spawn pool of 2); {host_s:.1f} s", flush=True)
+    check(not gate, f"smoke sweep against its baseline: {gate}")
+    check(run.ok, f"corpus run: {run.failures}")
+    return counts, {
+        "url": tel["url"], "polls": tel["polls"],
+        "deltas_total": tel["deltas_total"],
+        "deltas_merged": drain["deltas_merged"], "finding_kinds": kinds,
+        "decode_step_ms": step_ms, "decode_step_ms_turns": turns,
+        "prefill_ms": stats["prefill_ms"], "prefill_logits_max_diff":
+        logits_err, "reads_in_decode": during,
+        "stream_frames": len(log["stream"]), "live_progress": live,
+        "corpus_entries": len(run.results), "host_s": host_s}
+
+
 def card_info():
     """(device name, device count, the card line of nvidia-smi, SM count,
     top SM clock in Hz)."""
@@ -1478,10 +1704,9 @@ def main() -> None:
     serve_used = read_variants()
     launches = serve_counts["flash_attention_fwd"]
     full = get_config("yi-6b", "full")
-    steps = {c["name"]: c["metrics"] for c in stats["tree"]["children"]}
-    dec = steps["serve/decode_step"]
+    dec = decode_steps(stats)
     print(f"[5] decode step ms: min {dec['min'] * 1e3:.2f}, max "
-          f"{dec['max'] * 1e3:.2f}, mean {dec['sum'] / dec['count'] * 1e3:.2f}"
+          f"{dec['max'] * 1e3:.2f}, mean {dec['mean_ms']:.2f}"
           f" over {dec['count']} steps")
     print(f"[5] serve: prefill {stats['prefill_ms']:.1f} ms, decode "
           f"{stats['decode_tok_s']:.1f} tok/s, peak memory "
@@ -1505,6 +1730,12 @@ def main() -> None:
     check(tuple(tokens.shape) == (B, G + 1), f"tokens {tuple(tokens.shape)}")
     check(0 <= int(tokens.min()) and int(tokens.max()) < full.vocab_size,
           "generated token out of range")
+
+    # 20. phase 5's requests again with live telemetry (before any
+    # profiler has run in this process)
+    telemetry_counts, telemetry = telemetry_phase(
+        B, P, G, tokens, stats["prefill_logits"], dec["mean_ms"])
+    del tokens, stats
 
     # 5c. the bf16 forward on yi-6b's own prefill activations (q, k, v of
     # each layer at full width, the prompts of 5b) against the f32 plain
@@ -1584,7 +1815,7 @@ def main() -> None:
     # 14. result lines
     paths = {"serve": serve_counts, "train": train_counts,
              "serve_jamba": jamba_counts, **default_counts,
-             "halo": halo_counts}
+             "halo": halo_counts, "serve_telemetry": telemetry_counts}
 
     def launches_of(name):
         by_path = {p: c[name] for p, c in paths.items()}
@@ -1705,6 +1936,7 @@ def main() -> None:
                       "serve_jamba": jamba,
                       "bf16_forward_on_yi6b_activations": act,
                       "halo": halo,
+                      "serve_telemetry": telemetry,
                       "device_traces": {"train": train_trace,
                                         "serve": serve_trace,
                                         "serve_jamba": jamba["trace"]}}))

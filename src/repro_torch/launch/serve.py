@@ -8,6 +8,15 @@ Runs on the CUDA card unless ``--device cpu`` is given; with no card and
 no ``--device cpu`` it raises. Weights and prompts are random, made from
 ``--seed``. Prefill attention runs the CUDA flash-attention kernel, and
 a mamba layer's prefill the CUDA selective-scan kernel.
+
+``--telemetry`` serves live telemetry over HTTP/SSE while prefill and
+decode run: a :class:`~repro_torch.telemetry.TelemetryBridge` polls the
+global counter registry (source ``counters``) and watches the global
+region collector (source ``regions``), and a
+:class:`~repro_torch.telemetry.TelemetryServer` answers ``/metrics``,
+``/findings`` and ``/stream`` on ``127.0.0.1`` (``--telemetry-port``,
+ephemeral by default). The bridge's reads are non-destructive, so the
+end-of-run region tree still sees every event.
 """
 from __future__ import annotations
 
@@ -20,11 +29,13 @@ import torch
 from ..configs.archs import get_config
 from ..core import regions
 from ..core.collector import global_collector, reset_global_collector
+from ..core.counters import global_registry
 from ..core.graphframe import GraphFrame
 from ..device import resolve_device
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.mamba_scan.ops import selective_scan
 from ..models.model import Model
+from ..telemetry import TelemetryBridge, TelemetryServer
 from ..train.step import make_decode_step, make_prefill_step
 
 
@@ -116,11 +127,11 @@ def main(argv=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the random weights (prompts: seed + 1)")
     ap.add_argument("--telemetry", action="store_true",
-                    help="not ported yet: rejected")
+                    help="serve live counter/region telemetry over "
+                         "HTTP/SSE while prefill/decode run")
+    ap.add_argument("--telemetry-port", type=int, default=0,
+                    help="bind port for --telemetry (default: ephemeral)")
     args = ap.parse_args(argv)
-    if args.telemetry:
-        ap.error("--telemetry is not ported yet: the telemetry package "
-                 "comes with a later slice (ROADMAP Queue 1)")
 
     device = resolve_device(args.device)
     cfg = get_config(args.arch, args.preset)
@@ -134,8 +145,26 @@ def main(argv=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=gen_cpu
                             ).to(device)
 
-    reset_global_collector()
-    gen, stats = generate(model, prompts, G)
+    collector = reset_global_collector()
+    bridge = server = None
+    if args.telemetry:
+        bridge = TelemetryBridge(session=f"serve[{cfg.name}]")
+        bridge.watch(global_registry(), name="counters")
+        bridge.watch_events(collector, name="regions")
+        server = TelemetryServer(bridge, port=args.telemetry_port).start()
+        bridge.start()
+        print(f"telemetry: {server.url}/metrics | /stream | /findings")
+    try:
+        gen, stats = generate(model, prompts, G)
+        if bridge is not None:
+            bridge.stop()
+            stats["telemetry"] = {"url": server.url, "polls": bridge.polls,
+                                  "deltas_total": bridge.deltas_total,
+                                  "findings": bridge.findings_json()}
+    finally:
+        if bridge is not None:
+            server.stop()
+            bridge.close()
     print(f"{cfg.name}: prefill {B}x{P}, generated {B}x{G} greedy tokens")
     print(f"prefill: {stats['prefill_ms']:.1f} ms, kernel launches "
           f"{stats['prefill_kernel_launches']}")
@@ -144,6 +173,10 @@ def main(argv=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     if stats["peak_memory_bytes"] is not None:
         print(f"peak memory allocated: {stats['peak_memory_bytes'] / 2**30:.2f} GiB")
     print("sample:", gen[0, :16].tolist())
+    if bridge is not None:
+        tel = stats["telemetry"]
+        print(f"telemetry: {tel['polls']} polls, {tel['deltas_total']} "
+              f"deltas, {len(tel['findings'])} live findings")
     gf = GraphFrame.from_events(global_collector().drain())
     print(gf.tree(metric="sum", fmt="{:.3f}", max_depth=1))
     stats["tree"] = gf.to_dict()

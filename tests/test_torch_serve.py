@@ -172,8 +172,15 @@ def test_serve_main_on_cpu_records_regions():
 
 
 def test_serve_rejects_telemetry():
+    # a malformed port is rejected; without a card, --telemetry with no
+    # --device cpu raises like any other serve call
     with pytest.raises(SystemExit):
-        serve.main(["--device", "cpu", "--telemetry"])
+        serve.main(["--device", "cpu", "--telemetry", "--telemetry-port",
+                    "http"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            serve.main(["--telemetry", "--batch", "1", "--prompt-len", "4",
+                        "--gen", "1"])
 
 
 def test_fenced_regions_record_on_cpu():
