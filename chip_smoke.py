@@ -100,7 +100,32 @@ Phases, each of which fails the run (non-zero exit, no final line):
      machine: live progress records under both disciplines, the smoke
      scenario sweep against its committed baseline, the committed trace
      corpus through a spawn pool of two;
+ 21. (after phase 4) the forward at head dim 256 at gemma3-12b's prefill
+     shape (B=4, T=2048, H=16, K=8), bf16 (wgmma) and f32 (scalar),
+     causal and with gemma3's window of 1024, against its plain version;
+     the bf16 kernel's time (twice), its plain version's,
+     scaled_dot_product_attention's (causal; a boolean band mask for the
+     window; the backend it ran) and the least time the card could take;
+ 22. serve gemma3-12b at full width (48 layers, 40 with a window of 1024,
+     head dim 256, bf16; batch 4, prompt 2048, 32 new tokens) with eager
+     and captured decode in turns: the same tokens, 48 wgmma forwards a
+     prefill; then one pattern group in f32 (window cut to 64, prompt
+     160, batch 2, 8 new tokens) on the card, decoding through the
+     captured step, against the CPU;
+ 23. captured against eager decode, three times each in turns, on the
+     models of phases 5c and 13 (yi-6b, jamba): the same tokens as each
+     other and as phases 5 and 13, decode ms a step of every run; then
+     phase 18's yi-6b decode trace retaken on one replay of the captured
+     step, beside the replay's time by CUDA events;
+ 24. serve xlstm-125m at full width (12 layers, bf16; batch 4, prompt
+     1024, 32 new tokens) with eager and captured decode in turns; then
+     two layers (one mLSTM, one sLSTM) in f32 on the card against the
+     CPU;
  14. print one JSON line with every ported kernel, then the result line.
+
+Serving (phases 5, 13, 15, 20, 22-24) decodes through one captured CUDA
+graph a step (``launch.serve.generate``), unless a phase asks for eager
+decode; decode ms a step is timed by CUDA events around each step.
 
 Exits non-zero without a result line when no CUDA card is present or the
 port is not beside this script.
@@ -161,6 +186,16 @@ DEFAULT_LOGITS_TOL = 2e-2
 DEFAULT_LOSS_TOL = 1e-3
 HALO_BOX = 128       # per rank; 8 ranks: a 256^3 f32 field of 64 MiB
 HALO_TOL = 1e-5      # f32 stencil sums, explicit vs vendor, card vs CPU
+# gemma3-12b's prefill attention (phase 21) and serving shape (phase 22):
+# B, P, G; the card-vs-CPU check's window, prompt, batch and new tokens
+GEMMA_ATTENTION = dict(B=4, T=2048, H=16, K=8, D=256)
+GEMMA_WINDOW = 1024
+GEMMA_SERVE = (4, 2048, 32)
+GEMMA_CHECK = (64, 160, 2, 8)
+XLSTM_SERVE = (4, 1024, 32)
+DECODE_REPEATS = 3   # captured and eager decode in turns (phase 23)
+T0 = 0.0             # the run's start on the host clock
+CARD = ""            # nvidia-smi's name and power limit, named by each phase
 # each kernel's design on the bf16 main paths
 DESIGN = {"flash_attention_fwd": "wgmma", "flash_attention_bwd_dq": "wgmma",
           "flash_attention_bwd_dkv": "wgmma",
@@ -679,9 +714,7 @@ def jamba_phases():
     import torch
 
     from repro_torch.configs.archs import get_config
-    from repro_torch.core.collector import (global_collector,
-                                            reset_global_collector)
-    from repro_torch.core.graphframe import GraphFrame
+    from repro_torch.core.collector import reset_global_collector
     from repro_torch.launch import serve
     from repro_torch.models.model import Model
     from repro_torch.train.step import make_decode_step, make_prefill_step
@@ -749,17 +782,15 @@ def jamba_phases():
     tokens, stats = serve.generate(model, prompts, G)
     counts = read_counts()
     used = read_variants()
-    tree = GraphFrame.from_events(global_collector().drain()).to_dict()
-    dec = {c["name"]: c["metrics"] for c in tree["children"]}[
-        "serve/decode_step"]
+    dec = decode_steps(stats)
     want = {"flash_attention_fwd": cfg.n_groups * sum(
         s.mixer == "attn" for s in cfg.pattern), "selective_scan":
         cfg.n_groups * sum(s.mixer == "mamba" for s in cfg.pattern)}
     numbers = {
         "layers": cfg.n_layers, "params": n_params, "batch": B, "prompt": P,
         "gen": G, "init_s": init_s, "prefill_ms": stats["prefill_ms"],
-        "decode_ms_min": dec["min"] * 1e3, "decode_ms_max": dec["max"] * 1e3,
-        "decode_ms_mean": dec["sum"] / dec["count"] * 1e3,
+        "decode_ms_min": dec["min_ms"], "decode_ms_max": dec["max_ms"],
+        "decode_ms_mean": dec["mean_ms"], "decode_captured": dec["captured"],
         "decode_tok_s": stats["decode_tok_s"],
         "peak_memory_bytes": stats["peak_memory_bytes"],
         "prefill_kernel_launches": stats["prefill_kernel_launches"],
@@ -771,7 +802,8 @@ def jamba_phases():
           f"G={G}: prefill {stats['prefill_ms']:.1f} ms; decode ms a step "
           f"min {numbers['decode_ms_min']:.2f}, mean "
           f"{numbers['decode_ms_mean']:.2f}, max {numbers['decode_ms_max']:.2f}"
-          f" over {dec['count']} steps ({stats['decode_tok_s']:.1f} tok/s); "
+          f" over {G} steps, captured {dec['captured']} "
+          f"({stats['decode_tok_s']:.1f} tok/s); "
           f"peak memory {stats['peak_memory_bytes']} B "
           f"({stats['peak_memory_bytes'] / 2**30:.2f} GiB); prefill launches "
           f"{stats['prefill_kernel_launches']} "
@@ -794,6 +826,15 @@ def jamba_phases():
     check(tuple(tokens.shape) == (B, G + 1), f"tokens {tuple(tokens.shape)}")
     check(0 <= int(tokens.min()) and int(tokens.max()) < cfg.vocab_size,
           "generated token out of range")
+
+    # 23. captured against eager decode on the served model, in turns
+    turns = captured_vs_eager(
+        "23", f"jamba ({cfg.n_layers} layers, B={B} P={P} G={G})", model,
+        prompts, G)
+    turns.pop("stats")
+    check(torch.equal(turns.pop("tokens"), tokens.cpu()),
+          "phase 23's jamba tokens differ from phase 13's")
+    numbers["captured_vs_eager"] = turns
 
     # 18. one profiled prefill of the served model
     from repro_torch.configs.base import ShapeConfig
@@ -1233,12 +1274,13 @@ def halo_record_replay(box: int, steps: int) -> dict:
 
 
 def decode_steps(stats) -> dict:
-    """The ``serve/decode_step`` metrics (seconds) of a serve run's region
-    tree, with ``mean_ms`` added."""
-    dec = dict({c["name"]: c["metrics"]
-                for c in stats["tree"]["children"]}["serve/decode_step"])
-    dec["mean_ms"] = dec["sum"] / dec["count"] * 1e3
-    return dec
+    """Decode ms a step of a serve run (``stats["decode_step_ms"]``: CUDA
+    events around each step, since a captured step's region closes when
+    its replay is launched), with the step count and whether decode ran as
+    one captured graph."""
+    d = stats["decode_step_ms"]
+    return {"min_ms": d["min"], "mean_ms": d["mean"], "max_ms": d["max"],
+            "captured": stats["decode_captured"]}
 
 
 def _telemetry_client(url: str, stop, log: dict) -> None:
@@ -1345,7 +1387,10 @@ def telemetry_phase(B: int, P: int, G: int, want_tokens, want_logits,
     reset_global_registry()
     names = [e.name for e in events]
     decode = [e for e in events if e.name == "serve/decode_step"]
-    lo, hi = min(e.t_start for e in decode), max(e.t_end for e in decode)
+    # the card decodes from the first step's launch until the end of the
+    # loop's synchronize: a captured step's region closes at its launch
+    lo = min(e.t_start for e in decode)
+    hi = max(max(e.t_end for e in decode), lo + stats["decode_s"] * 1e9)
     during = {path: sum(lo <= t0 and t1 <= hi for t0, t1, _ in log[path])
               for path in ("/metrics", "/findings")}
     dec = decode_steps(stats)
@@ -1359,7 +1404,8 @@ def telemetry_phase(B: int, P: int, G: int, want_tokens, want_logits,
           f"{drain['deltas_merged']}, pending {drain['pending']}), live "
           f"findings {kinds}", flush=True)
     print(f"[20] decode step ms with telemetry {step_ms:.2f} (min "
-          f"{dec['min'] * 1e3:.2f}, max {dec['max'] * 1e3:.2f}) beside "
+          f"{dec['min_ms']:.2f}, max {dec['max_ms']:.2f}; captured "
+          f"{dec['captured']}) beside "
           f"phase 5's {plain_step_ms:.2f}; prefill {stats['prefill_ms']:.1f}"
           f" ms; tokens equal phase 5's: "
           f"{torch.equal(tokens, want_tokens)}; prefill logits max|diff| "
@@ -1445,6 +1491,402 @@ def telemetry_phase(B: int, P: int, G: int, want_tokens, want_logits,
         "corpus_entries": len(run.results), "host_s": host_s}
 
 
+def sdpa_backend(fn) -> str:
+    """The backend that ``scaled_dot_product_attention`` ran ``fn`` on,
+    from the aten op a host-side profile of one call shows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages()}
+    for backend in ("flash", "efficient", "cudnn"):
+        if f"aten::_scaled_dot_product_{backend}_attention" in names:
+            return backend
+    if "aten::_scaled_dot_product_attention_math" in names:
+        return "math"
+    return "unknown: " + ", ".join(sorted(n for n in names if "dot" in n))
+
+
+def d256_phase(reports) -> dict:
+    """Phase 21: the forward at head dim 256 at gemma3's prefill shape,
+    bf16 (wgmma) and f32 (scalar), causal (a global layer) and with
+    gemma3's window of 1024 (a local layer), against its plain version;
+    then, in bf16, the kernel's time by CUDA events (twice), its plain
+    version's, scaled_dot_product_attention's (yardstick only: causal for
+    the global layer, a boolean band mask for the windowed one, with the
+    backend it ran) and the least time the card could take. Returns
+    {"<dtype> <case>": numbers}."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel, ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+
+    t0 = time.perf_counter()
+    B, T, H, K, D = (GEMMA_ATTENTION[x] for x in "BTHKD")
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+                   for shape in ((B, T, H, D), (B, T, K, D), (B, T, K, D)))
+        for case, window in (("causal", None), ("window", GEMMA_WINDOW)):
+            reset_counts()
+            o, lse = flash_attention(q, k, v, causal=True, window=window)
+            torch.cuda.synchronize()
+            used = read_variants()
+            r_o, r_lse = ref.flash_attention_ref(q, k, v, causal=True,
+                                                 window=window)
+            row = {"max_abs_err": float((o.float() - r_o.float()).abs().max()),
+                   "lse_max_abs_err": float((lse - r_lse).abs().max()),
+                   "launched": used}
+            del o, lse, r_o, r_lse
+            ok = (row["max_abs_err"] < OUT_TOL[dtype]
+                  and row["lse_max_abs_err"] < LSE_TOL
+                  and used == variants_of({("fwd", dtype): 1}))
+            label = f"{dtype} {case}"
+            print(f"[21] D=256 {label} (B={B} T=S={T} H={H} K={K}, window "
+                  f"{window}): out max|err| {row['max_abs_err']:.3e} (< "
+                  f"{OUT_TOL[dtype]:g}), lse {row['lse_max_abs_err']:.3e} "
+                  f"(< {LSE_TOL:g}); {used} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            check(ok, f"the D=256 forward disagrees with its plain version: "
+                      f"{label}")
+
+            def run():
+                return kernel.flash_fwd(q, k, v, causal=True, window=window)
+
+            row["ms"] = cuda_ms(run)
+            if dtype == "bfloat16":
+                row["plain_ms"] = cuda_ms(lambda: ref.flash_attention_ref(
+                    q, k, v, causal=True, window=window), iters=3, warmup=1)
+                qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+                if window is None:
+                    def lib():
+                        return sdpa(qt, kt, vt, is_causal=True,
+                                    enable_gqa=True)
+                else:
+                    p = torch.arange(T, device="cuda")
+                    band = ((p[None, :] <= p[:, None])
+                            & (p[None, :] > p[:, None] - window))
+
+                    def lib():
+                        return sdpa(qt, kt, vt, attn_mask=band,
+                                    enable_gqa=True)
+                row["library_ms"] = cuda_ms(lib)
+                row["library_backend"] = sdpa_backend(lib)
+                (row["bound_ms"], row["bound_by"], flops,
+                 nbytes) = attention_bound_ms(B, T, T, H, K, D, True, window,
+                                              2, PEAK_BF16_FLOPS)
+                row["ms_again"] = cuda_ms(run)
+                del qt, kt, vt
+                print(f"[21] D=256 {label}: kernel {row['ms']:.4f} / "
+                      f"{row['ms_again']:.4f} ms, plain {row['plain_ms']:.3f}"
+                      f" ms, sdpa {row['library_ms']:.4f} ms "
+                      f"({row['library_backend']}); bound "
+                      f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
+                      f"{flops:.4e} FLOP, {nbytes / 1e6:.1f} MB), kernel at "
+                      f"{row['bound_ms'] / row['ms']:.2%} of bound; {CARD}",
+                      flush=True)
+            else:
+                print(f"[21] D=256 {label}: scalar kernel {row['ms']:.3f} ms;"
+                      f" {CARD}", flush=True)
+            out[label] = row
+        del q, k, v
+    torch.cuda.empty_cache()
+    for name in ("flash_fwd_wgmma_kernel<256>", "flash_fwd_f32_kernel<256>",
+                 "fwd wgmma D=256 smem"):
+        print(f"[21] {name}: {reports.get(name)}", flush=True)
+    print(f"[21] took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def windowed(cfg, window: int):
+    """``cfg`` with every local layer's window replaced by ``window``."""
+    return dataclasses.replace(cfg, pattern=tuple(
+        dataclasses.replace(s, window=window if s.window else None)
+        for s in cfg.pattern))
+
+
+def captured_vs_eager(tag: str, label: str, model, prompts, G: int,
+                      repeats: int = DECODE_REPEATS) -> dict:
+    """Serve ``prompts`` through ``launch.serve.generate`` with eager and
+    with captured decode, in turns, ``repeats`` times each: the tokens must
+    be equal in every run. Returns decode ms a step of each run, prefill
+    ms, the largest difference of the last step's logits, and the first
+    captured run's launch counts, variants and stats."""
+    import torch
+
+    from repro_torch.launch import serve
+
+    runs = {False: [], True: []}
+    first = None
+    for _ in range(repeats):
+        for captured in (False, True):
+            reset_counts()
+            tokens, stats = serve.generate(model, prompts, G,
+                                           captured=captured)
+            counts, used = read_counts(), read_variants()
+            runs[captured].append((tokens.cpu(), decode_steps(stats), stats))
+            if captured and first is None:
+                first = {"counts": counts, "variants": used, "stats": stats}
+    want = runs[False][0][0]
+    same = all(torch.equal(t, want) for r in runs.values() for t, _, _ in r)
+    diff = max(float((c[2]["decode_logits"] - e[2]["decode_logits"]).abs()
+                     .max()) for c, e in zip(runs[True], runs[False]))
+    steps = {("captured" if c else "eager"): [
+        {k: round(d[f"{k}_ms"], 3) for k in ("min", "mean", "max")}
+        for _, d, _ in r] for c, r in runs.items()}
+    prefill = {("captured" if c else "eager"): [
+        round(s["prefill_ms"], 2) for _, _, s in r] for c, r in runs.items()}
+    print(f"[{tag}] {label}: captured and eager tokens equal over "
+          f"{2 * repeats} runs: {same}; last step's logits max|diff| "
+          f"{diff:.3e}; decode ms a step (min, mean, max) by run {steps}; "
+          f"prefill ms {prefill}; {CARD}", flush=True)
+    check(same, f"{label}: captured decode changed the tokens of eager "
+                f"decode")
+    check(all(d["captured"] for _, d, _ in runs[True])
+          and not any(d["captured"] for _, d, _ in runs[False]),
+          f"{label}: decode_captured does not match the request")
+    return {"tokens_equal": same, "logits_max_diff": diff,
+            "decode_step_ms": steps, "prefill_ms": prefill,
+            "tokens": want, **first}
+
+
+def captured_trace(label: str, model, prompts, cfg) -> dict:
+    """Phase 23: phase 18's decode trace retaken on the captured step: one
+    profiled replay at the position after the prompt, its idle share,
+    busy ms and events by kernel, beside the replay's time by CUDA events
+    (which holds whatever the trace shows of a graph's kernels)."""
+    import torch
+
+    from repro_torch.core import device_timeline
+    from repro_torch.train.step import CapturedDecode, make_prefill_step
+
+    B, P = prompts.shape
+    caches = model.alloc_cache(B, P + 1)
+    graph = CapturedDecode(model, caches, B)
+    with torch.no_grad():
+        logits = make_prefill_step(cfg)(model, {"tokens": prompts}, caches)
+    token = logits[:, 0].argmax(dim=-1).to(torch.int32)[:, None]
+
+    def step():
+        return graph(token, P)
+
+    event_ms = cuda_ms(step, iters=10, warmup=2)
+    _, trace = device_timeline.profile(step)
+    # every event by kernel class, whether or not it joins a host span
+    rep = device_timeline.device_report(trace,
+                                        phases=(device_timeline.WINDOW,))
+    by_class = {}
+    for row in rep["by_phase"].values():
+        for c, ms in row.items():
+            by_class[c] = by_class.get(c, 0.0) + ms
+    kernels = sum(e.get("cat") == "kernel" for e in trace["traceEvents"])
+    launches = sum(e.get("name") == "cudaGraphLaunch"
+                   for e in trace["traceEvents"])
+    print(f"[23] {label} (captured): replay {event_ms:.3f} ms by CUDA events;"
+          f" trace: {kernels} kernels, {launches} cudaGraphLaunch, window "
+          f"{rep['window_ms']:.3f} ms, busy {rep['busy_ms']:.3f} ms, idle "
+          f"share {rep['idle_share']:.4f}; {CARD}", flush=True)
+    for k in rep["kernels"][:5]:
+        print(f"[23]   kernel {k['ms']:9.3f} ms {k['launches']:5d}x  "
+              f"{k['name'][:100]}", flush=True)
+    for g in rep["idle_gaps"][:3]:
+        print(f"[23]   idle {g['ms']:8.3f} ms at {g['at_ms']:9.3f} ms, host "
+              f"in {' < '.join(g['host_path']) or '(no span)'}", flush=True)
+    print(f"[23]   busy ms by kernel class "
+          f"{ {c: round(ms, 3) for c, ms in sorted(by_class.items())} }",
+          flush=True)
+    del graph, caches
+    return {"replay_event_ms": event_ms, "trace_kernels": kernels,
+            "graph_launches": launches, "window_ms": rep["window_ms"],
+            "busy_ms": rep["busy_ms"], "idle_share": rep["idle_share"],
+            "events": rep["events"], "idle_gaps": rep["idle_gaps"][:3],
+            "busy_ms_by_class": by_class}
+
+
+def gemma3_phase() -> tuple:
+    """Phase 22: serve gemma3-12b at full width (48 layers, bf16, head dim
+    256, 40 layers with a window of 1024), B 4, prompt 2048, 32 new tokens,
+    with captured and with eager decode in turns; then one pattern group
+    in f32 on the card against the CPU. Returns (the launch counts of the
+    first captured run, its numbers)."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.train.step import (CapturedDecode, make_decode_step,
+                                        make_prefill_step)
+
+    t0 = time.perf_counter()
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    full = get_config("gemma3-12b", "full")
+    B, P, G = GEMMA_SERVE
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = Model(full, dev).init_weights(0)
+    n_params = sum(p.numel() for p in model.parameters())
+    prompts = torch.randint(0, full.vocab_size, (B, P),
+                            generator=torch.Generator().manual_seed(1)).to(dev)
+    turns = captured_vs_eager("22", "gemma3-12b", model, prompts, G,
+                              repeats=2)
+    stats = turns.pop("stats")
+    want = {"fwd/wgmma": full.n_layers}
+    numbers = {
+        "layers": full.n_layers, "params": n_params, "batch": B, "prompt": P,
+        "gen": G, **{k: v for k, v in turns.items() if k != "tokens"},
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(dev),
+        "prefill_launches_by_variant": {
+            k: n for k, n in stats["prefill_launches_by_variant"].items()
+            if n}}
+    print(f"[22] serve gemma3-12b full width, {full.n_layers} layers "
+          f"({sum(s.window is not None for s in full.pattern) * full.n_groups}"
+          f" windowed), {n_params:,} params, B={B} P={P} G={G}: prefill ms "
+          f"{turns['prefill_ms']}, decode ms a step {turns['decode_step_ms']},"
+          f" peak memory {numbers['peak_memory_bytes'] / 2**30:.2f} GiB; "
+          f"launches {turns['counts']} {turns['variants']}; {CARD}",
+          flush=True)
+    check(numbers["prefill_launches_by_variant"] == turns["variants"] == want
+          and turns["counts"]["flash_attention_fwd"] == full.n_layers,
+          f"gemma3 prefill launched {turns['variants']} ({turns['counts']}):"
+          f" {want} expected")
+    check(stats["logits_finite"], "non-finite gemma3 logits")
+    tokens = turns["tokens"]
+    check(tuple(tokens.shape) == (B, G + 1)
+          and 0 <= int(tokens.min()) and int(tokens.max()) < full.vocab_size,
+          f"gemma3 tokens {tuple(tokens.shape)} out of shape or range")
+    counts = turns["counts"]
+    del model, prompts, stats, turns
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one pattern group at full width, f32, the window cut so that it acts
+    # inside a short prefill; the card decodes through the captured step
+    W, Pc, Bc, Gc = GEMMA_CHECK
+    cfg = dataclasses.replace(windowed(full, W), n_layers=len(full.pattern),
+                              dtype="float32")
+    m_gpu = Model(cfg, dev).init_weights(0)
+    m_cpu = Model(cfg, cpu)
+    m_cpu.load_state_dict(m_gpu.state_dict())
+    toks = torch.randint(0, cfg.vocab_size, (Bc, Pc + Gc),
+                         generator=torch.Generator().manual_seed(0))
+    reset_counts()
+    results = []
+    with torch.no_grad():
+        for m, d in ((m_gpu, dev), (m_cpu, cpu)):
+            caches = m.alloc_cache(Bc, Pc + Gc)
+            if d.type == "cuda":
+                step = CapturedDecode(m, caches, Bc)
+            else:
+                def step(tok, t, m=m, caches=caches):
+                    return make_decode_step(cfg)(m, caches, {"tokens": tok}, t)
+            logits = [make_prefill_step(cfg)(
+                m, {"tokens": toks[:, :Pc].to(d)}, caches)]
+            for t in range(Pc, Pc + Gc):
+                logits.append(step(toks[:, t:t + 1].to(d), t)[0].clone())
+            results.append([x.cpu() for x in logits])
+            del caches, step
+    used = read_variants()
+    worst = 0.0
+    for a, b in zip(*results):
+        check(bool(torch.isfinite(a).all()), "non-finite gemma3 logits")
+        worst = max(worst, float((a - b).abs().max()))
+    del m_gpu, m_cpu, results
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[22] gemma3 full width, {cfg.n_layers} layers (one pattern "
+          f"group), f32; reduced: window {W}, prompt {Pc}, B {Bc}, {Gc} "
+          f"new tokens: card (captured decode) vs CPU logits max|err| "
+          f"{worst:.3e} (< {MODEL_TOL:g}) over prefill + {Gc} decode steps; "
+          f"card launches {used}", flush=True)
+    check(worst < MODEL_TOL, "gemma3 on the card disagrees with the CPU")
+    check(used == {"fwd/scalar": cfg.n_layers},
+          f"the f32 gemma3 prefill launched {used}: "
+          f"{cfg.n_layers} scalar forwards expected")
+    numbers["check_max_abs_err"] = worst
+    numbers["phase_s"] = time.perf_counter() - t0
+    print(f"[22] took {numbers['phase_s']:.1f} s", flush=True)
+    return counts, numbers
+
+
+def xlstm_phase() -> dict:
+    """Phase 24: serve xlstm-125m at full width (12 layers, bf16), B 4,
+    prompt 1024, 32 new tokens, captured against eager decode; then two
+    layers (one mLSTM, one sLSTM) in f32 on the card against the CPU."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.train.step import (CapturedDecode, make_decode_step,
+                                        make_prefill_step)
+
+    t0 = time.perf_counter()
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    full = get_config("xlstm-125m", "full")
+    B, P, G = XLSTM_SERVE
+    model = Model(full, dev).init_weights(0)
+    n_params = sum(p.numel() for p in model.parameters())
+    prompts = torch.randint(0, full.vocab_size, (B, P),
+                            generator=torch.Generator().manual_seed(1)).to(dev)
+    turns = captured_vs_eager("24", "xlstm-125m", model, prompts, G,
+                              repeats=2)
+    stats = turns.pop("stats")
+    check(stats["logits_finite"], "non-finite xlstm logits")
+    check(sum(turns["counts"].values()) == 0,
+          f"xlstm launched a hand-written kernel: {turns['counts']}")
+    numbers = {"layers": full.n_layers, "params": n_params, "batch": B,
+               "prompt": P, "gen": G,
+               **{k: v for k, v in turns.items() if k != "tokens"}}
+    print(f"[24] serve xlstm-125m full width, {full.n_layers} layers, "
+          f"{n_params:,} params, B={B} P={P} G={G}: prefill ms "
+          f"{turns['prefill_ms']} (the sLSTM prefill a loop of {P} steps), "
+          f"decode ms a step {turns['decode_step_ms']}; {CARD}", flush=True)
+    del model, prompts, stats, turns
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = dataclasses.replace(full, n_layers=2, dtype="float32")
+    m_gpu = Model(cfg, dev).init_weights(0)
+    m_cpu = Model(cfg, cpu)
+    m_cpu.load_state_dict(m_gpu.state_dict())
+    toks = torch.randint(0, cfg.vocab_size, (2, 100),
+                         generator=torch.Generator().manual_seed(0))
+    results = []
+    with torch.no_grad():
+        for m, d in ((m_gpu, dev), (m_cpu, cpu)):
+            caches = m.alloc_cache(2, 100)
+            if d.type == "cuda":
+                step = CapturedDecode(m, caches, 2)
+            else:
+                def step(tok, t, m=m, caches=caches):
+                    return make_decode_step(cfg)(m, caches, {"tokens": tok}, t)
+            logits = [make_prefill_step(cfg)(
+                m, {"tokens": toks[:, :97].to(d)}, caches)]
+            for t in range(97, 100):
+                logits.append(step(toks[:, t:t + 1].to(d), t)[0].clone())
+            results.append([x.cpu() for x in logits])
+            del caches, step
+    worst = 0.0
+    for a, b in zip(*results):
+        check(bool(torch.isfinite(a).all()), "non-finite xlstm logits")
+        worst = max(worst, float((a - b).abs().max()))
+    del m_gpu, m_cpu, results
+    print(f"[24] xlstm full width, 2 layers (mLSTM, sLSTM), f32: card "
+          f"(captured decode) vs CPU logits max|err| {worst:.3e} (< "
+          f"{MODEL_TOL:g}) over prefill + 3 decode steps", flush=True)
+    check(worst < MODEL_TOL, "xlstm on the card disagrees with the CPU")
+    numbers["check_max_abs_err"] = worst
+    numbers["phase_s"] = time.perf_counter() - t0
+    print(f"[24] took {numbers['phase_s']:.1f} s", flush=True)
+    return numbers
+
+
 def card_info():
     """(device name, device count, the card line of nvidia-smi, SM count,
     top SM clock in Hz)."""
@@ -1523,7 +1965,7 @@ def build_phase() -> dict:
                 print(f"    ptxas {kernel_name}: {report}")
                 reports[kernel_name] = report
     for name in ("fwd", "dq", "dkv"):
-        for D in kernel.HEAD_DIMS:
+        for D in kernel.HEAD_DIMS[name]:
             smem, blocks = kernel.wgmma_info(name, D)
             reports[f"{name} wgmma D={D} smem"] = (
                 f"{smem} B dynamic shared memory, {blocks} blocks an SM")
@@ -1562,6 +2004,8 @@ def setup():
 def main() -> None:
     import torch
 
+    global T0
+    T0 = time.perf_counter()
     setup()
     from repro_torch.configs.archs import get_config
     from repro_torch.kernels.flash_attention import kernel, ops, ref
@@ -1573,6 +2017,8 @@ def main() -> None:
 
     # 1. the card
     kind, count, card, sms, clock_hz = card_info()
+    global CARD
+    CARD = card
     print(f"[1] device: {kind} (count {count}), torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}, {sms} SMs, top SM clock "
           f"{clock_hz / 1e6:.0f} MHz")
@@ -1584,7 +2030,7 @@ def main() -> None:
     # 3. one wgmma product against torch.matmul, then the kernel against
     # its plain version on the card
     gen = torch.Generator(device=dev).manual_seed(0)
-    for D in kernel.HEAD_DIMS:
+    for D in kernel.HEAD_DIMS["fwd"]:
         a, b, v = (torch.randn(64, D, generator=gen, device=dev).to(
             torch.bfloat16) for _ in range(3))
         c1, c2 = kernel.wgmma_probe(a, b, v)
@@ -1660,6 +2106,9 @@ def main() -> None:
           f"({bound_by}: {flops:.3e} FLOP, {nbytes / 1e6:.1f} MB), "
           f"kernel at {bound_ms / k_ms:.2%} of bound", flush=True)
 
+    # 21. the forward at head dim 256, gemma3's prefill shape
+    d256 = d256_phase(reports)
+
     # 5a. the whole model on the card against the same model on the CPU
     cfg = dataclasses.replace(get_config("yi-6b", "full"), n_layers=2,
                               dtype="float32")
@@ -1705,9 +2154,9 @@ def main() -> None:
     launches = serve_counts["flash_attention_fwd"]
     full = get_config("yi-6b", "full")
     dec = decode_steps(stats)
-    print(f"[5] decode step ms: min {dec['min'] * 1e3:.2f}, max "
-          f"{dec['max'] * 1e3:.2f}, mean {dec['mean_ms']:.2f}"
-          f" over {dec['count']} steps")
+    print(f"[5] decode step ms: min {dec['min_ms']:.2f}, max "
+          f"{dec['max_ms']:.2f}, mean {dec['mean_ms']:.2f} over {G} steps, "
+          f"captured {dec['captured']}")
     print(f"[5] serve: prefill {stats['prefill_ms']:.1f} ms, decode "
           f"{stats['decode_tok_s']:.1f} tok/s, peak memory "
           f"{stats['peak_memory_bytes']} B, kernel launches {launches} "
@@ -1735,6 +2184,7 @@ def main() -> None:
     # profiler has run in this process)
     telemetry_counts, telemetry = telemetry_phase(
         B, P, G, tokens, stats["prefill_logits"], dec["mean_ms"])
+    tokens_5b = tokens
     del tokens, stats
 
     # 5c. the bf16 forward on yi-6b's own prefill activations (q, k, v of
@@ -1777,7 +2227,19 @@ def main() -> None:
             f"yi-6b decode step (32 layers, B={B}, position {P})",
             lambda: decode(model, caches, {"tokens": token}, P), full,
             ShapeConfig("decode", P, B, "decode"))
-    del model, prompts, caches, token
+    del caches, token
+
+    # 23. captured against eager decode on this model, in turns, and the
+    # decode trace of 18 retaken on the captured step
+    yi_decode = captured_vs_eager(
+        "23", f"yi-6b (32 layers, B={B} P={P} G={G})", model, prompts, G)
+    yi_decode.pop("stats")
+    check(torch.equal(yi_decode.pop("tokens"), tokens_5b.cpu()),
+          "phase 23's yi-6b tokens differ from phase 5's")
+    serve_trace["decode_captured"] = captured_trace(
+        f"yi-6b decode step (32 layers, B={B}, position {P})", model,
+        prompts, full)
+    del model, prompts
     act = {"max_abs_err": 0.0}
     for layer, (q, k, v, causal, window) in enumerate(captured):
         out, _ = kernel.flash_fwd(q, k, v, causal=causal, window=window)
@@ -1808,9 +2270,13 @@ def main() -> None:
     train_counts, train_stats, train_trace = train_phases()
     scan = scan_phases(sms, clock_hz)
     jamba_counts, jamba = jamba_phases()
+    gemma_counts, gemma = gemma3_phase()
+    xlstm_numbers = xlstm_phase()
     default_counts = default_commands_phase()
     d16 = d16_timing_phase(qkv)
     halo_counts, halo = halo_phase()
+
+    print(f"[14] phases 1-24 took {time.perf_counter() - T0:.1f} s", flush=True)
 
     # 14. result lines
     paths = {"serve": serve_counts, "train": train_counts,
@@ -1902,6 +2368,38 @@ def main() -> None:
             "shape": "B=8 T=256 H=4 K=4 D=16 bf16 causal",
             "card": card,
         })
+    # head dim 256, on gemma3's prefill: its windowed layers' timing is the
+    # row's, the causal (global) layer's beside it
+    win, glob = d256["bfloat16 window"], d256["bfloat16 causal"]
+    kernels.append({
+        "name": "flash_attention_fwd[D=256]",
+        "route": "cuda",
+        "design": "wgmma, m64n256k16 P V, 2-stage ring",
+        "source": KERNEL_SOURCE,
+        "replaces": TPU_KERNEL,
+        "launches": gemma_counts["flash_attention_fwd"],
+        "launches_by_path": {"serve_gemma3": gemma_counts[
+            "flash_attention_fwd"]},
+        "max_abs_err": win["max_abs_err"],
+        "lse_max_abs_err": win["lse_max_abs_err"],
+        "ms": win["ms"],
+        "ms_again": win["ms_again"],
+        "plain_ms": win["plain_ms"],
+        "bound_ms": win["bound_ms"],
+        "bound_by": win["bound_by"],
+        "library_ms": win["library_ms"],
+        "library_backend": win["library_backend"],
+        "causal": {k: glob[k] for k in (
+            "max_abs_err", "ms", "ms_again", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_backend")},
+        "f32": {k: {x: d256[k][x] for x in ("max_abs_err", "ms")}
+                for k in ("float32 causal", "float32 window")},
+        "ptxas": reports.get("flash_fwd_wgmma_kernel<256>"),
+        "ptxas_f32": reports.get("flash_fwd_f32_kernel<256>"),
+        "smem": reports.get("fwd wgmma D=256 smem"),
+        "shape": "B=4 T=2048 H=16 K=8 D=256 bf16 causal, window 1024",
+        "card": card,
+    })
     total, by_path = launches_of("selective_scan")
     t = scan["timing"]
     kernels.append({
@@ -1937,6 +2435,11 @@ def main() -> None:
                       "bf16_forward_on_yi6b_activations": act,
                       "halo": halo,
                       "serve_telemetry": telemetry,
+                      "serve_gemma3": gemma,
+                      "serve_xlstm": xlstm_numbers,
+                      "captured_vs_eager_yi6b": yi_decode,
+                      "card": card,
+                      "seconds": time.perf_counter() - T0,
                       "device_traces": {"train": train_trace,
                                         "serve": serve_trace,
                                         "serve_jamba": jamba["trace"]}}))

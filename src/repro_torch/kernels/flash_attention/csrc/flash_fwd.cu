@@ -44,8 +44,14 @@
 //     row sum l is taken of P before its rounding;
 //   * Q and a ring of STAGES K/V tiles arrive by 16-byte cp.async (zero-
 //     filled past T and S) in the 128-byte swizzle (64-byte at D = 32,
-//     32-byte at D = 16) the descriptors name: the copies of tile j+STAGES-1 run while tile j is
-//     multiplied;
+//     32-byte at D = 16) the descriptors name: the copies of tile
+//     j+STAGES-1 run while tile j is multiplied;
+//   * head dim 256 (gemma3) is the same kernel: Q K^T is 16 k-steps of
+//     m64n64k16, P V one m64n256k16 a k slice, O 128 f32 registers a
+//     thread; its ring has 2 stages (193 KB of shared memory), where D <=
+//     128 has 3. Bound at gemma3's prefill (B=4, T=S=2048, H=16, K=8,
+//     D=256, bf16): 1.375e11 FLOP a causal layer -> 0.139 ms, 1.031e11 a
+//     window-1024 layer -> 0.104 ms at 989 TFLOP/s, both by operations;
 //   * under a causal mask the heaviest q tiles launch first (the q tile
 //     index runs backwards through the grid's slowest dimension), and a
 //     warpgroup skips a kv tile that its rows cannot see.
@@ -71,7 +77,8 @@ constexpr int LAUNCHED_WGMMA = 1;
 // BQ = BK = 32; one key per lane for the scores; each of the NWARPS warps
 // owns ROWS query rows and keeps their m, l and ROWS x ceil(D/32)
 // accumulator columns (d = lane + 32 c) in registers; at D = 16 lanes 16
-// to 31 hold no column.
+// to 31 hold no column. The tiles take 100.5 KB at D = 256, above the 48
+// KB default: the launch opts in to that much dynamic shared memory.
 
 constexpr int F32_BQ = 32;
 constexpr int F32_BK = 32;
@@ -258,7 +265,9 @@ constexpr int WG_THREADS = 256;
 
 template <int D>
 struct FwdSmem {
-  static constexpr int STAGES = 3;                 // K/V ring
+  // K/V ring: 3 stages; 2 at D = 256, where 3 would need 257 KB of the
+  // 227 KB a block may take (Q 64 KB + 3 x (32 + 32) KB + 1 KB)
+  static constexpr int STAGES = D == 256 ? 2 : 3;
   static constexpr int Q_BYTES = WG_BQ * D * 2;
   static constexpr int KV_BYTES = WG_BK * D * 2;
   // Q, then STAGES x (K, V); every tile a multiple of 1024 bytes; 1024
@@ -563,6 +572,10 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
       return (f32 ? launch_f32<128> : launch_wgmma<128>)(
           q, k, v, out, lse, B, T_len, S_len, H, KH, st, causal, window,
           scale, s, launched);
+    case 256:
+      return (f32 ? launch_f32<256> : launch_wgmma<256>)(
+          q, k, v, out, lse, B, T_len, S_len, H, KH, st, causal, window,
+          scale, s, launched);
     default:
       return cudaErrorInvalidValue;
   }
@@ -578,6 +591,7 @@ extern "C" int wgmma_probe(const void* a, const void* b, const void* v,
     case 32: return launch_probe<32>(a, b, v, c1, c2, s);
     case 64: return launch_probe<64>(a, b, v, c1, c2, s);
     case 128: return launch_probe<128>(a, b, v, c1, c2, s);
+    case 256: return launch_probe<256>(a, b, v, c1, c2, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -592,11 +606,13 @@ extern "C" int flash_fwd_wgmma_info(int D, int* smem_bytes,
     case 32: *smem_bytes = FwdSmem<32>::BYTES; break;
     case 64: *smem_bytes = FwdSmem<64>::BYTES; break;
     case 128: *smem_bytes = FwdSmem<128>::BYTES; break;
+    case 256: *smem_bytes = FwdSmem<256>::BYTES; break;
     default: return cudaErrorInvalidValue;
   }
-  auto kernel = D == 16   ? flash_fwd_wgmma_kernel<16>
-                : D == 32 ? flash_fwd_wgmma_kernel<32>
-                : D == 64 ? flash_fwd_wgmma_kernel<64>
-                          : flash_fwd_wgmma_kernel<128>;
+  auto kernel = D == 16    ? flash_fwd_wgmma_kernel<16>
+                : D == 32  ? flash_fwd_wgmma_kernel<32>
+                : D == 64  ? flash_fwd_wgmma_kernel<64>
+                : D == 128 ? flash_fwd_wgmma_kernel<128>
+                           : flash_fwd_wgmma_kernel<256>;
   return hopper::occupancy(kernel, WG_THREADS, *smem_bytes, blocks_per_sm);
 }

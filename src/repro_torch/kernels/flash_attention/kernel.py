@@ -24,7 +24,10 @@ import torch
 
 from .. import build
 
-HEAD_DIMS = (16, 32, 64, 128)
+# head dims each kernel takes: the forward also 256 (gemma3's prefill);
+# the backward's 256 is queued with gemma3 training (ROADMAP)
+HEAD_DIMS = {"fwd": (16, 32, 64, 128, 256), "dq": (16, 32, 64, 128),
+             "dkv": (16, 32, 64, 128)}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the variant each kernel launches, by input dtype
 VARIANTS = {
@@ -112,8 +115,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, fn: str,
     if q.dtype not in _DTYPES or any(x.dtype != q.dtype for x in (k, v, *more)):
         raise ValueError(f"{fn} takes float32 or bfloat16 inputs of one "
                          f"dtype, got {[x.dtype for x in (q, k, v, *more)]}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
+    if D not in HEAD_DIMS[kind]:
+        queued = (" (head dim 256 in the backward is queued with gemma3 "
+                  "training: ROADMAP Queue 2)" if kind != "fwd" else "")
+        raise ValueError(f"{fn}: head_dim {D} not in {HEAD_DIMS[kind]}"
+                         f"{queued}")
     if (k.shape != (B, S, K, D) or v.shape != k.shape or H % K
             or any(x.shape != q.shape for x in more)):
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "
@@ -221,14 +227,14 @@ def wgmma_probe(a: torch.Tensor, b: torch.Tensor, v: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Test entry of ``flash_fwd.cu``: one warpgroup's two tensor-core
     products, formed as the bf16 forward forms S = Q K^T and O = P V. a, b,
-    v (64, D) bf16 contiguous CUDA tensors, D in HEAD_DIMS. Returns (c1 =
-    a b^T (64, 64), c2 = bf16(c1) v (64, D)), both f32."""
+    v (64, D) bf16 contiguous CUDA tensors, D in the forward's HEAD_DIMS.
+    Returns (c1 = a b^T (64, 64), c2 = bf16(c1) v (64, D)), both f32."""
     D = a.shape[1]
-    if (D not in HEAD_DIMS or any(x.shape != (64, D) or x.dtype != torch.bfloat16
-                                  or not x.is_cuda or not x.is_contiguous()
-                                  for x in (a, b, v))):
+    if D not in HEAD_DIMS["fwd"] or any(
+            x.shape != (64, D) or x.dtype != torch.bfloat16 or not x.is_cuda
+            or not x.is_contiguous() for x in (a, b, v)):
         raise ValueError("wgmma_probe takes contiguous (64, D) bf16 CUDA "
-                         f"tensors, D in {HEAD_DIMS}")
+                         f"tensors, D in {HEAD_DIMS['fwd']}")
     c1 = torch.empty((64, 64), dtype=torch.float32, device=a.device)
     c2 = torch.empty((64, D), dtype=torch.float32, device=a.device)
     with torch.cuda.device(a.device):

@@ -6,8 +6,13 @@
 
 Runs on the CUDA card unless ``--device cpu`` is given; with no card and
 no ``--device cpu`` it raises. Weights and prompts are random, made from
-``--seed``. Prefill attention runs the CUDA flash-attention kernel, and
-a mamba layer's prefill the CUDA selective-scan kernel.
+``--seed``. Serves every architecture with token input (``--arch``:
+yi-6b, jamba-v0.1-52b, gemma3-12b, xlstm-125m, ...; the two with other
+inputs are refused, as the reference refuses them). Prefill attention
+runs the CUDA flash-attention kernel (windowed on gemma3's local
+layers), and a mamba layer's prefill the CUDA selective-scan kernel. On
+the card each decode step replays one captured CUDA graph, the
+counterpart of the reference's jitted decode over donated caches.
 
 ``--telemetry`` serves live telemetry over HTTP/SSE while prefill and
 decode run: a :class:`~repro_torch.telemetry.TelemetryBridge` polls the
@@ -36,7 +41,8 @@ from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.mamba_scan.ops import selective_scan
 from ..models.model import Model
 from ..telemetry import TelemetryBridge, TelemetryServer
-from ..train.step import make_decode_step, make_prefill_step
+from ..train.step import (CapturedDecode, make_decode_step,
+                          make_prefill_step)
 
 
 # the kernels of the prefill, by name, with their launch counters
@@ -53,24 +59,39 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def generate(model: Model, prompts: torch.Tensor, gen: int
-             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+def generate(model: Model, prompts: torch.Tensor, gen: int,
+             captured: bool = True) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Prefill ``prompts`` (B, P), then ``gen`` greedy decode steps.
 
     Returns the generated tokens (B, gen + 1): the prefill's prediction,
-    then one per decode step. The caches are allocated once at P + gen
-    slots. Records ``serve/prefill`` and ``serve/decode_step`` regions.
-    ``stats["prefill_kernel_launches"]`` counts each kernel's launches in
-    the prefill, by name, and ``stats["prefill_launches_by_variant"]`` the
+    then one per decode step. The caches are allocated once for P + gen
+    positions. On the card decode is one captured CUDA graph replayed at
+    every position (:class:`~repro_torch.train.step.CapturedDecode`,
+    captured before the prefill), unless ``captured=False`` asks for eager
+    decode; on the CPU decode runs eagerly. Prefill runs eagerly. Records
+    ``serve/prefill`` and ``serve/decode_step`` regions.
+
+    ``stats``: ``prefill_kernel_launches`` counts each kernel's launches in
+    the prefill, by name, and ``prefill_launches_by_variant`` the
     flash-attention launches by variant (``flash_attention.
-    launches_by_variant``); ``stats["prefill_logits"]`` holds the
-    prefill's logits (f32, on the CPU).
+    launches_by_variant``); ``prefill_logits`` holds the prefill's logits
+    and ``decode_logits`` the last step's (f32, on the CPU);
+    ``decode_step_ms`` is the {"min", "mean", "max"} of the steps' times
+    (CUDA events around each step on the card, the host clock on the
+    CPU) and ``decode_captured`` whether decode ran as a graph.
     """
     cfg, device = model.cfg, model.device
     B, P = prompts.shape
-    prefill = make_prefill_step(cfg)
-    decode = make_decode_step(cfg)
+    on_card = device.type == "cuda"
     caches = model.alloc_cache(B, P + gen)
+    prefill = make_prefill_step(cfg)
+    if captured and on_card:
+        decode = CapturedDecode(model, caches, B)
+    else:
+        eager = make_decode_step(cfg)
+
+        def decode(token, t):
+            return eager(model, caches, {"tokens": token}, t)
     launches0 = _launches()
     variants0 = dict(flash_attention.launches_by_variant)
     with torch.no_grad():
@@ -87,17 +108,23 @@ def generate(model: Model, prompts: torch.Tensor, gen: int
             for k, n in flash_attention.launches_by_variant.items()}
         token = logits[:, 0].argmax(dim=-1).to(torch.int32)[:, None]
         out_tokens = [token]
+        marks = []
         t0 = time.perf_counter()
         for t in range(P, P + gen):
             with regions.annotate_torch("serve/decode_step", category="api",
                                         pos=t) as box:
-                logits, next_tok = decode(model, caches, {"tokens": token}, t)
-                token = next_tok[:, 0][:, None]
+                marks.append(_mark(device))
+                logits, next_tok = decode(token, t)
+                # the graph's outputs are overwritten by the next replay
+                token = next_tok[:, :1].clone()
                 out_tokens.append(token)
+                marks.append(_mark(device))
                 box["out"] = token
             finite &= torch.isfinite(logits).all()
         _sync(device)
         dt = time.perf_counter() - t0
+        decode_logits = logits.float().cpu() if gen else None
+    step_ms = [_elapsed_ms(a, b) for a, b in zip(marks[::2], marks[1::2])]
     prefill_ev = [e for e in global_collector().drain()
                   if e.name == "serve/prefill"][-1]
     stats = {
@@ -105,14 +132,34 @@ def generate(model: Model, prompts: torch.Tensor, gen: int
         "prefill_ms": prefill_ev.duration / 1e6,
         "decode_s": dt,
         "decode_tok_s": B * gen / dt if gen else float("nan"),
+        "decode_step_ms": ({"min": min(step_ms), "mean": sum(step_ms) / gen,
+                            "max": max(step_ms)} if gen else None),
+        "decode_captured": captured and on_card,
         "prefill_kernel_launches": prefill_launches,
         "prefill_launches_by_variant": prefill_variants,
         "logits_finite": bool(finite),
         "prefill_logits": prefill_logits,
+        "decode_logits": decode_logits,
         "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
-                              if device.type == "cuda" else None),
+                              if on_card else None),
     }
     return torch.cat(out_tokens, dim=1), stats
+
+
+def _mark(device: torch.device):
+    """A point in time on ``device``'s stream: a recorded CUDA event on
+    the card, the host clock (ms) on the CPU."""
+    if device.type != "cuda":
+        return time.perf_counter() * 1e3
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def _elapsed_ms(a, b) -> float:
+    if isinstance(a, float):
+        return b - a
+    return a.elapsed_time(b)
 
 
 def main(argv=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
@@ -169,7 +216,8 @@ def main(argv=None) -> Tuple[torch.Tensor, Dict[str, Any]]:
     print(f"prefill: {stats['prefill_ms']:.1f} ms, kernel launches "
           f"{stats['prefill_kernel_launches']}")
     print(f"decode throughput: {stats['decode_tok_s']:.1f} tok/s "
-          f"({stats['decode_s'] / max(G, 1) * 1e3:.1f} ms/step)")
+          f"({stats['decode_s'] / max(G, 1) * 1e3:.1f} ms/step, "
+          f"{'captured' if stats['decode_captured'] else 'eager'})")
     if stats["peak_memory_bytes"] is not None:
         print(f"peak memory allocated: {stats['peak_memory_bytes'] / 2**30:.2f} GiB")
     print("sample:", gen[0, :16].tolist())

@@ -5,7 +5,10 @@ Prefill and training attention go through the flash-attention kernels of
 card, their plain versions on the CPU); training differentiates through
 them with :class:`~repro_torch.kernels.flash_attention.ops.FlashAttention`.
 Decode attends one query against the KV cache in plain torch, as the JAX
-package does in plain jnp.
+package does in plain jnp, at a position that may stay on the device
+(a 0-d tensor), so that a captured decode step replays at any position.
+Sliding-window layers keep a ring-buffer cache of at most ``window``
+slots.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ from typing import Dict, Optional
 
 import torch
 
-from ..configs.base import ModelConfig
+from ..configs.base import LayerSpec, ModelConfig
 from ..kernels.flash_attention.ops import FlashAttention, flash_attention
 from .common import ParamSpec, apply_rope, rms_norm
 
@@ -42,14 +45,19 @@ def naive_attention(
     pos_q: torch.Tensor,               # (T,)
     pos_k: torch.Tensor,               # (S,); -1 marks an empty cache slot
     causal: bool = True,
+    window: Optional[int] = None,
 ) -> torch.Tensor:
     """Materialized-score attention over explicit positions; keys at a
-    negative position (empty cache slots) are masked."""
+    negative position (empty cache slots) are masked, and with a
+    ``window`` so are keys ``window`` or more positions behind the
+    query."""
     D = q.shape[-1]
     scores = torch.einsum("btkgd,bskd->bkgts", q, k).float() / math.sqrt(D)
     mask = pos_k[None, :] >= 0
     if causal:
         mask = mask & (pos_k[None, :] <= pos_q[:, None])
+    if window is not None:
+        mask = mask & (pos_k[None, :] > pos_q[:, None] - window)
     scores = scores.masked_fill(~mask, NEG_INF)
     p = torch.softmax(scores, dim=-1)
     return torch.einsum("bkgts,bskd->btkgd", p.to(v.dtype), v)
@@ -60,73 +68,117 @@ def decode_attention(
     k_cache: torch.Tensor,             # (B, S, K, D)
     v_cache: torch.Tensor,             # (B, S, K, D)
     pos_k: torch.Tensor,               # (S,) positions held in each slot
-    pos_q: int,                        # current position
+    pos_q: torch.Tensor,               # 0-d int32: the current position
+    window: Optional[int] = None,
 ) -> torch.Tensor:
     """One query position against the cache: slots holding positions in
-    ``[0, pos_q]`` are attended."""
-    pq = torch.full((1,), pos_q, dtype=torch.int32, device=q.device)
-    return naive_attention(q, k_cache, v_cache, pq, pos_k, causal=True)
+    ``[0, pos_q]`` are attended, and with a ``window`` only those above
+    ``pos_q - window``. ``pos_q`` stays on the device: nothing here reads
+    it back to the host, so a captured step replays at any position."""
+    return naive_attention(q, k_cache, v_cache, pos_q.reshape(1), pos_k,
+                           causal=True, window=window)
+
+
+def device_pos(pos, device: torch.device) -> torch.Tensor:
+    """``pos`` (a Python int or a 0-d integer tensor) as a 0-d int32
+    tensor on ``device``; an int is filled in on the device, with no copy
+    from the host."""
+    if isinstance(pos, torch.Tensor):
+        return pos.to(device=device, dtype=torch.int32).reshape(())
+    return torch.full((), pos, dtype=torch.int32, device=device)
 
 
 def attn_apply(
     params,
     x: torch.Tensor,                   # (B, T, E)
     cfg: ModelConfig,
-    pos: int,                          # first position of x
+    spec: LayerSpec,
+    pos,                               # first position of x: int, or 0-d tensor
     cache: Optional[Dict[str, torch.Tensor]],
     mode: str = "prefill",             # train | prefill | decode
 ) -> torch.Tensor:
     """Self-attention sublayer; returns the sublayer output. Prefill and
     decode write this call's keys and values into ``cache``; train uses
-    no cache and is differentiable.
+    no cache and is differentiable. ``spec.window`` makes the layer
+    attend only the last ``window`` positions.
 
     The cache ({"k", "v": (B, S, K, D), "pos": (S,) int32, -1 = empty}) is
-    preallocated to its full serving length and updated in place, where
-    the JAX package returns a new cache from a functional update and
-    donates the old one. Prefill fills slots ``[0, T)``; a decode step at
-    position ``pos`` writes slot ``min(pos, S - 1)``.
+    preallocated (:func:`alloc_cache`) and updated in place, where the
+    JAX package returns a new cache from a functional update and donates
+    the old one. Prefill writes position ``p`` to slot ``p`` (a global
+    layer) or ``p % S`` (a windowed layer's ring, which keeps the last
+    ``S`` positions of a longer prompt). A decode step at position ``pos``
+    writes slot ``min(pos, S - 1)`` (global) or ``pos % S`` (windowed),
+    computed on the device: ``pos`` may be a 0-d int tensor there, and
+    decode never reads it back to the host.
+
+    A windowed layer's cache holds ``min(P + G, window)`` slots, where
+    the JAX serve loop grows a prefill cache of ``P <= window`` slots to
+    ``P + G``. The slot order differs, but the attended set does not: a
+    position that the ring overwrites is ``window`` behind the query, and
+    the window's mask excludes it in both.
     """
     B, T, E = x.shape
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // K
+    window = spec.window
     q = (x @ params["wq"]).view(B, T, H, D)
     k = (x @ params["wk"]).view(B, T, K, D)
     v = (x @ params["wv"]).view(B, T, K, D)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
-    positions = torch.arange(pos, pos + T, dtype=torch.int32, device=x.device)
+
+    if mode == "decode":
+        pos_q = device_pos(pos, x.device)
+        positions = pos_q.reshape(1)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        S = cache["k"].shape[1]
+        slot = (pos_q % S if window is not None
+                else pos_q.clamp(max=S - 1)).reshape(1).long()
+        cache["k"].index_copy_(1, slot, k)
+        cache["v"].index_copy_(1, slot, v)
+        cache["pos"].index_copy_(0, slot, positions)
+        out = decode_attention(q.view(B, 1, K, G, D), cache["k"], cache["v"],
+                               cache["pos"], pos_q, window=window)
+        return out.reshape(B, T, H * D) @ params["wo"]
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"unknown mode {mode!r}")
+    if pos != 0:
+        raise ValueError(f"{mode} starts at position 0")
+    positions = torch.arange(T, dtype=torch.int32, device=x.device)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-
     if mode == "train":
-        if pos != 0:
-            raise ValueError("train starts at position 0")
-        out, _lse = FlashAttention.apply(q, k, v, True, None)
-    elif mode == "decode":
-        S = cache["k"].shape[1]
-        slot = min(pos, S - 1)
-        cache["k"][:, slot] = k[:, 0]
-        cache["v"][:, slot] = v[:, 0]
-        cache["pos"][slot] = pos
-        out = decode_attention(q.view(B, 1, K, G, D), cache["k"], cache["v"],
-                               cache["pos"], pos)
-    elif mode == "prefill":
-        if pos != 0:
-            raise ValueError("prefill starts at position 0")
-        cache["k"][:, :T] = k
-        cache["v"][:, :T] = v
-        cache["pos"][:T] = positions
-        out, _lse = flash_attention(q, k, v, causal=True)
+        out, _lse = FlashAttention.apply(q, k, v, True, window)
     else:
-        raise ValueError(f"unknown mode {mode!r}")
+        S = cache["k"].shape[1]
+        if T <= S:
+            cache["k"][:, :T] = k
+            cache["v"][:, :T] = v
+            cache["pos"][:T] = positions
+        elif window is not None:
+            # the ring keeps the last S positions, position p at slot p % S
+            slots = positions[T - S:].long() % S
+            cache["k"].index_copy_(1, slots, k[:, T - S:])
+            cache["v"].index_copy_(1, slots, v[:, T - S:])
+            cache["pos"].index_copy_(0, slots, positions[T - S:])
+        else:
+            raise ValueError(f"a prompt of {T} positions does not fit a "
+                             f"global layer's cache of {S} slots")
+        out, _lse = flash_attention(q, k, v, causal=True, window=window)
     return out.reshape(B, T, H * D) @ params["wo"]
 
 
-def alloc_cache(cfg: ModelConfig, batch: int, seq_len: int,
+def alloc_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, seq_len: int,
                 device: torch.device) -> Dict[str, torch.Tensor]:
-    """Empty KV cache of one attention sublayer (all slots at pos -1)."""
+    """Empty KV cache of one attention sublayer for ``seq_len`` positions
+    (all slots at pos -1): ``seq_len`` slots for a global layer, at most
+    ``window`` for a windowed one (the reference's ``cache_specs``)."""
     K, D = cfg.n_kv_heads, cfg.head_dim
+    if spec.window is not None:
+        seq_len = min(seq_len, spec.window)
     dt = getattr(torch, cfg.dtype)
     return {
         "k": torch.zeros((batch, seq_len, K, D), dtype=dt, device=device),

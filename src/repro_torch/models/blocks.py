@@ -1,6 +1,8 @@
 """One pattern position = pre-norm mixer + FFN (port of ``repro.models.blocks``).
 
-Mixers ``attn`` and ``mamba``, FFNs ``mlp`` and ``moe`` are ported.
+Mixers ``attn`` (global or sliding-window), ``mamba``, ``mlstm`` and
+``slstm``; FFNs ``mlp``, ``moe`` and ``none`` (the xLSTM blocks carry
+their own feed-forward).
 """
 from __future__ import annotations
 
@@ -9,35 +11,28 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..configs.base import LayerSpec, ModelConfig
-from . import attention, mamba, moe
+from . import attention, mamba, moe, xlstm
 from .common import ParamSpec, activation, rms_norm
 
-# where in ROADMAP.md the parts not ported yet are queued
-_NOT_PORTED = {
-    "mlstm": "ROADMAP Queue 1, modules still missing (xlstm.py)",
-    "slstm": "ROADMAP Queue 1, modules still missing (xlstm.py)",
-    "cross_attn": "ROADMAP Queue 1, modules still missing (vlm cross-attention)",
-    "window": "ROADMAP Queue 1, modules still missing (sliding-window "
-              "ring-buffer KV cache)",
+_MIXER_SPECS = {
+    "attn": attention.attn_specs,
+    "mamba": mamba.mamba_specs,
+    "mlstm": xlstm.mlstm_specs,
+    "slstm": xlstm.slstm_specs,
 }
-_MIXERS = ("attn", "mamba")
-_FFNS = ("mlp", "moe")
+_FFNS = ("mlp", "moe", "none")
 
 
 def _check_ported(spec: LayerSpec) -> None:
-    for part, what in ((spec.mixer, "mixer"), (spec.ffn, "ffn")):
-        if part in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{what}={part!r} is not ported yet: {_NOT_PORTED[part]}")
-    if spec.mixer not in _MIXERS or spec.ffn not in _FFNS:
-        raise NotImplementedError(
-            f"layer {spec} is not ported yet: ROADMAP Queue 1")
+    """Raise for the layer kinds not ported yet, naming where ROADMAP.md
+    queues them."""
     if spec.cross_attn:
         raise NotImplementedError(
-            f"cross_attn is not ported yet: {_NOT_PORTED['cross_attn']}")
-    if spec.window is not None:
+            "cross_attn is not ported yet: ROADMAP Queue 1, item 7 (vlm "
+            "cross-attention)")
+    if spec.mixer not in _MIXER_SPECS or spec.ffn not in _FFNS:
         raise NotImplementedError(
-            f"window={spec.window} is not ported yet: {_NOT_PORTED['window']}")
+            f"layer {spec} is not ported yet: ROADMAP Queue 1, item 7")
 
 
 def mlp_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -57,37 +52,53 @@ def mlp_apply(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def block_specs(cfg: ModelConfig, spec: LayerSpec) -> Dict[str, Any]:
     _check_ported(spec)
-    return {
+    out: Dict[str, Any] = {
         "norm_mixer": ParamSpec((cfg.d_model,), (None,), init="zeros"),
-        "mixer": (attention.attn_specs(cfg) if spec.mixer == "attn"
-                  else mamba.mamba_specs(cfg)),
-        "norm_ffn": ParamSpec((cfg.d_model,), (None,), init="zeros"),
-        "ffn": mlp_specs(cfg) if spec.ffn == "mlp" else moe.moe_specs(cfg),
+        "mixer": _MIXER_SPECS[spec.mixer](cfg),
     }
+    if spec.ffn != "none":
+        out["norm_ffn"] = ParamSpec((cfg.d_model,), (None,), init="zeros")
+        out["ffn"] = mlp_specs(cfg) if spec.ffn == "mlp" else moe.moe_specs(cfg)
+    return out
 
 
 def alloc_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, seq_len: int,
                 device: torch.device) -> Dict[str, torch.Tensor]:
-    """Empty decode cache of one layer's mixer: a KV cache of ``seq_len``
-    slots for attention, the state and conv tail for mamba."""
+    """Empty decode cache of one layer's mixer (``block_cache_specs``),
+    sized from its own ``spec``: a KV cache for attention (at most
+    ``window`` slots for a windowed layer), the recurrent state for
+    mamba, mLSTM and sLSTM."""
     if spec.mixer == "attn":
-        return attention.alloc_cache(cfg, batch, seq_len, device)
-    return mamba.alloc_cache(cfg, batch, device)
+        return attention.alloc_cache(cfg, spec, batch, seq_len, device)
+    if spec.mixer == "mamba":
+        return mamba.alloc_cache(cfg, batch, device)
+    if spec.mixer == "mlstm":
+        return xlstm.mlstm_alloc_cache(cfg, batch, device)
+    return xlstm.slstm_alloc_cache(cfg, batch, device)
 
 
 def block_apply(params, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
-                pos: int, cache: Optional[Dict[str, torch.Tensor]],
+                pos, cache: Optional[Dict[str, torch.Tensor]],
                 mode: str = "prefill"
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Pre-norm mixer + pre-norm FFN, each with a residual. ``mode``
-    (train | prefill | decode) and ``cache`` go to the mixer. Returns (x,
-    aux), aux the MoE stats (empty for an MLP)."""
+    (train | prefill | decode), ``pos`` (an int, or in decode a 0-d tensor
+    on the device) and ``cache`` go to the mixer. Returns (x, aux), aux
+    the MoE stats (empty for an MLP or no FFN)."""
     h = rms_norm(x, params["norm_mixer"], cfg.norm_eps)
     if spec.mixer == "attn":
-        x = x + attention.attn_apply(params["mixer"], h, cfg, pos, cache,
-                                     mode=mode)
+        out = attention.attn_apply(params["mixer"], h, cfg, spec, pos, cache,
+                                   mode=mode)
+    elif spec.mixer == "mamba":
+        out = mamba.mamba_apply(params["mixer"], h, cfg, cache, mode=mode)
+    elif spec.mixer == "mlstm":
+        out = xlstm.mlstm_apply(params["mixer"], h, cfg, cache, mode=mode)
     else:
-        x = x + mamba.mamba_apply(params["mixer"], h, cfg, cache, mode=mode)
+        # the sLSTM block is self-contained (its own MLP and residual)
+        out = xlstm.slstm_apply(params["mixer"], h, cfg, cache, mode=mode)
+    x = x + out
+    if spec.ffn == "none":
+        return x, {}
     h = rms_norm(x, params["norm_ffn"], cfg.norm_eps)
     if spec.ffn == "mlp":
         return x + mlp_apply(params["ffn"], h, cfg), {}

@@ -11,7 +11,14 @@ A trainable model (``Model(cfg, device, trainable=True)``) holds f32
 master weights with gradients and casts them to ``cfg.dtype`` on every
 forward, as the JAX ``forward`` does (``_cast``); its ``train`` forward
 recomputes each layer in the backward when ``cfg.remat == "full"``.
-Models with ``mamba`` or ``moe`` layers serve but do not train yet.
+Models with ``mamba``, ``moe``, ``mlstm`` or ``slstm`` layers serve but do
+not train yet.
+
+Every decode cache is preallocated (:meth:`Model.alloc_cache`, each
+layer's from its own ``LayerSpec``) and written in place, and
+:meth:`Model.decode_step` takes its position as an int or as a 0-d tensor
+on the device, so a decode step can be captured once and replayed
+(:class:`repro_torch.train.step.CapturedDecode`).
 """
 from __future__ import annotations
 
@@ -24,7 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import LayerSpec, ModelConfig
 from ..core.regions import profiler_span
-from . import attention, mamba, moe
+from . import attention, mamba, moe, xlstm
 from .blocks import alloc_cache, block_apply, block_specs, mlp_specs
 from .common import (ParamSpec, SpecModule, cast_params, init_module_,
                      param_dtype, rms_norm)
@@ -33,9 +40,9 @@ Cache = List[Dict[str, torch.Tensor]]
 # the fixed-size aux vector of the JAX ``forward``, in its order
 _AUX_KEYS = ("moe_aux_loss", "moe_load_balance", "moe_router_z",
              "moe_dropped_frac")
-_NO_TRAIN = ("training mamba and moe layers is not ported yet: ROADMAP "
-             "Queue 1, the next slice (jamba training: the MoE aux loss and "
-             "a backward through the selective scan)")
+_NO_TRAIN = ("training mamba, moe, mlstm and slstm layers is not ported "
+             "yet: ROADMAP Queue 1, item 2 (jamba training: the MoE aux loss "
+             "and a backward through the selective scan; then xLSTM)")
 
 
 def _specs_by_path(specs, prefix: str) -> Dict[str, ParamSpec]:
@@ -64,11 +71,11 @@ class Model(nn.Module):
         if cfg.input_mode != "tokens":
             raise NotImplementedError(
                 f"{cfg.name}: input_mode={cfg.input_mode!r} is not ported yet "
-                "(ROADMAP Queue 1, modules still missing)")
+                "(ROADMAP Queue 1, item 7: frames input)")
         self.cfg = cfg
         self.trainable = trainable
-        self.can_train = not any(s.mixer == "mamba" or s.ffn == "moe"
-                              for s in cfg.pattern)
+        self.can_train = all(s.mixer == "attn" and s.ffn == "mlp"
+                             for s in cfg.pattern)
         if trainable and not self.can_train:
             raise NotImplementedError(f"{cfg.name}: {_NO_TRAIN}")
         self.compute_dtype = getattr(torch, cfg.dtype)
@@ -102,9 +109,10 @@ class Model(nn.Module):
         return self
 
     def alloc_cache(self, batch: int, seq_len: int) -> Cache:
-        """Empty per-layer decode caches: KV caches of ``seq_len`` slots
-        (pos -1) for attention layers, zero state and conv tail for mamba
-        layers."""
+        """Empty per-layer decode caches for ``seq_len`` positions: KV
+        caches (pos -1) of ``seq_len`` slots for global attention layers
+        and of ``min(seq_len, window)`` for windowed ones, zero recurrent
+        state for mamba, mLSTM and sLSTM layers."""
         cfg = self.cfg
         return [alloc_cache(cfg, cfg.pattern[l % len(cfg.pattern)], batch,
                             seq_len, self.device)
@@ -120,7 +128,7 @@ class Model(nn.Module):
         scale = float(torch.tensor(math.sqrt(float(self.cfg.d_model)), dtype=dt))
         return self.embed.to(dt)[tokens] * scale
 
-    def _layers(self, x: torch.Tensor, pos: int, caches: Optional[Cache],
+    def _layers(self, x: torch.Tensor, pos, caches: Optional[Cache],
                 mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
         """Every layer, then the final norm. Returns (x, aux (4,) f32): the
         MoE stats summed over layers, as the JAX ``_aux_vector``."""
@@ -156,8 +164,8 @@ class Model(nn.Module):
         if cfg.remat == "full":
             return checkpoint(run, x, use_reentrant=False)
         raise NotImplementedError(
-            f"remat={cfg.remat!r} is not ported yet: ROADMAP Queue 1, "
-            "modules still missing (\"dots\" remat policy)")
+            f"remat={cfg.remat!r} is not ported yet: ROADMAP Queue 1, item 7 "
+            "(\"dots\" remat policy)")
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         """(B, E) hidden -> (B, n_codebooks, Vp) f32 logits, pad masked."""
@@ -183,10 +191,12 @@ class Model(nn.Module):
             raise ValueError(f"forward runs train or prefill, got mode={mode!r}")
         return self._layers(self.embed_tokens(tokens), 0, caches, "prefill")
 
-    def decode_step(self, tokens: torch.Tensor, pos: int, caches: Cache
+    def decode_step(self, tokens: torch.Tensor, pos, caches: Cache
                     ) -> torch.Tensor:
-        """One decode step of ``tokens`` (B, 1) at position ``pos``; updates
-        ``caches`` in place and returns logits (B, n_codebooks, Vp)."""
+        """One decode step of ``tokens`` (B, 1) at position ``pos`` (an
+        int, or a 0-d int tensor on the model's device, which nothing reads
+        back to the host); updates ``caches`` in place and returns logits
+        (B, n_codebooks, Vp)."""
         h, _aux = self._layers(self.embed_tokens(tokens), pos, caches, "decode")
         return self.logits(h[:, 0])
 
@@ -205,21 +215,6 @@ def mask_pad_logits(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # reference's spec layout for every layer kind, ported or not
 # ---------------------------------------------------------------------------
 
-def _xlstm_shapes(cfg: ModelConfig, mixer: str) -> List[Tuple[int, ...]]:
-    """Parameter shapes of an xlstm mixer, as ``repro.models.xlstm``'s
-    ``mlstm_specs``/``slstm_specs`` declare them (the layers themselves
-    are not ported yet: ROADMAP Queue 1)."""
-    E, H = cfg.d_model, cfg.n_heads
-    if mixer == "mlstm":
-        dI = int(E * cfg.xlstm.proj_factor_mlstm)
-        return [(E, 2 * dI), (cfg.xlstm.conv_kernel, dI), (dI,), (dI, dI),
-                (dI, dI), (dI, dI), (dI, 2 * H), (2 * H,), (dI,), (dI,),
-                (dI, E)]
-    Dh, F = E // H, int(E * cfg.xlstm.proj_factor_slstm)
-    return [(E, 4 * E), (H, Dh, 4 * Dh), (4 * E,), (E,), (E, F), (E, F),
-            (F, E)]
-
-
 def _layer_shapes(cfg: ModelConfig, spec: LayerSpec) -> List[Tuple[int, ...]]:
     """Shapes of one pattern position's parameters (the reference's
     ``block_specs``): pre-norms, the mixer, cross-attention, the FFN."""
@@ -232,8 +227,10 @@ def _layer_shapes(cfg: ModelConfig, spec: LayerSpec) -> List[Tuple[int, ...]]:
         shapes += of(attention.attn_specs(cfg))
     elif spec.mixer == "mamba":
         shapes += of(mamba.mamba_specs(cfg))
-    elif spec.mixer in ("mlstm", "slstm"):
-        shapes += _xlstm_shapes(cfg, spec.mixer)
+    elif spec.mixer == "mlstm":
+        shapes += of(xlstm.mlstm_specs(cfg))
+    elif spec.mixer == "slstm":
+        shapes += of(xlstm.slstm_specs(cfg))
     if spec.cross_attn:                 # norm, projections, a scalar gate
         shapes += [(E,), *of(attention.attn_specs(cfg)), ()]
     if spec.ffn == "mlp":

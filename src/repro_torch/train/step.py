@@ -8,6 +8,11 @@ package uses ``jax.value_and_grad``: gradients land in each parameter's
 place. While a ``torch.profiler`` runs, the step's forward, backward and
 update are ``record_function`` spans (``train/forward``, ``train/backward``,
 ``train/update``), so a device trace splits the step by phase.
+
+:class:`CapturedDecode` is the counterpart of the JAX serve loop's
+``jax.jit(make_decode_step(cfg), donate_argnums=(1,))``: one decode step
+and its argmax captured once into a CUDA graph over caches written in
+place, then replayed at every position.
 """
 from __future__ import annotations
 
@@ -103,3 +108,69 @@ def make_decode_step(cfg: ModelConfig):
         return logits, logits.argmax(dim=-1).to(torch.int32)
 
     return decode_step
+
+
+# eager steps before a capture: the first initializes lazily (cuBLAS
+# handles and workspaces), the second runs as the graph will
+_WARMUP_STEPS = 2
+
+
+class CapturedDecode:
+    """A greedy decode step of ``model`` over ``caches`` for ``batch``
+    sequences, captured once into a ``torch.cuda.CUDAGraph`` and replayed
+    at every position.
+
+    The graph reads two static input buffers, ``tokens`` (B, 1) int32 and
+    ``pos``, a 0-d int32 tensor on the card, and writes two static output
+    buffers, ``logits`` and ``next_token`` (B, n_codebooks) int32. A call
+    copies its token and position into the inputs and replays the graph,
+    which runs the same kernels as an eager step, on the caller's current
+    stream; it returns the output buffers themselves, which the next call
+    overwrites: a caller that keeps a token clones it.
+
+    The warm-up steps before the capture write slot 0 of every attention
+    cache and step every recurrent state, so capture before the prefill,
+    which overwrites what they wrote. A model on the CPU raises: there
+    decode runs eagerly (:func:`make_decode_step`). A failed capture
+    raises; nothing falls back to eager decode.
+    """
+
+    def __init__(self, model: Model, caches: Cache, batch: int):
+        device = model.device
+        if device.type != "cuda":
+            raise ValueError(
+                f"a captured decode step needs a model on a CUDA card, not "
+                f"{device}; on the CPU decode runs eagerly "
+                "(make_decode_step)")
+        self.tokens = torch.zeros((batch, 1), dtype=torch.int32, device=device)
+        self.pos = torch.zeros((), dtype=torch.int32, device=device)
+
+        def step():
+            logits = model.decode_step(self.tokens, self.pos, caches)
+            return logits, logits.argmax(dim=-1).to(torch.int32)
+
+        with torch.no_grad():
+            # warm-up on a side stream (lazy initialization, cuBLAS
+            # workspaces), as graph capture requires
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                for _ in range(_WARMUP_STEPS):
+                    step()
+            torch.cuda.current_stream(device).wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            # thread_local: threads that touch no CUDA state (a telemetry
+            # poller, its HTTP server) may run during the capture
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
+                self.logits, self.next_token = step()
+
+    def __call__(self, tokens: torch.Tensor, pos
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One step of ``tokens`` (B, 1) at position ``pos`` (an int, or
+        a 0-d tensor): returns the (logits, next_token) output buffers."""
+        self.tokens.copy_(tokens)
+        self.pos.fill_(pos)
+        self.graph.replay()
+        return self.logits, self.next_token
+

@@ -16,8 +16,13 @@ cases below cover head dims 32, 64 and 128, lengths 1, 17, 200 and 1000
 (shorter than a tile and not multiples of it), a window of 48 that starts
 inside a 64-key tile, non-causal attention with S != T at the kernel level,
 and G = H/K of 1 and 8 query heads a kv head. One 64 x N x 16 wgmma product
-is held to torch.matmul on its own (``kernel.wgmma_probe``).
+is held to torch.matmul on its own (``kernel.wgmma_probe``). Head dim 256
+(gemma3) runs the forward only, with and without a window; the backward
+refuses it. A captured decode step gives the eager step's tokens and
+logits on the smoke presets of the four served families.
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -511,3 +516,78 @@ def test_profiled_overlap_halo_step_puts_its_collectives_on_the_engine():
     assert dt["serialization"]["n_collectives"] > 0
     assert payload["hlo_stats"]["count"] == 6
     assert set(payload["hlo_stats"]["by_opcode"]) == {"collective-permute"}
+
+
+# head dim 256 (gemma3): the forward only, bf16 (wgmma, a 2-stage ring, P V
+# as m64n256k16) and f32 (the scalar kernel above 48 KB of shared memory);
+# gemma3's GQA of 2 query heads a kv head, windows of 1024 (gemma3's) and 48
+D256_CASES = [
+    ("bfloat16", True, None, 300),
+    ("bfloat16", True, 1024, 1100),
+    ("bfloat16", True, 48, 200),
+    ("bfloat16", False, None, 130),
+    ("float32", True, None, 200),
+    ("float32", True, 48, 130),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,causal,window,T", D256_CASES)
+def test_head_dim_256_forward_matches_plain_version(dtype, causal, window, T):
+    q, k, v, _ = _inputs(dtype, 256, T, B=1, H=4, K=2)
+    before = _variants()
+    out, lse = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert _delta(before) == {
+        f"fwd/{'wgmma' if dtype == 'bfloat16' else 'scalar'}": 1}
+    ref_out, ref_lse = flash_attention_ref(q, k, v, causal=causal,
+                                           window=window)
+    assert float((out.float() - ref_out.float()).abs().max()) < TOL[dtype]
+    assert float((lse - ref_lse).abs().max()) < 1e-3
+
+
+@pytest.mark.gpu
+def test_one_wgmma_product_matches_matmul_at_head_dim_256():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(256)
+    a, b, v = (torch.randn(64, 256, generator=gen, device="cuda").to(
+        torch.bfloat16) for _ in range(3))
+    c1, c2 = kernel.wgmma_probe(a, b, v)
+    torch.cuda.synchronize()
+    assert _rel(c1, a.float() @ b.float().T) < 1e-4
+    assert _rel(c2, c1.to(torch.bfloat16).float() @ v.float()) < 1e-4
+
+
+@pytest.mark.gpu
+def test_head_dim_256_backward_is_refused():
+    q, k, v, do = _inputs("bfloat16", 256, 64, B=1, H=2, K=1)
+    lse = torch.zeros((1, 2, 64), device="cuda")
+    with pytest.raises(ValueError, match="ROADMAP"):
+        kernel.flash_bwd_dq(q, k, v, do, lse, lse.clone())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["yi-6b", "jamba-v0.1-52b", "gemma3-12b",
+                                  "xlstm-125m"])
+def test_captured_decode_gives_the_eager_tokens(arch):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.configs.archs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+
+    cfg = get_config(arch, "smoke")
+    if arch == "gemma3-12b":       # a window that the prompt and decode pass
+        cfg = dataclasses.replace(cfg, pattern=tuple(
+            dataclasses.replace(s, window=8 if s.window else None)
+            for s in cfg.pattern))
+    model = Model(cfg, torch.device("cuda")).init_weights(0)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 12),
+                            generator=torch.Generator().manual_seed(1)).cuda()
+    eager, eager_stats = serve.generate(model, prompts, 6, captured=False)
+    graph, graph_stats = serve.generate(model, prompts, 6)
+    assert graph_stats["decode_captured"] and not eager_stats["decode_captured"]
+    assert torch.equal(graph, eager)
+    assert torch.equal(graph_stats["decode_logits"],
+                       eager_stats["decode_logits"])

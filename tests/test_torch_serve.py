@@ -28,7 +28,8 @@ from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.launch import serve
 from repro_torch.models import common
 from repro_torch.models.model import Model
-from repro_torch.train.step import make_decode_step, make_prefill_step
+from repro_torch.train.step import (CapturedDecode, make_decode_step,
+                                    make_prefill_step)
 
 CPU = torch.device("cpu")
 
@@ -245,8 +246,118 @@ def test_seeded_init_is_stable_and_seed_dependent():
             assert not torch.equal(pa, pc), name
 
 
-@pytest.mark.parametrize("arch", ["xlstm-125m", "llama-3.2-vision-11b",
-                                  "gemma3-12b", "musicgen-large"])
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "musicgen-large"])
 def test_unported_layers_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(torch_archs.get_config(arch, "smoke"), CPU)
+
+
+def _served_smoke(arch):
+    """A smoke model of ``arch`` with random weights; gemma3's local layers
+    get a window of 8, which the prompts below pass."""
+    cfg = torch_archs.get_config(arch, "smoke")
+    if arch == "gemma3-12b":
+        cfg = dataclasses.replace(cfg, pattern=tuple(
+            dataclasses.replace(s, window=8 if s.window else None)
+            for s in cfg.pattern))
+    return cfg, Model(cfg, CPU).init_weights(0)
+
+
+SERVED = ["yi-6b", "jamba-v0.1-52b", "gemma3-12b", "xlstm-125m"]
+
+
+@pytest.mark.parametrize("arch", SERVED)
+def test_decode_at_a_tensor_position_is_bit_identical(arch):
+    # the position as a 0-d tensor, as a captured step takes it, gives the
+    # same logits and caches as a Python int, bit for bit
+    cfg, model = _served_smoke(arch)
+    B, P, G = 2, 13, 5
+    toks = torch.from_numpy(prompts(B, P + G, cfg.vocab_size, seed=4)).long()
+    runs = []
+    for as_tensor in (False, True):
+        caches = model.alloc_cache(B, P + G)
+        with torch.no_grad():
+            logits = [make_prefill_step(cfg)(model, {"tokens": toks[:, :P]},
+                                             caches)]
+            for t in range(P, P + G):
+                pos = torch.tensor(t, dtype=torch.int32) if as_tensor else t
+                logits.append(make_decode_step(cfg)(
+                    model, caches, {"tokens": toks[:, t:t + 1]}, pos)[0])
+        runs.append((logits, caches))
+    (la, ca), (lb, cb) = runs
+    assert all(torch.equal(a, b) for a, b in zip(la, lb))
+    for a, b in zip(ca, cb):
+        assert a.keys() == b.keys()
+        assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+def test_captured_decode_on_a_cpu_model_raises():
+    cfg, model = _served_smoke("yi-6b")
+    with pytest.raises(ValueError, match="CUDA card"):
+        CapturedDecode(model, model.alloc_cache(1, 4), 1)
+
+
+TOKEN_ARCHS = sorted(a for a in jax_archs.ARCHS
+                     if jax_archs.get_config(a).input_mode == "tokens")
+
+
+def test_the_port_serves_what_the_reference_serves():
+    # src/repro/launch/serve.py refuses the two archs without token input
+    assert len(TOKEN_ARCHS) == 8
+    assert sorted(set(jax_archs.ARCHS) - set(TOKEN_ARCHS)) == [
+        "llama-3.2-vision-11b", "musicgen-large"]
+
+
+@pytest.mark.parametrize("arch", sorted(jax_archs.ARCHS))
+def test_serve_main_on_cpu(arch):
+    argv = ["--arch", arch, "--batch", "2", "--prompt-len", "8", "--gen",
+            "3"]
+    if arch not in TOKEN_ARCHS:
+        with pytest.raises(SystemExit):
+            serve.main(argv + ["--device", "cpu"])
+        return
+    gen, stats = serve.main(argv + ["--device", "cpu"])
+    cfg = torch_archs.get_config(arch, "smoke")
+    assert gen.shape == (2, 4)
+    assert 0 <= int(gen.min()) and int(gen.max()) < cfg.vocab_size
+    assert stats["logits_finite"] and not stats["decode_captured"]
+    assert set(stats["decode_step_ms"]) == {"min", "mean", "max"}
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            serve.main(argv)
+
+
+@pytest.mark.parametrize("arch", TOKEN_ARCHS)
+def test_greedy_tokens_match_jax_on_every_served_arch(arch):
+    # each arch's smoke preset (gemma3's windows cut to 8), weights from
+    # the JAX init_params, against the JAX serve loop with its cache growth
+    def cfg_of(archs):
+        cfg = dataclasses.replace(archs.get_config(arch, "smoke"),
+                                  dtype="float32")
+        return dataclasses.replace(cfg, pattern=tuple(
+            dataclasses.replace(s, window=8 if s.window else None)
+            for s in cfg.pattern))
+
+    jcfg, tcfg = cfg_of(jax_archs), cfg_of(torch_archs)
+    params = JM.init_params(jax.random.PRNGKey(0), jcfg, dtype=jnp.float32)
+    model = Model(tcfg, CPU)
+    model.load_state_dict(params_from_jax(
+        jax.tree.map(np.asarray, params), tcfg, CPU))
+    B, P, G = 2, 12, 4
+    toks = prompts(B, P, tcfg.vocab_size, seed=11)
+    logits, caches = jax_prefill_step(jcfg)(params,
+                                            {"tokens": jnp.asarray(toks)})
+    want_logits = np.asarray(logits)
+    caches = grow(caches, P, P + G)
+    token = jnp.argmax(logits[:, 0], axis=-1).astype(jnp.int32)[:, None]
+    want = [token]
+    for t in range(P, P + G):
+        _, nxt, caches = jax_decode_step(jcfg)(params, caches,
+                                               {"tokens": token}, jnp.int32(t))
+        token = nxt[:, 0][:, None]
+        want.append(token)
+    got, stats = serve.generate(model, torch.from_numpy(toks).long(), G)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jnp.concatenate(want, axis=1)))
+    assert float(np.abs(stats["prefill_logits"].numpy()
+                        - want_logits).max()) < 1e-4
