@@ -121,6 +121,27 @@ Phases, each of which fails the run (non-zero exit, no final line):
      1024, 32 new tokens) with eager and captured decode in turns; then
      two layers (one mLSTM, one sLSTM) in f32 on the card against the
      CPU;
+ 25. (after phase 21) the dq and dk/dv kernels at head dim 256 against
+     the plain backward at gemma3-12b's training shape (B=2, T=2048,
+     H=16, K=8), bf16 (wgmma) and f32 (scalar): causal, gemma3's window
+     of 1024, a window of 48 that starts inside a tile, a ragged T of
+     2000; two bf16 dq launches bit-identical; the bf16 kernels' times
+     (twice), the plain backward's, scaled_dot_product_attention's
+     backward (the backend it ran) and the least time the card could
+     take, causal and at the window of 1024;
+ 26. train gemma3-12b at full width and 6 of its 48 layers (one pattern
+     group: 5 windowed at 1024, 1 global; head dim 256) through
+     ``launch.train.main`` (batch 2, seq 2048, 6 steps, bf16 compute, f32
+     master weights, full remat, AdamW): 12 forwards, 6 dq and 6 dk/dv a
+     step, all wgmma at D = 256; one profiled step as phase 18's; then
+     one f32 step of two layers (one windowed, its window cut to 64, one
+     global) at full width on the card against the CPU;
+ 27. train granite-moe-3b-a800m at full width and 16 of its 32 layers
+     (batch 4, seq 1024, 4 steps; the MoE aux and load balance non-zero,
+     every attention on the wgmma D = 64 kernels) and xlstm-125m at full
+     width, all 12 layers (batch 4, seq 512, 3 steps); then each in f32,
+     two layers at full width, one step on the card against the CPU
+     (granite on a batch that makes an expert overflow);
  14. print one JSON line with every ported kernel, then the result line.
 
 Serving (phases 5, 13, 15, 20, 22-24) decodes through one captured CUDA
@@ -193,6 +214,20 @@ GEMMA_WINDOW = 1024
 GEMMA_SERVE = (4, 2048, 32)
 GEMMA_CHECK = (64, 160, 2, 8)
 XLSTM_SERVE = (4, 1024, 32)
+# the D = 256 backward at gemma3-12b's training shape (phase 25); the
+# training runs of phases 26 and 27: (layers, batch, seq, steps), layers
+# cut to what 16 B a parameter of f32 state leaves room for in 80 GB
+GEMMA_TRAIN_ATTENTION = dict(B=2, T=2048, H=16, K=8, D=256)
+GEMMA_TRAIN = (6, 2, 2048, 6)
+GRANITE_TRAIN = (16, 4, 1024, 4)
+# xlstm's sLSTM loop is host-bound: seq cut to 512 (a step at 1024 took
+# ~20 s on the H100)
+XLSTM_TRAIN = (12, 4, 512, 3)
+# the f32 card-vs-CPU train steps of phases 26 and 27: (batch, seq);
+# gemma3's windowed layer cut to a window of 64, so that it acts at T 160
+TRAIN_CHECK = {"gemma3-12b": (2, 160), "granite-moe-3b-a800m": (2, 100),
+               "xlstm-125m": (2, 64)}
+GEMMA_TRAIN_CHECK_WINDOW = 64
 DECODE_REPEATS = 3   # captured and eager decode in turns (phase 23)
 T0 = 0.0             # the run's start on the host clock
 CARD = ""            # nvidia-smi's name and power limit, named by each phase
@@ -509,40 +544,41 @@ def backward_phases(qkv) -> dict:
     return result
 
 
-def train_phases():
-    """Phase 8: one train step on the card against the CPU; phase 9: the
-    training path at the slice's size; phase 18: a profiled step. Returns
-    (launch counts of the training path, its stats, the traced step)."""
-    import math
+def card_vs_cpu_step(cfg, B: int, T: int) -> dict:
+    """One f32 train step of ``cfg`` on the card and on the CPU, from the
+    same weights (drawn on the card from seed 0) and tokens (seed 0).
+    Returns both losses and MoE aux losses, the worst gradient as max|err|
+    / max|ref| with its name, the number of gradients, the card's flash
+    launches by variant, and the aux vector of a no-grad train forward of
+    the card's model before the step (its last entry the fraction of
+    (token, choice) pairs that overflowing experts dropped)."""
+    import gc
 
     import torch
 
-    from repro_torch.configs.archs import get_config
-    from repro_torch.kernels.flash_attention import ops
-    from repro_torch.launch import train
     from repro_torch.models.model import Model
     from repro_torch.optim import adamw
     from repro_torch.train.step import make_train_step
 
     dev, cpu = torch.device("cuda"), torch.device("cpu")
-    # 8. one train step, card vs CPU, full width, 2 layers, f32
-    cfg = dataclasses.replace(get_config("yi-6b", "full"), n_layers=2,
-                              dtype="float32")
+    t0 = time.perf_counter()
     m_gpu = Model(cfg, dev, trainable=True).init_weights(0)
     m_cpu = Model(cfg, cpu, trainable=True)
     m_cpu.load_state_dict(m_gpu.state_dict())
-    rng = torch.Generator().manual_seed(0)
-    toks = torch.randint(0, cfg.vocab_size, (2, 101), generator=rng)
+    toks = torch.randint(0, cfg.vocab_size, (B, T + 1),
+                         generator=torch.Generator().manual_seed(0))
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    with torch.no_grad():
+        _, aux = m_gpu(batch["tokens"].to(dev), mode="train")
     step = make_train_step(cfg, adamw.AdamWConfig())
-    t0 = time.perf_counter()
-    metrics = []
     reset_counts()
+    metrics = []
     for m, d in ((m_gpu, dev), (m_cpu, cpu)):
-        st = adamw.init_state(dict(m.named_parameters()))
-        metrics.append(step(m, st, {k: v.to(d) for k, v in batch.items()}))
-    f32_used = read_variants()
-    loss_gpu, loss_cpu = (float(x["loss"]) for x in metrics)
+        state = adamw.init_state(dict(m.named_parameters()))
+        got = step(m, state, {k: v.to(d) for k, v in batch.items()})
+        metrics.append({k: float(got[k]) for k in ("loss", "moe_aux")})
+        del state, got
+    used = read_variants()
     cpu_grads = {n: p.grad for n, p in m_cpu.named_parameters()}
     worst, worst_name = 0.0, ""
     for n, p in m_gpu.named_parameters():
@@ -550,46 +586,74 @@ def train_phases():
         r = rel_err(p.grad.cpu(), cpu_grads[n])
         if r > worst:
             worst, worst_name = r, n
-    print(f"[8] yi-6b width, 2 layers, f32, B=2 T=100: card vs CPU loss "
-          f"{loss_gpu:.6f} vs {loss_cpu:.6f} (|diff| < {TRAIN_LOSS_TOL:g}), "
-          f"worst gradient max|err|/max|ref| {worst:.3e} ({worst_name}, "
-          f"< {TRAIN_GRAD_TOL:g}) over {len(cpu_grads)} gradients, "
-          f"{time.perf_counter() - t0:.1f} s; card launches {f32_used}",
-          flush=True)
-    check(set(f32_used) == {"fwd/scalar", "dq/scalar", "dkv/scalar"},
-          f"the f32 train step launched {f32_used}: scalar kernels expected")
-    check(abs(loss_gpu - loss_cpu) < TRAIN_LOSS_TOL,
-          "train loss on the card disagrees with the CPU")
-    check(worst < TRAIN_GRAD_TOL,
-          "train gradients on the card disagree with the CPU")
-    del m_gpu, m_cpu, cpu_grads, metrics
+    out = {"loss": [x["loss"] for x in metrics],
+           "moe_aux": [x["moe_aux"] for x in metrics],
+           "worst_grad_rel_err": worst, "worst_grad": worst_name,
+           "grads": len(cpu_grads), "launched": used,
+           "aux": [float(x) for x in aux], "B": B, "T": T}
+    del m_gpu, m_cpu, cpu_grads, aux
+    gc.collect()
     torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def step_check(tag: str, label: str, cfg, B: int, T: int) -> dict:
+    """Phases 8, 26 and 27: :func:`card_vs_cpu_step`, printed and held to
+    ``TRAIN_LOSS_TOL`` and ``TRAIN_GRAD_TOL``; every attention layer on
+    the card must run the scalar f32 forward, dq and dk/dv, once each."""
+    r = card_vs_cpu_step(cfg, B, T)
+    n_attn = cfg.n_groups * sum(s.mixer == "attn" for s in cfg.pattern)
+    want = {k: n_attn for k in ("fwd/scalar", "dq/scalar", "dkv/scalar")
+            if n_attn}
+    # the remat recomputes each layer's forward
+    if "fwd/scalar" in want and cfg.remat == "full":
+        want["fwd/scalar"] *= 2
+    print(f"[{tag}] {label}, f32, B={B} T={T}: card vs CPU loss "
+          f"{r['loss'][0]:.6f} vs {r['loss'][1]:.6f} (|diff| < "
+          f"{TRAIN_LOSS_TOL:g}), moe_aux {r['moe_aux'][0]:.6e} vs "
+          f"{r['moe_aux'][1]:.6e}, worst gradient max|err|/max|ref| "
+          f"{r['worst_grad_rel_err']:.3e} ({r['worst_grad']}, < "
+          f"{TRAIN_GRAD_TOL:g}) over {r['grads']} gradients, aux vector "
+          f"{[round(x, 6) for x in r['aux']]}, {r['seconds']:.1f} s; card "
+          f"launches {r['launched']}", flush=True)
+    check(r["launched"] == want,
+          f"{label}: the f32 train step launched {r['launched']}, {want} "
+          "expected")
+    check(abs(r["loss"][0] - r["loss"][1]) < TRAIN_LOSS_TOL
+          and abs(r["moe_aux"][0] - r["moe_aux"][1]) < TRAIN_LOSS_TOL,
+          f"{label}: train loss on the card disagrees with the CPU")
+    check(r["worst_grad_rel_err"] < TRAIN_GRAD_TOL,
+          f"{label}: train gradients on the card disagree with the CPU")
+    return r
+
+
+def train_phases():
+    """Phase 8: one train step on the card against the CPU; phase 9: the
+    training path at the slice's size; phase 18: a profiled step. Returns
+    (launch counts of the training path, its stats, the traced step)."""
+    import torch
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+
+    dev = torch.device("cuda")
+    # 8. one train step, card vs CPU, full width, 2 layers, f32
+    cfg = dataclasses.replace(get_config("yi-6b", "full"), n_layers=2,
+                              dtype="float32")
+    step_check("8", "yi-6b width, 2 layers", cfg, 2, 100)
 
     # 9. the training path at the slice's size
     steps, B, T = 6, 4, 1024
-    reset_counts()
-    losses, stats = train.main([
-        "--arch", "yi-6b", "--preset", "full", "--layers", str(TRAIN_LAYERS),
-        "--batch", str(B), "--seq", str(T), "--steps", str(steps)])
-    counts = read_counts()
+    losses, stats, counts = train_run("9", "yi-6b", TRAIN_LAYERS, B, T, steps)
     L = stats["layers"]
     per_step = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
                 "flash_attention_bwd_dkv": L}
     per_step_variants = variants_of({("fwd", "bfloat16"): 2 * L,
                                      ("dq", "bfloat16"): L,
                                      ("dkv", "bfloat16"): L})
-    print(f"[9] train yi-6b full width, {L} layers, {stats['params']:,} "
-          f"params, B={B} T={T}: losses "
-          f"{', '.join(f'{x:.4f}' for x in losses)}", flush=True)
-    print(f"[9] step ms {', '.join(f'{x:.1f}' for x in stats['step_ms'])}; "
-          f"mean after the first {stats['mean_step_ms']:.1f} ms, "
-          f"{stats['tokens_per_s']:.0f} tokens/s, peak memory "
-          f"{stats['peak_memory_bytes']} B "
-          f"({stats['peak_memory_bytes'] / 2**30:.2f} GiB); launches {counts}; "
-          f"by variant, each step {per_step_variants}", flush=True)
-    check(L == TRAIN_LAYERS, f"trained {L} layers, not {TRAIN_LAYERS}")
-    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
-          f"non-finite or missing train losses: {losses}")
     check(all(s == per_step for s in stats["launches"]),
           f"launches per step {stats['launches']}, expected {per_step}")
     check(all({k: n for k, n in s.items() if n} == per_step_variants
@@ -1887,6 +1951,320 @@ def xlstm_phase() -> dict:
     return numbers
 
 
+def d256_backward_phase(reports) -> dict:
+    """Phase 25: the dq and dk/dv kernels at head dim 256 against the plain
+    backward at gemma3's training shape, bf16 (wgmma) and f32 (scalar):
+    causal (a global layer), gemma3's window of 1024 (a local layer), a
+    window of 48 that starts inside a 64-key tile, and a ragged T of 2000
+    with the window of 1024; two bf16 dq launches must be bit-identical.
+    Then, in bf16, causal and at the window of 1024: the kernels' times
+    by CUDA events (twice), the plain backward's, the backward of
+    scaled_dot_product_attention (yardstick only; the backend it ran) and
+    the least time the card could take. Returns {"<dtype> <case>":
+    numbers}."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
+
+    t0 = time.perf_counter()
+    B, T, H, K, D = (GEMMA_TRAIN_ATTENTION[x] for x in "BTHKD")
+    gen = torch.Generator(device="cuda").manual_seed(25)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases = (("causal", T, None), ("window", T, GEMMA_WINDOW),
+             ("window 48", T, 48), ("ragged T=2000", 2000, GEMMA_WINDOW))
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+        for case, Tc, window in cases:
+            q, k, v, do = (torch.randn(shape, generator=gen,
+                                       device="cuda").to(dt)
+                           for shape in ((B, Tc, H, D), (B, Tc, K, D),
+                                         (B, Tc, K, D), (B, Tc, H, D)))
+            o, lse = ref.flash_attention_ref(q, k, v, window=window)
+            reset_counts()
+            got = ops.flash_attention_bwd(q, k, v, o, lse, do, window=window)
+            torch.cuda.synchronize()
+            used = read_variants()
+            want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                               window=window)
+            rels = [rel_err(a, b) for a, b in zip(got, want)]
+            abss = [float((a.float() - b.float()).abs().max())
+                    for a, b in zip(got, want)]
+            del got, want
+            label = f"{dtype} {case}"
+            row = {"dq_rel": rels[0], "dkv_rel": max(rels[1:]),
+                   "dq": abss[0], "dkv": max(abss[1:]), "launched": used}
+            tol = GRAD_TOL[dtype]
+            ok = (all(r < tol for r in rels) and used == variants_of(
+                {("dq", dtype): 1, ("dkv", dtype): 1}))
+            print(f"[25] D=256 {label:22s} (B={B} T=S={Tc} H={H} K={K}, "
+                  f"window {window}): dq/dk/dv max|err|/max|ref| "
+                  f"{rels[0]:.3e} / {rels[1]:.3e} / {rels[2]:.3e} (< "
+                  f"{tol:g}), max|err| {abss[0]:.3e} / {abss[1]:.3e} / "
+                  f"{abss[2]:.3e}; {used} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            check(ok, f"the D=256 backward disagrees with the plain "
+                      f"backward: {label}")
+            delta = (do.float() * o.float()).sum(-1).transpose(
+                1, 2).contiguous()
+            if dtype == "bfloat16" and case == "causal":
+                # each block owns its dq tile: no atomics, the same bits
+                twice = [kernel.flash_bwd_dq(q, k, v, do, lse, delta)
+                         for _ in range(2)]
+                torch.cuda.synchronize()
+                row["dq_bit_identical"] = torch.equal(*twice)
+                print(f"[25] D=256 {label}: two dq launches bit-identical: "
+                      f"{row['dq_bit_identical']}", flush=True)
+                check(row["dq_bit_identical"],
+                      "two launches of the D=256 dq kernel differ")
+                del twice
+            if case in ("causal", "window"):
+                def run_dq():
+                    return kernel.flash_bwd_dq(q, k, v, do, lse, delta,
+                                               window=window)
+
+                def run_dkv():
+                    return kernel.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                window=window)
+
+                row["dq_ms"], row["dkv_ms"] = cuda_ms(run_dq), cuda_ms(run_dkv)
+                if dtype == "bfloat16":
+                    row["plain_ms"] = cuda_ms(
+                        lambda: ref.flash_attention_bwd_ref(
+                            q, k, v, o, lse, do, window=window),
+                        iters=3, warmup=1)
+                    qt, kt, vt = (x.transpose(1, 2).contiguous()
+                                  .requires_grad_() for x in (q, k, v))
+                    mask = {"is_causal": True}
+                    if window is not None:
+                        p = torch.arange(Tc, device="cuda")
+                        mask = {"attn_mask": (p[None, :] <= p[:, None])
+                                & (p[None, :] > p[:, None] - window)}
+                    ot = sdpa(qt, kt, vt, enable_gqa=True, **mask)
+                    dot = do.transpose(1, 2).contiguous()
+
+                    def lib():
+                        return torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                                   retain_graph=True)
+                    row["library_ms"] = cuda_ms(lib)
+                    row["library_backend"] = sdpa_backend(
+                        lambda: torch.autograd.grad(
+                            sdpa(qt, kt, vt, enable_gqa=True, **mask),
+                            (qt, kt, vt), dot))
+                    bounds = backward_bound_ms(B, Tc, Tc, H, K, D, True,
+                                               window, 2, PEAK_BF16_FLOPS)
+                    for part in ("dq", "dkv"):
+                        (row[f"{part}_bound_ms"], row[f"{part}_bound_by"],
+                         flops, nbytes) = bounds[part]
+                        row[f"{part}_flops"], row[f"{part}_bytes"] = (flops,
+                                                                      nbytes)
+                    row["dq_ms_again"] = cuda_ms(run_dq)
+                    row["dkv_ms_again"] = cuda_ms(run_dkv)
+                    del qt, kt, vt, ot, dot
+                    for part in ("dq", "dkv"):
+                        print(f"[25] D=256 {label}: {part} kernel "
+                              f"{row[f'{part}_ms']:.4f} / "
+                              f"{row[f'{part}_ms_again']:.4f} ms; bound "
+                              f"{row[f'{part}_bound_ms']:.4f} ms "
+                              f"({row[f'{part}_bound_by']}: "
+                              f"{row[f'{part}_flops']:.4e} FLOP, "
+                              f"{row[f'{part}_bytes'] / 1e6:.1f} MB), kernel "
+                              f"at {row[f'{part}_bound_ms'] / row[f'{part}_ms']:.2%}"
+                              f" of bound; {CARD}", flush=True)
+                    print(f"[25] D=256 {label}: plain backward (dq, dk, dv "
+                          f"together) {row['plain_ms']:.3f} ms; sdpa backward"
+                          f" (dq, dk, dv together) {row['library_ms']:.4f} ms "
+                          f"({row['library_backend']}); {CARD}", flush=True)
+                else:
+                    print(f"[25] D=256 {label}: scalar dq {row['dq_ms']:.3f}"
+                          f" ms, dk/dv {row['dkv_ms']:.3f} ms; {CARD}",
+                          flush=True)
+            out[label] = row
+            del q, k, v, do, o, lse, delta
+            torch.cuda.empty_cache()
+    for name in ("flash_bwd_dq_wgmma_kernel<256>",
+                 "flash_bwd_dkv_wgmma_kernel<256>",
+                 "flash_bwd_dq_f32_kernel<256>",
+                 "flash_bwd_dkv_f32_kernel<256>", "dq wgmma D=256 smem",
+                 "dkv wgmma D=256 smem"):
+        print(f"[25] {name}: {reports.get(name)}", flush=True)
+    print(f"[25] took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def train_run(tag: str, arch: str, layers: int, B: int, T: int,
+              steps: int) -> tuple:
+    """Phases 9, 26 and 27: train ``arch`` at full width through
+    ``launch.train.main``; print its losses, step ms, tokens/s, peak
+    memory and launches; fail unless it trained ``layers`` layers to
+    finite losses. Returns (losses, stats, launch counts of the run)."""
+    import math
+
+    from repro_torch.launch import train
+
+    reset_counts()
+    losses, stats = train.main([
+        "--arch", arch, "--preset", "full", "--layers", str(layers),
+        "--batch", str(B), "--seq", str(T), "--steps", str(steps)])
+    counts = read_counts()
+    print(f"[{tag}] train {arch} full width, {stats['layers']} layers, "
+          f"{stats['params']:,} params, B={B} T={T}: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; moe_aux "
+          f"{stats['moe_aux']}, load balance {stats['moe_load_balance']}",
+          flush=True)
+    print(f"[{tag}] step ms {', '.join(f'{x:.1f}' for x in stats['step_ms'])}"
+          f"; mean after the first {stats['mean_step_ms']:.1f} ms, "
+          f"{stats['tokens_per_s']:.0f} tokens/s, peak memory "
+          f"{stats['peak_memory_bytes']} B "
+          f"({stats['peak_memory_bytes'] / 2**30:.2f} GiB); launches "
+          f"{counts}; by variant, each step {stats['launches_by_variant'][0]}"
+          f"; by head dim, each step {stats['launches_by_head_dim'][0]}; "
+          f"{CARD}", flush=True)
+    check(stats["layers"] == layers,
+          f"{arch}: trained {stats['layers']} layers, not {layers}")
+    check(len(losses) == steps and all(math.isfinite(x) for x in losses),
+          f"{arch}: non-finite or missing train losses: {losses}")
+    return losses, stats, counts
+
+
+def gemma3_train_phase() -> tuple:
+    """Phase 26: train gemma3-12b at full width, one pattern group (6 of
+    48 layers), B 2, seq 2048, 6 steps: every step 12 forwards (the
+    forward and the remat's recompute), 6 dq and 6 dk/dv, all wgmma at
+    head dim 256; then one profiled step (phase 18's checks) of a model of
+    the same seed; then one f32 step of two layers against the CPU.
+    Returns (the run's launch counts, its numbers)."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+
+    t0 = time.perf_counter()
+    L, B, T, steps = GEMMA_TRAIN
+    losses, stats, counts = train_run("26", "gemma3-12b", L, B, T, steps)
+    per_step = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+                "flash_attention_bwd_dkv": L}
+    variants = variants_of({("fwd", "bfloat16"): 2 * L,
+                            ("dq", "bfloat16"): L, ("dkv", "bfloat16"): L})
+    dims = {"fwd/256": 2 * L, "dq/256": L, "dkv/256": L}
+    check(all(s == per_step for s in stats["launches"])
+          and all({k: n for k, n in s.items() if n} == variants
+                  for s in stats["launches_by_variant"])
+          and all(s == dims for s in stats["launches_by_head_dim"]),
+          f"gemma3 launches per step {stats['launches']}, by variant "
+          f"{stats['launches_by_variant']}, by head dim "
+          f"{stats['launches_by_head_dim']}: {per_step}, {variants}, {dims} "
+          "expected")
+    check(counts == {**{k: steps * n for k, n in per_step.items()},
+                     "selective_scan": 0},
+          f"gemma3 launches over the run {counts}")
+    numbers = {k: stats[k] for k in ("layers", "params", "step_ms",
+                                     "mean_step_ms", "tokens_per_s",
+                                     "peak_memory_bytes")}
+    numbers.update(losses=losses, batch=B, seq=T,
+                   launches_by_head_dim=stats["launches_by_head_dim"][0])
+    del stats
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(get_config("gemma3-12b", "full"), n_layers=L)
+    model = Model(cfg, dev, trainable=True).init_weights(0)
+    opt_state = adamw.init_state(dict(model.named_parameters()))
+    batch = {k: torch.from_numpy(v).long().to(dev) for k, v in
+             SyntheticTokens(cfg, DataConfig(batch=B, seq_len=T)
+                             ).batch_at(0).items()}
+    step = make_train_step(cfg, adamw.AdamWConfig())
+    numbers["trace"] = traced_call(
+        f"gemma3-12b train step ({L} layers, B={B} T={T})",
+        lambda: step(model, opt_state, batch), cfg,
+        ShapeConfig("train", T, B, "train"), phases=TRAIN_PHASES)
+    del model, opt_state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # two layers, one windowed (its window cut so that it acts at T 160)
+    # and the global one, at full width in f32
+    full = windowed(get_config("gemma3-12b", "full"), GEMMA_TRAIN_CHECK_WINDOW)
+    cfg = dataclasses.replace(full, n_layers=2, dtype="float32",
+                              pattern=(full.pattern[0], full.pattern[-1]))
+    Bc, Tc = TRAIN_CHECK["gemma3-12b"]
+    numbers["check"] = step_check(
+        "26", f"gemma3 full width, 2 layers (window {GEMMA_TRAIN_CHECK_WINDOW}"
+        ", global)", cfg, Bc, Tc)
+    numbers["phase_s"] = time.perf_counter() - t0
+    print(f"[26] took {numbers['phase_s']:.1f} s", flush=True)
+    return counts, numbers
+
+
+def moe_xlstm_train_phase() -> tuple:
+    """Phase 27: train granite-moe-3b-a800m at full width, 16 of its 32
+    layers (B 4, seq 1024, 4 steps: the MoE aux loss and load balance
+    non-zero and finite every step, every attention on the wgmma D = 64
+    kernels), then xlstm-125m at full width, 12 layers (B 4, seq 512, 3
+    steps); then each in f32, two layers at full width, one step on the
+    card against the CPU (granite on a batch whose experts overflow).
+    Returns ({path: launch counts}, numbers)."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.configs.archs import get_config
+
+    t0 = time.perf_counter()
+    paths, numbers = {}, {}
+    for arch, (L, B, T, steps) in (("granite-moe-3b-a800m", GRANITE_TRAIN),
+                                   ("xlstm-125m", XLSTM_TRAIN)):
+        losses, stats, counts = train_run("27", arch, L, B, T, steps)
+        pattern = get_config(arch, "full").pattern
+        n_attn = L // len(pattern) * sum(s.mixer == "attn" for s in pattern)
+        per_step = {"flash_attention_fwd": 2 * n_attn,
+                    "flash_attention_bwd_dq": n_attn,
+                    "flash_attention_bwd_dkv": n_attn}
+        variants = variants_of({("fwd", "bfloat16"): 2 * n_attn,
+                                ("dq", "bfloat16"): n_attn,
+                                ("dkv", "bfloat16"): n_attn})
+        check(all(s == per_step for s in stats["launches"])
+              and all({k: n for k, n in s.items() if n} == variants
+                      for s in stats["launches_by_variant"]),
+              f"{arch} launches per step {stats['launches']}, by variant "
+              f"{stats['launches_by_variant']}: {per_step}, {variants} "
+              "expected")
+        if n_attn:
+            moe = stats["moe_aux"] + stats["moe_load_balance"]
+            check(all(math.isfinite(x) and x > 0 for x in moe),
+                  f"{arch}: moe_aux {stats['moe_aux']} and load balance "
+                  f"{stats['moe_load_balance']} must be finite and > 0")
+        name = arch.split("-")[0]
+        paths[f"train_{name}"] = counts
+        numbers[name] = {k: stats[k] for k in (
+            "layers", "params", "step_ms", "mean_step_ms", "tokens_per_s",
+            "peak_memory_bytes", "moe_aux", "moe_load_balance")}
+        numbers[name].update(losses=losses, batch=B, seq=T)
+        del stats
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        Bc, Tc = TRAIN_CHECK[arch]
+        cfg = dataclasses.replace(get_config(arch, "full"), n_layers=2,
+                                  dtype="float32")
+        r = step_check("27", f"{arch} full width, 2 layers", cfg, Bc, Tc)
+        if cfg.moe is not None:
+            check(r["aux"][3] > 0, f"{arch}: no expert overflowed in the "
+                                   f"card-vs-CPU step: aux {r['aux']}")
+        numbers[name]["check"] = r
+    numbers["phase_s"] = time.perf_counter() - t0
+    print(f"[27] took {numbers['phase_s']:.1f} s", flush=True)
+    return paths, numbers
+
+
 def card_info():
     """(device name, device count, the card line of nvidia-smi, SM count,
     top SM clock in Hz)."""
@@ -2108,6 +2486,8 @@ def main() -> None:
 
     # 21. the forward at head dim 256, gemma3's prefill shape
     d256 = d256_phase(reports)
+    # 25. the backward at head dim 256, gemma3's training shape
+    d256_bwd = d256_backward_phase(reports)
 
     # 5a. the whole model on the card against the same model on the CPU
     cfg = dataclasses.replace(get_config("yi-6b", "full"), n_layers=2,
@@ -2272,16 +2652,19 @@ def main() -> None:
     jamba_counts, jamba = jamba_phases()
     gemma_counts, gemma = gemma3_phase()
     xlstm_numbers = xlstm_phase()
+    gemma_train_counts, gemma_train = gemma3_train_phase()
+    train_paths, moe_xlstm_train = moe_xlstm_train_phase()
     default_counts = default_commands_phase()
     d16 = d16_timing_phase(qkv)
     halo_counts, halo = halo_phase()
 
-    print(f"[14] phases 1-24 took {time.perf_counter() - T0:.1f} s", flush=True)
+    print(f"[14] phases 1-27 took {time.perf_counter() - T0:.1f} s", flush=True)
 
-    # 14. result lines
+    # 14. result lines; gemma3's training counts go to the D = 256 rows
     paths = {"serve": serve_counts, "train": train_counts,
              "serve_jamba": jamba_counts, **default_counts,
-             "halo": halo_counts, "serve_telemetry": telemetry_counts}
+             "halo": halo_counts, "serve_telemetry": telemetry_counts,
+             **train_paths}
 
     def launches_of(name):
         by_path = {p: c[name] for p, c in paths.items()}
@@ -2400,6 +2783,45 @@ def main() -> None:
         "shape": "B=4 T=2048 H=16 K=8 D=256 bf16 causal, window 1024",
         "card": card,
     })
+    # head dim 256 in the backward, on gemma3's training: its windowed
+    # layers' timing is the row's, the causal (global) layer's beside it
+    for part, replaces in (("dq", TPU_DQ), ("dkv", TPU_DKV)):
+        name = f"flash_attention_bwd_{part}"
+        win = d256_bwd["bfloat16 window"]
+        glob = d256_bwd["bfloat16 causal"]
+        kernels.append({
+            "name": f"{name}[D=256]",
+            "route": "cuda",
+            "design": ("wgmma, one warpgroup on 64 rows, m64n256k16 dS K, "
+                       "2-stage ring" if part == "dq" else
+                       "wgmma, two warpgroups each owning half of dK and "
+                       "dV, S^T and dP^T exchanged in shared memory"),
+            "source": BWD_SOURCE,
+            "replaces": replaces,
+            "launches": gemma_train_counts[name],
+            "launches_by_path": {"train_gemma3": gemma_train_counts[name]},
+            "max_abs_err": win[part],
+            "rel_err": win[f"{part}_rel"],
+            "ms": win[f"{part}_ms"],
+            "ms_again": win[f"{part}_ms_again"],
+            "plain_ms": win["plain_ms"],
+            "bound_ms": win[f"{part}_bound_ms"],
+            "bound_by": win[f"{part}_bound_by"],
+            "library_ms": win["library_ms"],
+            "library_backend": win["library_backend"],
+            "causal": {k: glob[k] for k in (
+                part, f"{part}_rel", f"{part}_ms", f"{part}_ms_again",
+                "plain_ms", f"{part}_bound_ms", f"{part}_bound_by",
+                "library_ms", "library_backend")},
+            "f32": {k: {x: d256_bwd[k][x] for x in (part, f"{part}_ms")}
+                    for k in ("float32 causal", "float32 window")},
+            "dq_bit_identical": glob["dq_bit_identical"],
+            "ptxas": reports.get(f"flash_bwd_{part}_wgmma_kernel<256>"),
+            "ptxas_f32": reports.get(f"flash_bwd_{part}_f32_kernel<256>"),
+            "smem": reports.get(f"{part} wgmma D=256 smem"),
+            "shape": "B=2 T=2048 H=16 K=8 D=256 bf16 window 1024, causal",
+            "card": card,
+        })
     total, by_path = launches_of("selective_scan")
     t = scan["timing"]
     kernels.append({
@@ -2437,10 +2859,14 @@ def main() -> None:
                       "serve_telemetry": telemetry,
                       "serve_gemma3": gemma,
                       "serve_xlstm": xlstm_numbers,
+                      "train_gemma3": gemma_train,
+                      "train_moe_xlstm": moe_xlstm_train,
                       "captured_vs_eager_yi6b": yi_decode,
                       "card": card,
                       "seconds": time.perf_counter() - T0,
                       "device_traces": {"train": train_trace,
+                                        "train_gemma3": gemma_train.pop(
+                                            "trace"),
                                         "serve": serve_trace,
                                         "serve_jamba": jamba["trace"]}}))
     print(json.dumps({"ok": True, "device": {

@@ -93,6 +93,30 @@
 //     f32 accumulators (dQ 64, S 32, dP 32 a thread at D = 128) allow one
 //     block an SM either way, so its 161 KB of shared memory (3 stages)
 //     costs no occupancy.
+//
+// Head dim 256 (gemma3), the same two kernels with other constants:
+//   * dq: one consumer warpgroup (128 threads) on a q tile of 64 rows and a
+//     K/V ring of 2 stages: Q + dO 64 KB, 2 x (K + V) 128 KB, 193 KB in
+//     all, where 128 rows and 3 stages would need 320 KB of the 227 KB a
+//     block may take. dQ is 128 f32 registers a thread, S and dP 32 each:
+//     the forward's D = 256 budget plus the dP tile. dQ += dS K is one
+//     m64n256k16 a k slice (hopper.cuh::wgmma_rs_n256);
+//   * dk/dv: dK and dV would be 128 f32 registers a thread each in one
+//     warpgroup, over the 255 limit before S^T and dP^T. So a block is two
+//     consumer warpgroups (256 threads) on the 64 keys, each owning half
+//     of dK's and dV's columns (64 + 64 registers). S^T and dP^T contract
+//     over all of D: warpgroup 0 forms S^T, warpgroup 1 dP^T, and they
+//     swap the two 64 x 64 f32 tiles through 32 KB of shared memory in
+//     fragment order, so neither product is done twice; both then form
+//     the same P^T and dS^T (32 exp2 a thread, in both) and run dV +=
+//     P^T dO and dK += dS^T Q (m64n128k16) on their half of the [t][d]
+//     tiles. Shared memory: K, V 64 KB, 2 x (Q, dO) 128 KB, lse/delta
+//     1 KB, exchange 32 KB: 226 KB, one block an SM;
+//   * bound at gemma3's training shape (B=2, T=S=2048, H=16, K=8, D=256,
+//     bf16), computed from shapes, not measured: causal 6.71e7 unmasked
+//     pairs -> dq 1.03e11 FLOP (104 us), dk/dv 1.37e11 (139 us); window
+//     1024 5.03e7 pairs -> 78 us and 104 us at 989 TFLOP/s; 135 MB a
+//     kernel -> 40 us at 3.35 TB/s: bound by operations.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -443,22 +467,40 @@ flash_bwd_dkv_f32_kernel(const float* __restrict__ q,
 // ---------------------------------------------------------------------------
 
 using bf16 = __nv_bfloat16;
-constexpr int DKV_BK = 64;   // keys a block: one consumer warpgroup
+constexpr int DKV_BK = 64;   // keys a block
 constexpr int DKV_BQ = 64;   // query rows a step
+
+// Tells the compiler that the wgmma accumulator `d` changes here, so that
+// it neither reads nor moves those registers earlier, while a product that
+// writes them may still be in flight.
+template <int N>
+__device__ __forceinline__ void fence_accumulator(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 
 template <int D>
 struct DkvSmem {
+  // D = 256 splits the block in two consumer warpgroups, each owning half
+  // of dK's and dV's columns (64 + 64 f32 registers a thread, where one
+  // warpgroup would need 256); D <= 128 is one warpgroup.
+  static constexpr bool SPLIT = D == 256;
+  static constexpr int THREADS = SPLIT ? 256 : 128;
+  static constexpr int MIN_BLOCKS = SPLIT ? 1 : 2;
   static constexpr int STAGES = 2;                 // Q/dO/lse/delta ring
   static constexpr int KV_BYTES = DKV_BK * D * 2;
   static constexpr int Q_BYTES = DKV_BQ * D * 2;
-  // K, V, then STAGES x (Q, dO), then STAGES x (lse, delta); 1024 more to
-  // align the base
+  // K, V, then STAGES x (Q, dO), then STAGES x (lse, delta), then (split)
+  // the exchange of S^T and dP^T: 32 f32 a thread of each warpgroup; 1024
+  // more to align the base
   static constexpr int ROWS_OFF = 2 * KV_BYTES + STAGES * 2 * Q_BYTES;
-  static constexpr int BYTES = ROWS_OFF + STAGES * 2 * DKV_BQ * 4 + 1024;
+  static constexpr int XCHG_OFF = ROWS_OFF + STAGES * 2 * DKV_BQ * 4;
+  static constexpr int XCHG_BYTES = SPLIT ? 2 * 32 * 128 * 4 : 0;
+  static constexpr int BYTES = XCHG_OFF + XCHG_BYTES + 1024;
 };
 
 template <int D>
-__global__ void __launch_bounds__(128, 2)
+__global__ void __launch_bounds__(DkvSmem<D>::THREADS, DkvSmem<D>::MIN_BLOCKS)
 flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
                            const bf16* __restrict__ k,
                            const bf16* __restrict__ v,
@@ -474,7 +516,10 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
                            int causal, int window, float scale) {
   using namespace hopper;
   using Smem = DkvSmem<D>;
+  constexpr bool SPLIT = Smem::SPLIT;
+  constexpr int THREADS = Smem::THREADS;
   constexpr int STAGES = Smem::STAGES;
+  constexpr int DN = SPLIT ? D / 2 : D;   // dK, dV columns a warpgroup owns
   constexpr float LOG2E = 1.4426950408889634f;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -491,7 +536,9 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
   const int k0 = blockIdx.z * DKV_BK;
   const int G = H / KH;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
+  const int wg = tid / 128;               // 0 unless SPLIT
+  const int t = tid % 128;
+  const int warp = t / 32;
   const int lane = tid % 32;
 
   // q band of this kv tile: rows in [lo, lo + n_qt * BQ)
@@ -503,9 +550,9 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
   const int n_steps = G * n_qt;
 
   load_tile<DKV_BK, D>(sk, k + b * ksb + kh * ksh + k0 * kss, kss, S_len - k0,
-                       tid, 128);
+                       tid, THREADS);
   load_tile<DKV_BK, D>(sv, v + b * vsb + kh * vsh + k0 * vss, vss, S_len - k0,
-                       tid, 128);
+                       tid, THREADS);
   cp_async_commit();
   // step i: query head kh * G + i / n_qt, q tile i % n_qt
   auto load_step = [&](int i) {
@@ -513,14 +560,16 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
     const int t0 = lo + (i % n_qt) * DKV_BQ;
     const int s = i % STAGES;
     load_tile<DKV_BQ, D>(sq(s), q + b * qsb + h * qsh + t0 * qst, qst,
-                         T_len - t0, tid, 128);
+                         T_len - t0, tid, THREADS);
     load_tile<DKV_BQ, D>(sdo(s), dout + b * dsb + h * dsh + t0 * dst, dst,
-                         T_len - t0, tid, 128);
-    const int r = tid % DKV_BQ;
-    const float* src = (tid < DKV_BQ ? lse : delta) +
-                       (static_cast<int64_t>(b) * H + h) * T_len;
-    const bool in = t0 + r < T_len;
-    cp_async_4(smem_u32(srow(s) + tid), in ? src + t0 + r : src, in ? 4 : 0);
+                         T_len - t0, tid, THREADS);
+    if (!SPLIT || tid < 2 * DKV_BQ) {
+      const int r = tid % DKV_BQ;
+      const float* src = (tid < DKV_BQ ? lse : delta) +
+                         (static_cast<int64_t>(b) * H + h) * T_len;
+      const bool in = t0 + r < T_len;
+      cp_async_4(smem_u32(srow(s) + tid), in ? src + t0 + r : src, in ? 4 : 0);
+    }
   };
 #pragma unroll
   for (int i = 0; i < STAGES - 1; ++i) {
@@ -531,9 +580,9 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
   // this thread's two keys: key (d[4j+0..1]) and key + 8 (d[4j+2..3])
   const int key0 = k0 + warp * 16 + lane / 4;
   const int keys[2] = {key0, key0 + 8};
-  float dk_acc[D / 2], dv_acc[D / 2];
+  float dk_acc[DN / 2], dv_acc[DN / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < DN / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
   const float scale_log2 = scale * LOG2E;
 
   for (int i = 0; i < n_steps; ++i) {
@@ -545,57 +594,98 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
 
     const int s = i % STAGES;
     const int t0 = lo + (i % n_qt) * DKV_BQ;
-    float st[32], dp[32];
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(st, desc_k<DKV_BK, D>(sk, 0, kk),
-                   desc_k<DKV_BQ, D>(sq(s), 0, kk), kk);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(dp, desc_k<DKV_BK, D>(sv, 0, kk),
-                   desc_k<DKV_BQ, D>(sdo(s), 0, kk), kk);
-    wgmma_commit();
-    wgmma_wait<0>();
-
     // rows >= T have zero q and do: they add nothing; keys >= S are never
     // written. Only the causal diagonal and the window's edge need a mask.
     const bool edge = (causal && k0 + DKV_BK - 1 > t0) ||
                       (window > 0 && k0 <= t0 + DKV_BQ - 1 - window);
     const float* rl = srow(s);
+    // P^T = exp2(S^T scale log2 e - lse log2 e), masked, and dS^T = P^T
+    // (dP^T - delta) scale, in place of S^T and dP^T; lse and delta by the
+    // fragment's column
+    auto form_p_ds = [&](float (&st)[32], float (&dp)[32]) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int c = 8 * j + 2 * (lane % 4) + e;
-        const float l = rl[c];
-        // a row with lse = -inf has p = 0: subtract +inf
-        const float l2 = l == -INFINITY ? INFINITY : l * LOG2E;
-        const float dl = rl[DKV_BQ + c];
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * (lane % 4) + e;
+          const float l = rl[c];
+          // a row with lse = -inf has p = 0: subtract +inf
+          const float l2 = l == -INFINITY ? INFINITY : l * LOG2E;
+          const float dl = rl[DKV_BQ + c];
 #pragma unroll
-        for (int rr = 0; rr < 2; ++rr) {
-          const int idx = 4 * j + 2 * rr + e;
-          float p = exp2f(st[idx] * scale_log2 - l2);
-          const int t = t0 + c, key = keys[rr];
-          if (edge && !((!causal || key <= t) &&
-                        (window <= 0 || key > t - window)))
-            p = 0.f;
-          st[idx] = p;
-          dp[idx] = p * (dp[idx] - dl) * scale;
+          for (int rr = 0; rr < 2; ++rr) {
+            const int idx = 4 * j + 2 * rr + e;
+            float p = exp2f(st[idx] * scale_log2 - l2);
+            const int row = t0 + c, key = keys[rr];
+            if (edge && !((!causal || key <= row) &&
+                          (window <= 0 || key > row - window)))
+              p = 0.f;
+            st[idx] = p;
+            dp[idx] = p * (dp[idx] - dl) * scale;
+          }
         }
       }
-    }
+    };
     uint32_t pa[DKV_BQ / 16][4], da[DKV_BQ / 16][4];
-    pack_a<DKV_BQ / 16>(st, pa);
-    pack_a<DKV_BQ / 16>(dp, da);
+    if constexpr (SPLIT) {
+      // warpgroup 0 forms S^T = K Q^T, warpgroup 1 dP^T = V dO^T; each
+      // product contracts over all of D. They swap the two tiles through
+      // shared memory (fragment order: element e of thread t at [e][t]),
+      // and each then forms the same P^T and dS^T.
+      float x[32], y[32];
+      const uint32_t a_tile = wg == 0 ? sk : sv;
+      const uint32_t b_tile = wg == 0 ? sq(s) : sdo(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(x, desc_k<DKV_BK, D>(a_tile, 0, kk),
+                     desc_k<DKV_BQ, D>(b_tile, 0, kk), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_accumulator(x);
+      float* xchg = reinterpret_cast<float*>(sm + Smem::XCHG_OFF);
+#pragma unroll
+      for (int e = 0; e < 32; ++e) xchg[(wg * 32 + e) * 128 + t] = x[e];
+      __syncthreads();            // both tiles written
+      // x: S^T, y: dP^T
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const float other = xchg[((1 - wg) * 32 + e) * 128 + t];
+        y[e] = wg == 0 ? other : x[e];
+        x[e] = wg == 0 ? x[e] : other;
+      }
+      form_p_ds(x, y);
+      pack_a<DKV_BQ / 16>(x, pa);
+      pack_a<DKV_BQ / 16>(y, da);
+    } else {
+      float st[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(st, desc_k<DKV_BK, D>(sk, 0, kk),
+                     desc_k<DKV_BQ, D>(sq(s), 0, kk), kk);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss_n64(dp, desc_k<DKV_BK, D>(sv, 0, kk),
+                     desc_k<DKV_BQ, D>(sdo(s), 0, kk), kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      form_p_ds(st, dp);
+      pack_a<DKV_BQ / 16>(st, pa);
+      pack_a<DKV_BQ / 16>(dp, da);
+    }
 
+    // dV += P^T dO and dK += dS^T Q over this warpgroup's DN columns: the
+    // [t][d] tiles are column block after column block, so columns from
+    // D/2 on start DKV_BQ * D bytes in
+    const uint32_t cols = SPLIT ? wg * DKV_BQ * D : 0;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DKV_BQ / 16; ++kk)
-      wgmma_rs<D>(dv_acc, pa[kk], desc_mn<DKV_BQ, D>(sdo(s), kk), 1);
+      wgmma_rs<DN>(dv_acc, pa[kk], desc_mn<DKV_BQ, D>(sdo(s) + cols, kk), 1);
 #pragma unroll
     for (int kk = 0; kk < DKV_BQ / 16; ++kk)
-      wgmma_rs<D>(dk_acc, da[kk], desc_mn<DKV_BQ, D>(sq(s), kk), 1);
+      wgmma_rs<DN>(dk_acc, da[kk], desc_mn<DKV_BQ, D>(sq(s) + cols, kk), 1);
     wgmma_commit();
     wgmma_wait<0>();
   }
@@ -606,9 +696,10 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
     const int key = keys[rr];
     if (key >= S_len) continue;
     const int64_t off =
-        ((static_cast<int64_t>(b) * S_len + key) * KH + kh) * D;
+        ((static_cast<int64_t>(b) * S_len + key) * KH + kh) * D +
+        (SPLIT ? wg * DN : 0);
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c) {
+    for (int c = 0; c < DN / 8; ++c) {
       const int col = 8 * c + 2 * (lane % 4);
       const int i = 4 * c + 2 * rr;
       *reinterpret_cast<__nv_bfloat162*>(dk + off + col) =
@@ -623,31 +714,26 @@ flash_bwd_dkv_wgmma_kernel(const bf16* __restrict__ q,
 // dq, bf16: wgmma
 // ---------------------------------------------------------------------------
 
-constexpr int DQ_BQ = 128;   // q rows a block: 64 a consumer warpgroup
 constexpr int DQ_BK = 64;    // keys a kv tile
-constexpr int DQ_THREADS = 256;
 
 template <int D>
 struct DqSmem {
-  static constexpr int STAGES = 3;                 // K/V ring
-  static constexpr int Q_BYTES = DQ_BQ * D * 2;
+  // D <= 128: 2 consumer warpgroups on a q tile of 128 rows, a K/V ring of
+  // 3 stages. D = 256: one warpgroup on 64 rows and 2 stages, since 128
+  // rows would take 320 KB (Q, dO 128 KB + 3 x (K, V) 192 KB)
+  static constexpr int WGS = D == 256 ? 1 : 2;
+  static constexpr int BQ = 64 * WGS;              // q rows a block
+  static constexpr int THREADS = 128 * WGS;
+  static constexpr int STAGES = D == 256 ? 2 : 3;  // K/V ring
+  static constexpr int Q_BYTES = BQ * D * 2;
   static constexpr int KV_BYTES = DQ_BK * D * 2;
   // Q, dO, then STAGES x (K, V); every tile a multiple of 1024 bytes; 1024
   // more to align the base
   static constexpr int BYTES = 2 * Q_BYTES + STAGES * 2 * KV_BYTES + 1024;
 };
 
-// Tells the compiler that the wgmma accumulator `d` changes here, so that
-// it neither reads nor moves those registers earlier, while a product that
-// writes them may still be in flight.
-template <int N>
-__device__ __forceinline__ void fence_accumulator(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 template <int D>
-__global__ void __launch_bounds__(DQ_THREADS, 1)
+__global__ void __launch_bounds__(DqSmem<D>::THREADS, 1)
 flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
                           const bf16* __restrict__ k,
                           const bf16* __restrict__ v,
@@ -663,6 +749,8 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
   using namespace hopper;
   using Smem = DqSmem<D>;
   constexpr int STAGES = Smem::STAGES;
+  constexpr int BQ = Smem::BQ;
+  constexpr int THREADS = Smem::THREADS;
   constexpr float LOG2E = 1.4426950408889634f;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -674,7 +762,7 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int qt = causal ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
-  const int q0 = qt * DQ_BQ;
+  const int q0 = qt * BQ;
   const int kh = h / (H / KH);
   const int tid = threadIdx.x;
   const int wg = tid / 128;
@@ -686,7 +774,7 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
 
   // kv band of this q tile: keys in [lo, lo + n_tiles * BK)
   int lo = 0, hi = S_len;
-  if (causal) hi = min(S_len, q0 + DQ_BQ);
+  if (causal) hi = min(S_len, q0 + BQ);
   if (window > 0) lo = max(0, q0 - window + 1);
   lo = lo / DQ_BK * DQ_BK;
   const int n_tiles = hi > lo ? (hi - lo + DQ_BK - 1) / DQ_BK : 0;
@@ -695,14 +783,14 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
     const int k0 = lo + j * DQ_BK;
     const int s = j % STAGES;
     load_tile<DQ_BK, D>(sk(s), kb + k0 * kss, kss, S_len - k0, tid,
-                        DQ_THREADS);
+                        THREADS);
     load_tile<DQ_BK, D>(sv(s), vb + k0 * vss, vss, S_len - k0, tid,
-                        DQ_THREADS);
+                        THREADS);
   };
-  load_tile<DQ_BQ, D>(sq, q + b * qsb + h * qsh + q0 * qst, qst, T_len - q0,
-                      tid, DQ_THREADS);
-  load_tile<DQ_BQ, D>(sdo, dout + b * dsb + h * dsh + q0 * dst, dst,
-                      T_len - q0, tid, DQ_THREADS);
+  load_tile<BQ, D>(sq, q + b * qsb + h * qsh + q0 * qst, qst, T_len - q0,
+                   tid, THREADS);
+  load_tile<BQ, D>(sdo, dout + b * dsb + h * dsh + q0 * dst, dst, T_len - q0,
+                   tid, THREADS);
   cp_async_commit();
 #pragma unroll
   for (int j = 0; j < STAGES - 1; ++j) {
@@ -749,12 +837,12 @@ flash_bwd_dq_wgmma_kernel(const bf16* __restrict__ q,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(sc, desc_k<DQ_BQ, D>(sq, wg * 64, kk),
+      wgmma_ss_n64(sc, desc_k<BQ, D>(sq, wg * 64, kk),
                    desc_k<DQ_BK, D>(sk(s), 0, kk), kk);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(dp, desc_k<DQ_BQ, D>(sdo, wg * 64, kk),
+      wgmma_ss_n64(dp, desc_k<BQ, D>(sdo, wg * 64, kk),
                    desc_k<DQ_BK, D>(sv(s), 0, kk), kk);
     wgmma_commit();
     wgmma_wait<1>();
@@ -853,8 +941,9 @@ cudaError_t launch_dq_wgmma(const Args& a, cudaStream_t stream,
       flash_bwd_dq_wgmma_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.H, a.B, (a.T_len + DQ_BQ - 1) / DQ_BQ);
-  flash_bwd_dq_wgmma_kernel<D><<<grid, DQ_THREADS, bytes, stream>>>(
+  constexpr int BQ = DqSmem<D>::BQ;
+  const dim3 grid(a.H, a.B, (a.T_len + BQ - 1) / BQ);
+  flash_bwd_dq_wgmma_kernel<D><<<grid, DqSmem<D>::THREADS, bytes, stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
       a.delta, static_cast<bf16*>(a.dq), a.T_len, a.S_len, a.H, a.KH,
@@ -894,7 +983,7 @@ cudaError_t launch_dkv_wgmma(const Args& a, cudaStream_t stream,
       cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.KH, a.B, (a.S_len + DKV_BK - 1) / DKV_BK);
-  flash_bwd_dkv_wgmma_kernel<D><<<grid, 128, bytes, stream>>>(
+  flash_bwd_dkv_wgmma_kernel<D><<<grid, DkvSmem<D>::THREADS, bytes, stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.lse,
       a.delta, static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.T_len,
@@ -924,7 +1013,7 @@ int run(int which, const void* q, const void* k, const void* v,
         void* stream, int* launched) {
   if (B <= 0 || T_len <= 0 || S_len <= 0 || KH <= 0 || H % KH != 0 ||
       B > 65535 || (S_len + DKV_BK - 1) / DKV_BK > 65535 ||
-      (T_len + DQ_BQ - 1) / DQ_BQ > 65535)
+      (T_len + 63) / 64 > 65535)
     return cudaErrorInvalidValue;
   Args a{q, k, v, dout, static_cast<const float*>(lse),
          static_cast<const float*>(delta), dq, dk, dv, B, T_len, S_len, H, KH,
@@ -937,6 +1026,7 @@ int run(int which, const void* q, const void* k, const void* v,
     case 32: return dispatch<32>(which, dtype, a, s, launched);
     case 64: return dispatch<64>(which, dtype, a, s, launched);
     case 128: return dispatch<128>(which, dtype, a, s, launched);
+    case 256: return dispatch<256>(which, dtype, a, s, launched);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -996,13 +1086,16 @@ extern "C" int flash_bwd_dq_wgmma_info(int D, int* smem_bytes,
     case 32: *smem_bytes = DqSmem<32>::BYTES; break;
     case 64: *smem_bytes = DqSmem<64>::BYTES; break;
     case 128: *smem_bytes = DqSmem<128>::BYTES; break;
+    case 256: *smem_bytes = DqSmem<256>::BYTES; break;
     default: return cudaErrorInvalidValue;
   }
-  auto kernel = D == 16   ? flash_bwd_dq_wgmma_kernel<16>
-                : D == 32 ? flash_bwd_dq_wgmma_kernel<32>
-                : D == 64 ? flash_bwd_dq_wgmma_kernel<64>
-                          : flash_bwd_dq_wgmma_kernel<128>;
-  return hopper::occupancy(kernel, DQ_THREADS, *smem_bytes, blocks_per_sm);
+  auto kernel = D == 16    ? flash_bwd_dq_wgmma_kernel<16>
+                : D == 32  ? flash_bwd_dq_wgmma_kernel<32>
+                : D == 64  ? flash_bwd_dq_wgmma_kernel<64>
+                : D == 128 ? flash_bwd_dq_wgmma_kernel<128>
+                           : flash_bwd_dq_wgmma_kernel<256>;
+  const int threads = D == 256 ? DqSmem<256>::THREADS : DqSmem<128>::THREADS;
+  return hopper::occupancy(kernel, threads, *smem_bytes, blocks_per_sm);
 }
 
 // The bf16 dk/dv kernel at head_dim D: its dynamic shared memory in
@@ -1015,11 +1108,15 @@ extern "C" int flash_bwd_dkv_wgmma_info(int D, int* smem_bytes,
     case 32: *smem_bytes = DkvSmem<32>::BYTES; break;
     case 64: *smem_bytes = DkvSmem<64>::BYTES; break;
     case 128: *smem_bytes = DkvSmem<128>::BYTES; break;
+    case 256: *smem_bytes = DkvSmem<256>::BYTES; break;
     default: return cudaErrorInvalidValue;
   }
-  auto kernel = D == 16   ? flash_bwd_dkv_wgmma_kernel<16>
-                : D == 32 ? flash_bwd_dkv_wgmma_kernel<32>
-                : D == 64 ? flash_bwd_dkv_wgmma_kernel<64>
-                          : flash_bwd_dkv_wgmma_kernel<128>;
-  return hopper::occupancy(kernel, 128, *smem_bytes, blocks_per_sm);
+  auto kernel = D == 16    ? flash_bwd_dkv_wgmma_kernel<16>
+                : D == 32  ? flash_bwd_dkv_wgmma_kernel<32>
+                : D == 64  ? flash_bwd_dkv_wgmma_kernel<64>
+                : D == 128 ? flash_bwd_dkv_wgmma_kernel<128>
+                           : flash_bwd_dkv_wgmma_kernel<256>;
+  const int threads =
+      D == 256 ? DkvSmem<256>::THREADS : DkvSmem<128>::THREADS;
+  return hopper::occupancy(kernel, threads, *smem_bytes, blocks_per_sm);
 }

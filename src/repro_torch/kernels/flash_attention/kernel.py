@@ -24,10 +24,8 @@ import torch
 
 from .. import build
 
-# head dims each kernel takes: the forward also 256 (gemma3's prefill);
-# the backward's 256 is queued with gemma3 training (ROADMAP)
-HEAD_DIMS = {"fwd": (16, 32, 64, 128, 256), "dq": (16, 32, 64, 128),
-             "dkv": (16, 32, 64, 128)}
+# head dims each kernel takes; 256 is gemma3's
+HEAD_DIMS = {name: (16, 32, 64, 128, 256) for name in ("fwd", "dq", "dkv")}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # the variant each kernel launches, by input dtype
 VARIANTS = {
@@ -116,10 +114,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, fn: str,
         raise ValueError(f"{fn} takes float32 or bfloat16 inputs of one "
                          f"dtype, got {[x.dtype for x in (q, k, v, *more)]}")
     if D not in HEAD_DIMS[kind]:
-        queued = (" (head dim 256 in the backward is queued with gemma3 "
-                  "training: ROADMAP Queue 2)" if kind != "fwd" else "")
-        raise ValueError(f"{fn}: head_dim {D} not in {HEAD_DIMS[kind]}"
-                         f"{queued}")
+        raise ValueError(f"{fn}: head_dim {D} not in {HEAD_DIMS[kind]}")
     if (k.shape != (B, S, K, D) or v.shape != k.shape or H % K
             or any(x.shape != q.shape for x in more)):
         raise ValueError(f"bad shapes q {tuple(q.shape)} k {tuple(k.shape)} "

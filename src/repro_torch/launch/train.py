@@ -3,12 +3,19 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b \
         --preset full --layers 8 --batch 4 --seq 1024 --steps 6
 
+Every family the reference trains, except jamba (its selective scan has
+no backward yet): dense (yi-6b, ...), sliding windows and head dim 256
+(gemma3-12b), MoE (granite-moe-3b-a800m, deepseek-moe-16b) and xLSTM
+(xlstm-125m). ``--layers`` rounds down to whole pattern groups.
+
 Wires the port's pieces together: config -> f32 master weights on one
 device -> profiled train loop -> async checkpoints -> straggler detector ->
 trace export. Runs on the CUDA card unless ``--device cpu`` is given; with
 no card and no ``--device cpu`` it raises. Weights are random, made from
 seed 0; the data is the synthetic bigram stream. Attention runs the CUDA
-flash-attention forward and, in the backward, the dq and dk/dv kernels.
+flash-attention forward and, in the backward, the dq and dk/dv kernels;
+``stats`` counts their launches each step by kernel, by variant and by
+head dim, and holds each step's MoE aux loss and load balance.
 """
 from __future__ import annotations
 
@@ -122,6 +129,9 @@ def main(argv=None) -> Tuple[List[float], Dict[str, Any]]:
     step_ms: List[float] = []
     launches: List[Dict[str, int]] = []
     by_variant: List[Dict[str, int]] = []
+    by_head_dim: List[Dict[str, int]] = []
+    moe_aux: List[float] = []
+    moe_load_balance: List[float] = []
     for step in range(start_step, args.steps):
         with regions.annotate("train/step", category="app", step=step):
             with regions.annotate("train/data", category="data"):
@@ -129,6 +139,7 @@ def main(argv=None) -> Tuple[List[float], Dict[str, Any]]:
                          for k, v in data.batch_at(step).items()}
             before = _launch_counts()
             before_v = dict(flash_attention.launches_by_variant)
+            before_d = dict(flash_attention.launches_by_head_dim)
             t0 = time.perf_counter()
             with regions.annotate("train/compute", category="api"):
                 metrics = step_fn(model, opt_state, batch)
@@ -138,6 +149,11 @@ def main(argv=None) -> Tuple[List[float], Dict[str, Any]]:
             launches.append({k: after[k] - before[k] for k in after})
             by_variant.append({k: n - before_v[k] for k, n in
                                flash_attention.launches_by_variant.items()})
+            by_head_dim.append({k: n - before_d[k] for k, n in
+                                flash_attention.launches_by_head_dim.items()
+                                if n != before_d[k]})
+            moe_aux.append(float(metrics["moe_aux"]))
+            moe_load_balance.append(float(metrics["moe_load_balance"]))
             detector.record(rank=0, step=step, duration_s=dt)
             losses.append(loss)
             step_ms.append(dt * 1e3)
@@ -180,6 +196,9 @@ def main(argv=None) -> Tuple[List[float], Dict[str, Any]]:
                               if device.type == "cuda" else None),
         "launches": launches,
         "launches_by_variant": by_variant,
+        "launches_by_head_dim": by_head_dim,
+        "moe_aux": moe_aux,
+        "moe_load_balance": moe_load_balance,
         "tree": gf.to_dict(),
     }
     return losses, stats

@@ -10,9 +10,10 @@ constraints are dropped: without a mesh they are the identity.
 A trainable model (``Model(cfg, device, trainable=True)``) holds f32
 master weights with gradients and casts them to ``cfg.dtype`` on every
 forward, as the JAX ``forward`` does (``_cast``); its ``train`` forward
-recomputes each layer in the backward when ``cfg.remat == "full"``.
-Models with ``mamba``, ``moe``, ``mlstm`` or ``slstm`` layers serve but do
-not train yet.
+recomputes each layer in the backward when ``cfg.remat == "full"``, and
+returns the MoE aux vector summed over layers, as prefill does, so the
+load-balance and router-z losses reach the gradients. Models with
+``mamba`` layers serve but do not train yet.
 
 Every decode cache is preallocated (:meth:`Model.alloc_cache`, each
 layer's from its own ``LayerSpec``) and written in place, and
@@ -40,9 +41,9 @@ Cache = List[Dict[str, torch.Tensor]]
 # the fixed-size aux vector of the JAX ``forward``, in its order
 _AUX_KEYS = ("moe_aux_loss", "moe_load_balance", "moe_router_z",
              "moe_dropped_frac")
-_NO_TRAIN = ("training mamba, moe, mlstm and slstm layers is not ported "
-             "yet: ROADMAP Queue 1, item 2 (jamba training: the MoE aux loss "
-             "and a backward through the selective scan; then xLSTM)")
+_NO_TRAIN = ("training mamba layers is not ported yet: ROADMAP Queue 1, "
+             "item 2 (jamba training: a backward through the selective "
+             "scan)")
 
 
 def _specs_by_path(specs, prefix: str) -> Dict[str, ParamSpec]:
@@ -74,8 +75,7 @@ class Model(nn.Module):
                 "(ROADMAP Queue 1, item 7: frames input)")
         self.cfg = cfg
         self.trainable = trainable
-        self.can_train = all(s.mixer == "attn" and s.ffn == "mlp"
-                             for s in cfg.pattern)
+        self.can_train = all(s.mixer != "mamba" for s in cfg.pattern)
         if trainable and not self.can_train:
             raise NotImplementedError(f"{cfg.name}: {_NO_TRAIN}")
         self.compute_dtype = getattr(torch, cfg.dtype)
@@ -138,26 +138,31 @@ class Model(nn.Module):
         for l, layer in enumerate(self.layers):
             lspec = cfg.pattern[l % len(cfg.pattern)]
             if mode == "train":
-                x = self._train_layer(layer, x, lspec)
-                continue
-            x, layer_aux = block_apply(layer, x, cfg, lspec, pos, caches[l],
-                                       mode=mode)
-            if layer_aux:
-                aux = aux + torch.stack([layer_aux[k] for k in _AUX_KEYS])
+                x, layer_aux = self._train_layer(layer, x, lspec)
+            else:
+                x, layer_aux = block_apply(layer, x, cfg, lspec, pos,
+                                           caches[l], mode=mode)
+                layer_aux = _aux_vector(layer_aux)
+            if layer_aux is not None:
+                aux = aux + layer_aux
         return rms_norm(x, self.final_norm, cfg.norm_eps), aux
 
     def _train_layer(self, layer: SpecModule, x: torch.Tensor, lspec
-                     ) -> torch.Tensor:
+                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """One layer of the train forward on weights cast inside it, so a
-        recomputed layer casts again and no cast copy outlives it."""
+        recomputed layer casts again and no cast copy outlives it. Returns
+        (x, the layer's aux vector, or None without an MoE FFN); under
+        full remat the aux comes out of the checkpoint beside x, so its
+        gradient flows through the recomputed layer."""
         cfg = self.cfg
 
         def run(x):
             # a span of its own, so a device trace tells the remat's second
             # forward (inside train/backward) from the first
             with profiler_span("model/layer"):
-                return block_apply(cast_params(layer, self.compute_dtype), x,
-                                   cfg, lspec, 0, None, mode="train")[0]
+                x, aux = block_apply(cast_params(layer, self.compute_dtype),
+                                     x, cfg, lspec, 0, None, mode="train")
+            return x, _aux_vector(aux)
 
         if cfg.remat == "none":
             return run(x)
@@ -199,6 +204,14 @@ class Model(nn.Module):
         (B, n_codebooks, Vp)."""
         h, _aux = self._layers(self.embed_tokens(tokens), pos, caches, "decode")
         return self.logits(h[:, 0])
+
+
+def _aux_vector(aux: Dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
+    """A block's MoE stats as the (4,) f32 vector of ``_AUX_KEYS``, or
+    None for a block without them (the JAX ``_aux_vector`` gives zeros)."""
+    if not aux:
+        return None
+    return torch.stack([aux[k].float() for k in _AUX_KEYS])
 
 
 def mask_pad_logits(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -30,8 +30,8 @@ from .losses import chunked_ce_loss
 def _loss(model: Model, tokens: torch.Tensor, labels: torch.Tensor,
           cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The JAX ``loss_fn``: chunked CE on the train forward plus the MoE
-    aux loss. The forward raises for models with mamba or moe layers,
-    which do not train yet, so the aux is 0 on every model that trains."""
+    aux loss (``aux[0]``: the router load-balance and z losses, weighted
+    and summed over the MoE layers; 0 for a model without them)."""
     hidden, aux = model(tokens, mode="train")
     lm_head = model.lm_head.to(model.compute_dtype)
     loss, metrics = chunked_ce_loss(hidden, lm_head, labels, cfg)

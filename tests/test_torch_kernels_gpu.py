@@ -17,9 +17,10 @@ cases below cover head dims 32, 64 and 128, lengths 1, 17, 200 and 1000
 inside a 64-key tile, non-causal attention with S != T at the kernel level,
 and G = H/K of 1 and 8 query heads a kv head. One 64 x N x 16 wgmma product
 is held to torch.matmul on its own (``kernel.wgmma_probe``). Head dim 256
-(gemma3) runs the forward only, with and without a window; the backward
-refuses it. A captured decode step gives the eager step's tokens and
-logits on the smoke presets of the four served families.
+(gemma3) runs the forward, dq and dk/dv, with and without a window; a
+train step of gemma3 (head dim 256), the MoE and the xLSTM smoke presets
+in f32 matches the CPU. A captured decode step gives the eager step's
+tokens and logits on the smoke presets of the four served families.
 """
 import dataclasses
 
@@ -518,9 +519,10 @@ def test_profiled_overlap_halo_step_puts_its_collectives_on_the_engine():
     assert set(payload["hlo_stats"]["by_opcode"]) == {"collective-permute"}
 
 
-# head dim 256 (gemma3): the forward only, bf16 (wgmma, a 2-stage ring, P V
-# as m64n256k16) and f32 (the scalar kernel above 48 KB of shared memory);
-# gemma3's GQA of 2 query heads a kv head, windows of 1024 (gemma3's) and 48
+# head dim 256 (gemma3): bf16 (wgmma; the forward and dq on 2-stage rings
+# with m64n256k16 products, dk/dv split over two warpgroups) and f32 (the
+# scalar kernels above 48 KB of shared memory); gemma3's GQA of 2 query
+# heads a kv head, windows of 1024 (gemma3's) and 48
 D256_CASES = [
     ("bfloat16", True, None, 300),
     ("bfloat16", True, 1024, 1100),
@@ -560,11 +562,74 @@ def test_one_wgmma_product_matches_matmul_at_head_dim_256():
 
 
 @pytest.mark.gpu
-def test_head_dim_256_backward_is_refused():
-    q, k, v, do = _inputs("bfloat16", 256, 64, B=1, H=2, K=1)
-    lse = torch.zeros((1, 2, 64), device="cuda")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        kernel.flash_bwd_dq(q, k, v, do, lse, lse.clone())
+@pytest.mark.parametrize("dtype,causal,window,T", D256_CASES)
+def test_head_dim_256_backward_matches_plain_version(dtype, causal, window,
+                                                     T):
+    q, k, v, do = _inputs(dtype, 256, T, B=1, H=4, K=2)
+    out, lse = flash_attention_ref(q, k, v, causal=causal, window=window)
+    before = _variants()
+    got = flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                              window=window)
+    torch.cuda.synchronize()
+    kind = "wgmma" if dtype == "bfloat16" else "scalar"
+    assert _delta(before) == {f"dq/{kind}": 1, f"dkv/{kind}": 1}
+    want = flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
+                                   window=window)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert _rel(a, b) < GRAD_TOL[dtype], (name, _rel(a, b))
+
+
+@pytest.mark.gpu
+def test_bf16_dq_is_bit_identical_at_head_dim_256():
+    q, k, v, do = _inputs("bfloat16", 256, 1100, B=1, H=4, K=2)
+    out, lse = flash_attention_ref(q, k, v, window=1024)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    first, second = (kernel.flash_bwd_dq(q, k, v, do, lse.contiguous(), delta,
+                                         window=1024) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,changes", [
+    ("gemma3-12b", dict(d_head=256, n_heads=2, n_kv_heads=1)),
+    ("granite-moe-3b-a800m", dict(n_layers=2)),
+    ("deepseek-moe-16b", dict(n_layers=2)),
+    ("xlstm-125m", {}),
+])
+def test_f32_train_step_on_the_card_matches_cpu(arch, changes):
+    """Smoke presets in f32 (gemma3 at head dim 256, windows cut to 8): the
+    loss to 1e-4 and every gradient to 1e-3 of its largest value, as
+    ``chip_smoke.py`` phase 8 holds yi-6b."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.configs.archs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+
+    cfg = dataclasses.replace(get_config(arch, "smoke"), dtype="float32",
+                              **changes)
+    cfg = dataclasses.replace(cfg, pattern=tuple(
+        dataclasses.replace(s, window=8 if s.window else None)
+        for s in cfg.pattern))
+    models = [Model(cfg, torch.device("cuda"), trainable=True).init_weights(0)]
+    models.append(Model(cfg, torch.device("cpu"), trainable=True))
+    models[1].load_state_dict(models[0].state_dict())
+    toks = torch.randint(0, cfg.vocab_size, (2, 41),
+                         generator=torch.Generator().manual_seed(0))
+    step = make_train_step(cfg, adamw.AdamWConfig(lr=0.0))
+    losses = []
+    for m in models:
+        batch = {"tokens": toks[:, :-1].to(m.device),
+                 "labels": toks[:, 1:].to(m.device)}
+        losses.append(float(step(m, adamw.init_state(
+            dict(m.named_parameters())), batch)["loss"]))
+    assert abs(losses[0] - losses[1]) < 1e-4
+    cpu_grads = dict(models[1].named_parameters())
+    for name, p in models[0].named_parameters():
+        assert _rel(p.grad.cpu(), cpu_grads[name].grad) < 1e-3, name
 
 
 @pytest.mark.gpu

@@ -193,7 +193,7 @@ def test_caches_follow_the_mixer_of_each_layer():
             assert cache["conv"].dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("arch", [ARCH, "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", [ARCH])
 def test_training_mamba_or_moe_raises_with_its_roadmap_entry(arch):
     cfg = torch_archs.get_config(arch, "smoke")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

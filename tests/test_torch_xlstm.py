@@ -203,8 +203,3 @@ def test_layers_have_no_ffn_and_counts_match_jax():
     full_t = torch_archs.get_config("xlstm-125m", "full")
     assert torch_model.param_count(full_t) == JM.param_count(full_j)
 
-
-def test_xlstm_does_not_train_yet():
-    _, tcfg = configs()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(tcfg, CPU, trainable=True)
