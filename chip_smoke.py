@@ -6,11 +6,11 @@
 Phases, each of which fails the run (non-zero exit, no final line):
   1. the card: name, count, power limit (nvidia-smi);
   2. build the CUDA kernels (flash-attention forward; backward dq and
-     dk/dv; selective scan) from this checkout's sources, one nvcc per
-     source, in parallel; print what ptxas says of each instantiation
-     (registers, spills), the dynamic shared memory and blocks an SM of
-     the bf16 tensor-core (wgmma) forward, dq and dk/dv kernels and of
-     the scan, and check in the scan's SASS (cuobjdump) that every
+     dk/dv; selective scan and its backward) from this checkout's sources,
+     one nvcc per source, in parallel; print what ptxas says of each
+     instantiation (registers, spills), the dynamic shared memory and
+     blocks an SM of the bf16 tensor-core (wgmma) forward, dq and dk/dv
+     kernels and of the scan's forward and backward, and check in the scan's SASS (cuobjdump) that every
      special-function instruction is one MUFU.EX2, four to a step (one a
      state);
   3. hold one 64 x N x 16 wgmma product to torch.matmul, then the forward
@@ -64,10 +64,11 @@ Phases, each of which fails the run (non-zero exit, no final line):
      generated tokens) and check that every mamba prefill went through the
      scan kernel and every attention prefill through the wgmma forward;
  15. the default commands on the card (``launch.serve`` for yi-6b and for
-     jamba, ``launch.train``; the smoke preset: bf16, head dim 16), each
-     held to the same call with ``--device cpu``: the prefill logits, the
-     first tokens where no near tie decides them, the train losses, and
-     every attention on the wgmma D = 16 variants;
+     jamba, ``launch.train`` for yi-6b and, with 6 steps, for jamba; the
+     smoke preset: bf16, head dim 16), each held to the same call with
+     ``--device cpu``: the prefill logits, the first tokens where no near
+     tie decides them, the train losses, every attention on the wgmma D =
+     16 variants, and jamba's 14 scan forwards and 7 backwards a step;
  16. time the D = 16 forward, dq and dk/dv at the default training shape,
      beside their plain versions and scaled_dot_product_attention;
  17. the COMB-style halo app (``launch.halo``) under all four comm
@@ -142,6 +143,19 @@ Phases, each of which fails the run (non-zero exit, no final line):
      width, all 12 layers (batch 4, seq 512, 3 steps); then each in f32,
      two layers at full width, one step on the card against the CPU
      (granite on a batch that makes an expert overflow);
+ 28. (after phase 27) the selective scan's backward kernel against the
+     plain backward (autograd through the plain scan) on phase 10's six
+     cases, every gradient (dx, ddt, dA, dB, dC, dD) within the bound of
+     its dtype, two launches at the training shape bit for bit; its time
+     there (twice), the plain backward's and the least time the card could
+     take; then train jamba-v0.1-52b at full width, one pattern group (8
+     layers), the expert width cut to 1024, with ``launch.train``'s step
+     functions (batch 4, seq 1024, 4 steps, bf16 compute, f32 master
+     weights, full remat, AdamW): 14 scan forwards, 7 scan backwards, 2
+     flash forwards, 1 dq and 1 dk/dv a step, the MoE aux loss and load
+     balance finite and > 0; one profiled step as phase 18's; then one f32
+     step of one pattern group at full mixer width (d_ff and d_expert
+     512; batch 2, seq 100) on the card against the CPU;
  14. print one JSON line with every ported kernel, then the result line.
 
 Serving (phases 5, 13, 15, 20, 22-24) decodes through one captured CUDA
@@ -180,6 +194,12 @@ TPU_DQ = "src/repro/kernels/flash_attention/kernel.py:223"
 TPU_DKV = "src/repro/kernels/flash_attention/kernel.py:241"
 SCAN_SOURCE = "src/repro_torch/kernels/mamba_scan/csrc/selective_scan.cu"
 TPU_SCAN = "src/repro/kernels/mamba_scan/kernel.py:49"
+SCAN_BWD_SOURCE = ("src/repro_torch/kernels/mamba_scan/csrc/"
+                   "selective_scan_bwd.cu")
+# no Pallas kernel: the JAX package's gradient is jax.grad through its jnp
+# chunked scan
+TPU_SCAN_BWD = ("no Pallas kernel: jax.grad of the jnp chunked scan, "
+                "src/repro/models/mamba.py:121-131")
 OUT_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the JAX package's bounds
 LSE_TOL = 1e-3       # f32 on both sides, sums over up to 1024 keys
 MODEL_TOL = 1e-3     # f32 logits over 4096-wide sums, card vs CPU
@@ -197,6 +217,18 @@ TRAIN_LAYERS = 8     # of yi-6b's 32: 16 B/param of f32 state must fit 80 GB
 SCAN_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 SCAN_ROUNDING = {"float32": 2.0 ** -24, "bfloat16": 2.0 ** -8}
 SCAN_STATE_TOL = 1e-4
+# the scan's cases of phases 10 and 28: jamba's serving and training shape
+# (B=4, T=1024, d_inner 8192, d_state 16, x bf16, dt/B/C f32), a ragged
+# length and width, f32, all-bf16, d_state 4 and 8
+SCAN_SERVING = dict(B=4, T=1024, dI=8192, N=16, x="bfloat16", p="float32")
+SCAN_CASES = [
+    ("serving", SCAN_SERVING),
+    ("ragged T=1000 dI=8000", dict(SCAN_SERVING, T=1000, dI=8000)),
+    ("f32", dict(B=2, T=512, dI=1024, N=16, x="float32", p="float32")),
+    ("all-bf16", dict(SCAN_SERVING, p="bfloat16")),
+    ("d_state 4", dict(SCAN_SERVING, N=4)),
+    ("d_state 8", dict(SCAN_SERVING, N=8)),
+]
 JAMBA_LAYERS = 16    # of jamba's 32: 52 GB of bf16 weights; 32 need ~103 GB
 JAMBA_CHECK_WIDTH = 512  # d_expert and d_ff of the card-vs-CPU jamba model
 # the default commands (bf16 smoke preset) card vs CPU: prefill logits as
@@ -229,12 +261,28 @@ TRAIN_CHECK = {"gemma3-12b": (2, 160), "granite-moe-3b-a800m": (2, 100),
                "xlstm-125m": (2, 64)}
 GEMMA_TRAIN_CHECK_WINDOW = 64
 DECODE_REPEATS = 3   # captured and eager decode in turns (phase 23)
+# the scan's launches a step of a model without mamba layers
+NO_SCAN = {"selective_scan": 0, "selective_scan_bwd": 0}
+# phase 28: jamba trained at full width on one pattern group (8 layers),
+# (batch, seq, steps); one group at full width is 13.3e9 parameters, 213 GB
+# at 16 B a parameter of f32 state, so the expert width is cut from 14336
+# (2.83e9 parameters, 45 GB); the f32 card-vs-CPU step's (batch, seq),
+# seq ragged against the scan's 32-step tiles
+JAMBA_TRAIN = (4, 1024, 4)
+JAMBA_TRAIN_D_EXPERT = 1024
+JAMBA_TRAIN_CHECK = (2, 100)
+# steps of the default jamba train command on the card and the CPU (phase
+# 15; the CPU runs the plain scan, ~2 s a step)
+JAMBA_DEFAULT_STEPS = 6
 T0 = 0.0             # the run's start on the host clock
 CARD = ""            # nvidia-smi's name and power limit, named by each phase
 # each kernel's design on the bf16 main paths
 DESIGN = {"flash_attention_fwd": "wgmma", "flash_attention_bwd_dq": "wgmma",
           "flash_attention_bwd_dkv": "wgmma",
-          "selective_scan": "states split over lanes, cp.async ring"}
+          "selective_scan": "states split over lanes, cp.async ring",
+          "selective_scan_bwd": "reverse walk of 32-step tiles recomputed "
+                                "from saved states in shared memory, "
+                                "per-block partial sums"}
 # bf16 edge cases of phases 3 and 6: head dims 32 and 64, lengths shorter
 # than a tile and not multiples of it, a window that starts inside a 64-key
 # tile, non-causal S != T, and G = H/K of 1 and 8 (K = 2 and 4)
@@ -324,7 +372,8 @@ def ptxas_report(log: str):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             entry = m.group(1)
-            u = re.search(r"(selective_scan_kernel)I(f|13__nv_bfloat16)"
+            u = re.search(r"(selective_scan(?:_bwd)?_kernel)I"
+                          r"(f|13__nv_bfloat16)"
                           r"(f|13__nv_bfloat16|S\d*_)Li(\d+)E", entry)
             w = re.search(r"((?:flash_fwd_wgmma|flash_fwd_f32|"
                           r"flash_bwd_dq_wgmma|flash_bwd_dq_f32|"
@@ -344,16 +393,15 @@ def ptxas_report(log: str):
             yield entry, f"{line.split(':', 1)[-1].strip()}; {spills}"
 
 
-def scan_bound_ms(B, T, dI, N, x_item, p_item, sms, clock_hz):
-    """Least time for one scan call, from the work that
-    ``repro_torch.core.cost.scan_work`` counts: the bytes (x, dt, B, C, A,
-    D read once, y and the final state written once), the f32 FLOPs at
-    the f32 peak, and one ex2 per (b, t, d, n) on the SFU, at
-    ``SFU_PER_CLOCK_SM`` a clock on each SM at the card's top SM clock.
-    Returns (ms, what bounds it, detail)."""
-    from repro_torch.core.cost import scan_work
-
-    flops, exps, nbytes = scan_work(B, T, dI, N, x_item, p_item)
+def scan_bound_ms(work, sms, clock_hz):
+    """Least time for one scan call (forward or backward), from the work
+    ``(f32 FLOPs, ex2 evaluations, bytes)`` that
+    ``repro_torch.core.cost.scan_work`` or ``scan_bwd_work`` counts: the
+    bytes (each input read once, each output written once), the f32 FLOPs
+    at the f32 peak, and the ex2 on the SFU, at ``SFU_PER_CLOCK_SM`` a
+    clock on each SM at the card's top SM clock. Returns (ms, what bounds
+    it, detail)."""
+    flops, exps, nbytes = work
     t_bytes = nbytes / PEAK_BYTES
     t_flops = flops / PEAK_F32_FLOPS
     t_exps = exps / (sms * SFU_PER_CLOCK_SM * clock_hz)
@@ -396,7 +444,8 @@ def _counted():
     return (("flash_attention_fwd", flash_attention, "launches"),
             ("flash_attention_bwd_dq", flash_attention, "bwd_dq_launches"),
             ("flash_attention_bwd_dkv", flash_attention, "bwd_dkv_launches"),
-            ("selective_scan", selective_scan, "launches"))
+            ("selective_scan", selective_scan, "launches"),
+            ("selective_scan_bwd", selective_scan, "bwd_launches"))
 
 
 def reset_counts() -> None:
@@ -579,6 +628,7 @@ def card_vs_cpu_step(cfg, B: int, T: int) -> dict:
         metrics.append({k: float(got[k]) for k in ("loss", "moe_aux")})
         del state, got
     used = read_variants()
+    scans = {k: n for k, n in read_counts().items() if k in NO_SCAN}
     cpu_grads = {n: p.grad for n, p in m_cpu.named_parameters()}
     worst, worst_name = 0.0, ""
     for n, p in m_gpu.named_parameters():
@@ -589,7 +639,7 @@ def card_vs_cpu_step(cfg, B: int, T: int) -> dict:
     out = {"loss": [x["loss"] for x in metrics],
            "moe_aux": [x["moe_aux"] for x in metrics],
            "worst_grad_rel_err": worst, "worst_grad": worst_name,
-           "grads": len(cpu_grads), "launched": used,
+           "grads": len(cpu_grads), "launched": used, "scans": scans,
            "aux": [float(x) for x in aux], "B": B, "T": T}
     del m_gpu, m_cpu, cpu_grads, aux
     gc.collect()
@@ -599,16 +649,21 @@ def card_vs_cpu_step(cfg, B: int, T: int) -> dict:
 
 
 def step_check(tag: str, label: str, cfg, B: int, T: int) -> dict:
-    """Phases 8, 26 and 27: :func:`card_vs_cpu_step`, printed and held to
-    ``TRAIN_LOSS_TOL`` and ``TRAIN_GRAD_TOL``; every attention layer on
-    the card must run the scalar f32 forward, dq and dk/dv, once each."""
+    """Phases 8, 26, 27 and 28: :func:`card_vs_cpu_step`, printed and held
+    to ``TRAIN_LOSS_TOL`` and ``TRAIN_GRAD_TOL``; every attention layer on
+    the card must run the scalar f32 forward, dq and dk/dv, once each, and
+    every mamba layer the scan's forward and backward kernels."""
     r = card_vs_cpu_step(cfg, B, T)
     n_attn = cfg.n_groups * sum(s.mixer == "attn" for s in cfg.pattern)
+    n_mamba = cfg.n_groups * sum(s.mixer == "mamba" for s in cfg.pattern)
     want = {k: n_attn for k in ("fwd/scalar", "dq/scalar", "dkv/scalar")
             if n_attn}
+    scans = {"selective_scan": n_mamba, "selective_scan_bwd": n_mamba}
     # the remat recomputes each layer's forward
-    if "fwd/scalar" in want and cfg.remat == "full":
-        want["fwd/scalar"] *= 2
+    if cfg.remat == "full":
+        scans["selective_scan"] *= 2
+        if "fwd/scalar" in want:
+            want["fwd/scalar"] *= 2
     print(f"[{tag}] {label}, f32, B={B} T={T}: card vs CPU loss "
           f"{r['loss'][0]:.6f} vs {r['loss'][1]:.6f} (|diff| < "
           f"{TRAIN_LOSS_TOL:g}), moe_aux {r['moe_aux'][0]:.6e} vs "
@@ -616,10 +671,10 @@ def step_check(tag: str, label: str, cfg, B: int, T: int) -> dict:
           f"{r['worst_grad_rel_err']:.3e} ({r['worst_grad']}, < "
           f"{TRAIN_GRAD_TOL:g}) over {r['grads']} gradients, aux vector "
           f"{[round(x, 6) for x in r['aux']]}, {r['seconds']:.1f} s; card "
-          f"launches {r['launched']}", flush=True)
-    check(r["launched"] == want,
-          f"{label}: the f32 train step launched {r['launched']}, {want} "
-          "expected")
+          f"launches {r['launched']}, {r['scans']}", flush=True)
+    check(r["launched"] == want and r["scans"] == scans,
+          f"{label}: the f32 train step launched {r['launched']}, "
+          f"{r['scans']}; {want}, {scans} expected")
     check(abs(r["loss"][0] - r["loss"][1]) < TRAIN_LOSS_TOL
           and abs(r["moe_aux"][0] - r["moe_aux"][1]) < TRAIN_LOSS_TOL,
           f"{label}: train loss on the card disagrees with the CPU")
@@ -650,7 +705,7 @@ def train_phases():
     losses, stats, counts = train_run("9", "yi-6b", TRAIN_LAYERS, B, T, steps)
     L = stats["layers"]
     per_step = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
-                "flash_attention_bwd_dkv": L}
+                "flash_attention_bwd_dkv": L, **NO_SCAN}
     per_step_variants = variants_of({("fwd", "bfloat16"): 2 * L,
                                      ("dq", "bfloat16"): L,
                                      ("dkv", "bfloat16"): L})
@@ -660,8 +715,7 @@ def train_phases():
               for s in stats["launches_by_variant"]),
           f"launches by variant per step {stats['launches_by_variant']}, "
           f"expected {per_step_variants}")
-    check(counts == {**{k: steps * n for k, n in per_step.items()},
-                     "selective_scan": 0},
+    check(counts == {k: steps * n for k, n in per_step.items()},
           f"launches over the run {counts}, expected {steps} x {per_step} "
           "and no scan")
 
@@ -691,37 +745,33 @@ def train_phases():
     return counts, stats, traced
 
 
+def scan_inputs(c: dict, gen) -> tuple:
+    """x, dt, A, Bc, Cc, D of scan case ``c`` on the card, drawn from
+    ``gen`` with the distribution of tests/test_kernels_mamba.py."""
+    import torch
+
+    rn = lambda *shape: torch.randn(shape, generator=gen, device="cuda")
+    xt, pt = getattr(torch, c["x"]), getattr(torch, c["p"])
+    B, T, dI, N = c["B"], c["T"], c["dI"], c["N"]
+    x = rn(B, T, dI).to(xt)
+    dt = torch.nn.functional.softplus(rn(B, T, dI) - 2).to(pt)
+    A = -torch.exp(rn(dI, N) * 0.5)
+    return x, dt, A, rn(B, T, N).to(pt), rn(B, T, N).to(pt), rn(dI)
+
+
 def scan_phases(sms: int, clock_hz: float) -> dict:
     """Phases 10 and 11: the scan kernel against its plain version on the
     card, then its time at the serving shape."""
     import torch
 
+    from repro_torch.core import cost
     from repro_torch.kernels.mamba_scan import kernel, ops, ref
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
-
-    def inputs(c):
-        """The distribution of tests/test_kernels_mamba.py."""
-        rn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
-        xt, pt = getattr(torch, c["x"]), getattr(torch, c["p"])
-        B, T, dI, N = c["B"], c["T"], c["dI"], c["N"]
-        x = rn(B, T, dI).to(xt)
-        dt = torch.nn.functional.softplus(rn(B, T, dI) - 2).to(pt)
-        A = -torch.exp(rn(dI, N) * 0.5)
-        return x, dt, A, rn(B, T, N).to(pt), rn(B, T, N).to(pt), rn(dI)
-
-    serving = dict(B=4, T=1024, dI=8192, N=16, x="bfloat16", p="float32")
-    cases = [
-        ("serving", serving),
-        ("ragged T=1000 dI=8000", dict(serving, T=1000, dI=8000)),
-        ("f32", dict(B=2, T=512, dI=1024, N=16, x="float32", p="float32")),
-        ("all-bf16", dict(serving, p="bfloat16")),
-        ("d_state 4", dict(serving, N=4)),
-        ("d_state 8", dict(serving, N=8)),
-    ]
+    inputs = lambda c: scan_inputs(c, gen)
     result = {}
-    for label, c in cases:
+    for label, c in SCAN_CASES:
         args = inputs(c)
         y, h = ops.selective_scan(*args, return_state=True)
         torch.cuda.synchronize()
@@ -749,7 +799,7 @@ def scan_phases(sms: int, clock_hz: float) -> dict:
     torch.cuda.empty_cache()
 
     # 11. timing at the serving shape, turn about: kernel, plain, kernel
-    c = serving
+    c = SCAN_SERVING
     args = inputs(c)
     run = lambda: kernel.selective_scan(*args, return_state=True)
     k_ms = cuda_ms(run)
@@ -757,7 +807,7 @@ def scan_phases(sms: int, clock_hz: float) -> dict:
                        warmup=1)
     k2_ms = cuda_ms(run)
     bound_ms, bound_by, detail = scan_bound_ms(
-        c["B"], c["T"], c["dI"], c["N"], 2, 4, sms, clock_hz)
+        cost.scan_work(c["B"], c["T"], c["dI"], c["N"], 2, 4), sms, clock_hz)
     print(f"[11] serving shape: kernel {k_ms:.3f} / {k2_ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, no single PyTorch call computes a selective "
           f"scan; bound {bound_ms:.4f} ms ({bound_by}: {detail}), kernel at "
@@ -879,7 +929,7 @@ def jamba_phases():
           f"prefill launches {stats['prefill_kernel_launches']}, "
           f"expected {want}")
     check(counts == {**want, "flash_attention_bwd_dq": 0,
-                     "flash_attention_bwd_dkv": 0},
+                     "flash_attention_bwd_dkv": 0, "selective_scan_bwd": 0},
           f"launches over the serving run {counts}: decode must launch "
           f"neither kernel, and serving no backward kernel")
     check(numbers["prefill_launches_by_variant"] == used
@@ -918,9 +968,10 @@ def jamba_phases():
 
 def default_commands_phase():
     """Phase 15: ``python -m repro_torch.launch.serve`` (yi-6b and jamba)
-    and ``python -m repro_torch.launch.train`` with their default
-    arguments (the smoke preset: bf16, head dim 16) on the card, each held
-    to the same call with ``--device cpu``. Returns {path: launch counts}."""
+    and ``python -m repro_torch.launch.train`` (yi-6b, and jamba with
+    ``JAMBA_DEFAULT_STEPS`` steps) with their default arguments (the smoke
+    preset: bf16, head dim 16) on the card, each held to the same call
+    with ``--device cpu``. Returns {path: launch counts}."""
     import math
 
     from repro_torch.configs.archs import get_config
@@ -983,6 +1034,41 @@ def default_commands_phase():
               for s in stats["launches_by_variant"]),
           f"train_default launches by variant {stats['launches_by_variant']}"
           f", expected {per_step} a step")
+
+    # jamba's default train command, fewer steps (the CPU's plain scan)
+    argv = ["--arch", "jamba-v0.1-52b", "--steps", str(JAMBA_DEFAULT_STEPS)]
+    cfg = get_config("jamba-v0.1-52b", "smoke")
+    n_attn = cfg.n_groups * sum(s.mixer == "attn" for s in cfg.pattern)
+    n_mamba = cfg.n_groups * sum(s.mixer == "mamba" for s in cfg.pattern)
+    reset_counts()
+    losses, stats = train.main(argv)
+    counts["train_jamba_default"] = read_counts()
+    cpu_losses, _ = train.main(argv + ["--device", "cpu"])
+    diff = max(abs(a - b) for a, b in zip(losses, cpu_losses))
+    want = {"flash_attention_fwd": 2 * n_attn,
+            "flash_attention_bwd_dq": n_attn,
+            "flash_attention_bwd_dkv": n_attn,
+            "selective_scan": 2 * n_mamba, "selective_scan_bwd": n_mamba}
+    per_step = variants_of({("fwd", "bfloat16"): 2 * n_attn,
+                            ("dq", "bfloat16"): n_attn,
+                            ("dkv", "bfloat16"): n_attn})
+    print(f"[15] train_jamba_default: jamba-v0.1-52b smoke (d_state 4, "
+          f"d_inner 128, D={cfg.head_dim}), {len(losses)} steps: losses card "
+          f"vs CPU max|diff| {diff:.3e} (< {DEFAULT_LOSS_TOL:g}); first "
+          f"{losses[0]:.5f} / {cpu_losses[0]:.5f}, last {losses[-1]:.5f} / "
+          f"{cpu_losses[-1]:.5f}; moe_aux {stats['moe_aux'][-1]:.4e}; "
+          f"launches {counts['train_jamba_default']}, each step {want}, "
+          f"{per_step}", flush=True)
+    check(len(losses) == len(cpu_losses) == JAMBA_DEFAULT_STEPS and all(
+        math.isfinite(x) for x in losses), "train_jamba_default: bad losses")
+    check(diff < DEFAULT_LOSS_TOL,
+          "train_jamba_default: losses on the card disagree with the CPU")
+    check(all(s == want for s in stats["launches"])
+          and all({k: n for k, n in s.items() if n} == per_step
+                  for s in stats["launches_by_variant"]),
+          f"train_jamba_default launches {stats['launches']}, by variant "
+          f"{stats['launches_by_variant']}: {want}, {per_step} a step "
+          "expected")
     return counts
 
 
@@ -1049,7 +1135,8 @@ SYMBOLS = {"fwd/wgmma": "flash_fwd_wgmma_kernel",
            "dq/scalar": "flash_bwd_dq_f32_kernel",
            "dkv/wgmma": "flash_bwd_dkv_wgmma_kernel",
            "dkv/scalar": "flash_bwd_dkv_f32_kernel",
-           "selective_scan": "selective_scan_kernel"}
+           "selective_scan": "selective_scan_kernel",
+           "selective_scan_bwd": "selective_scan_bwd_kernel"}
 TRAIN_PHASES = ("train/forward", "train/backward", "train/update",
                 "model/layer")
 
@@ -1088,6 +1175,8 @@ def traced_call(label: str, fn, cfg, shape, phases=()) -> dict:
     counted = dict(read_variants())
     if selective_scan.launches:
         counted["selective_scan"] = selective_scan.launches
+    if selective_scan.bwd_launches:
+        counted["selective_scan_bwd"] = selective_scan.bwd_launches
     seen = device_timeline.launches_by_symbol(trace, list(SYMBOLS.values()))
     want = {SYMBOLS[k]: counted.get(k, 0) for k in SYMBOLS}
     _, tally = cost.step_cost(fn)
@@ -2149,7 +2238,7 @@ def gemma3_train_phase() -> tuple:
     L, B, T, steps = GEMMA_TRAIN
     losses, stats, counts = train_run("26", "gemma3-12b", L, B, T, steps)
     per_step = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
-                "flash_attention_bwd_dkv": L}
+                "flash_attention_bwd_dkv": L, **NO_SCAN}
     variants = variants_of({("fwd", "bfloat16"): 2 * L,
                             ("dq", "bfloat16"): L, ("dkv", "bfloat16"): L})
     dims = {"fwd/256": 2 * L, "dq/256": L, "dkv/256": L}
@@ -2161,8 +2250,7 @@ def gemma3_train_phase() -> tuple:
           f"{stats['launches_by_variant']}, by head dim "
           f"{stats['launches_by_head_dim']}: {per_step}, {variants}, {dims} "
           "expected")
-    check(counts == {**{k: steps * n for k, n in per_step.items()},
-                     "selective_scan": 0},
+    check(counts == {k: steps * n for k, n in per_step.items()},
           f"gemma3 launches over the run {counts}")
     numbers = {k: stats[k] for k in ("layers", "params", "step_ms",
                                      "mean_step_ms", "tokens_per_s",
@@ -2227,7 +2315,7 @@ def moe_xlstm_train_phase() -> tuple:
         n_attn = L // len(pattern) * sum(s.mixer == "attn" for s in pattern)
         per_step = {"flash_attention_fwd": 2 * n_attn,
                     "flash_attention_bwd_dq": n_attn,
-                    "flash_attention_bwd_dkv": n_attn}
+                    "flash_attention_bwd_dkv": n_attn, **NO_SCAN}
         variants = variants_of({("fwd", "bfloat16"): 2 * n_attn,
                                 ("dq", "bfloat16"): n_attn,
                                 ("dkv", "bfloat16"): n_attn})
@@ -2263,6 +2351,222 @@ def moe_xlstm_train_phase() -> tuple:
     numbers["phase_s"] = time.perf_counter() - t0
     print(f"[27] took {numbers['phase_s']:.1f} s", flush=True)
     return paths, numbers
+
+
+def scan_backward_phase(sms: int, clock_hz: float, reports: dict) -> dict:
+    """Phase 28 (a, b): the scan's backward kernel against the plain
+    backward (autograd through the plain scan) on the forward's six cases,
+    each gradient as max|err| / max|ref| within the bound of its dtype, and
+    two launches bit for bit at the training shape; then the kernel's time
+    there (twice, turn about with the plain backward), its bound, and what
+    ptxas says of it (no spill in any instantiation)."""
+    import torch
+
+    from repro_torch.core import cost
+    from repro_torch.kernels.mamba_scan import kernel, ref
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(28)
+    names = ("dx", "ddt", "dA", "dBc", "dCc", "dD")
+
+    def inputs(c):
+        args = scan_inputs(c, gen)
+        dy = torch.randn(args[0].shape, generator=gen, device="cuda").to(
+            args[0].dtype)
+        _, _, chunks = kernel.selective_scan(*args, save_chunks=True)
+        return args, dy, chunks
+
+    result = {}
+    for label, c in SCAN_CASES:
+        args, dy, chunks = inputs(c)
+        got = kernel.selective_scan_bwd(*args, dy, chunks)
+        torch.cuda.synchronize()
+        want = ref.selective_scan_bwd_ref(*args, dy)
+        grads, ok = {}, True
+        for name, a, b in zip(names, got, want):
+            tol = GRAD_TOL[str(a.dtype)[6:]]
+            grads[name] = {"rel_err": rel_err(a, b), "tol": tol,
+                           "max_abs_err": float((a.float() - b.float())
+                                                .abs().max())}
+            ok = (ok and a.dtype == b.dtype and a.shape == b.shape
+                  and grads[name]["rel_err"] < tol)
+        entry = {"grads": grads}
+        same = ""
+        if label == "serving":
+            again = kernel.selective_scan_bwd(*args, dy, chunks)
+            torch.cuda.synchronize()
+            entry["bit_identical"] = all(torch.equal(a, b)
+                                         for a, b in zip(got, again))
+            same = f"; two launches bit-identical: {entry['bit_identical']}"
+            del again
+        print(f"[28] {label:22s} backward max|err|/max|ref| "
+              + ", ".join(f"{n} {g['rel_err']:.3e}" for n, g in grads.items())
+              + f" (f32 < {GRAD_TOL['float32']:g}, bf16 < "
+              f"{GRAD_TOL['bfloat16']:g}){same} {'ok' if ok else 'FAIL'}",
+              flush=True)
+        check(ok, f"scan backward kernel disagrees with the plain backward:"
+                  f" {label}")
+        check(entry.get("bit_identical", True),
+              "two launches of the scan backward differ")
+        result[label] = entry
+        del args, dy, chunks, got, want
+        torch.cuda.empty_cache()
+
+    # (b) the training shape, turn about: kernel, plain, kernel
+    c = SCAN_SERVING
+    args, dy, chunks = inputs(c)
+    run = lambda: kernel.selective_scan_bwd(*args, dy, chunks)
+    k_ms = cuda_ms(run)
+    plain_ms = cuda_ms(lambda: ref.selective_scan_bwd_ref(*args, dy),
+                       iters=2, warmup=1)
+    k2_ms = cuda_ms(run)
+    bound_ms, bound_by, detail = scan_bound_ms(
+        cost.scan_bwd_work(c["B"], c["T"], c["dI"], c["N"], 2, 4,
+                           chunks.shape[1]), sms, clock_hz)
+    saved = chunks.numel() * 4
+    del args, dy, chunks
+    torch.cuda.empty_cache()
+    ptxas = {k: v for k, v in reports.items()
+             if k.startswith("selective_scan_bwd_kernel")}
+    key = "selective_scan_bwd_kernel<x bf16, dt/B/C f32, N=16>"
+    smem = reports.get("scan bwd x bfloat16, dt/B/C float32, N=16 smem")
+    print(f"[28] training shape (B=4 T=1024 dI=8192 N=16, x bf16, dt/B/C "
+          f"f32): backward kernel {k_ms:.3f} / {k2_ms:.3f} ms, plain "
+          f"backward {plain_ms:.3f} ms, no single PyTorch call computes it; "
+          f"bound {bound_ms:.4f} ms ({bound_by}: {detail}), kernel at "
+          f"{bound_ms / k_ms:.2%} of bound; saved states {saved} B a layer; "
+          f"ptxas {ptxas.get(key)}; {smem}; {CARD}", flush=True)
+    check(len(ptxas) == 9 and all("0 bytes spill stores, 0 bytes spill loads"
+                                  in v for v in ptxas.values()),
+          f"the scan backward spills or is missing: {ptxas}")
+    result["timing"] = {"ms": k_ms, "ms_again": k2_ms, "plain_ms": plain_ms,
+                        "bound_ms": bound_ms, "bound_by": bound_by,
+                        "saved_state_bytes": saved, "ptxas": ptxas.get(key),
+                        "smem": smem}
+    result["phase_s"] = time.perf_counter() - t0
+    print(f"[28] scan backward took {result['phase_s']:.1f} s", flush=True)
+    return result
+
+
+def jamba_train_phase() -> tuple:
+    """Phase 28 (c, d, f): train jamba at full width, one pattern group (8
+    layers: 7 mamba, 1 attention, 4 MoE), its expert width cut to
+    ``JAMBA_TRAIN_D_EXPERT``, with the step functions of ``launch.train``
+    (bf16 compute, f32 master weights, full remat, AdamW): finite losses,
+    the MoE aux loss and load balance finite and > 0, and every step 14
+    scan forwards (the forward and the remat's recompute), 7 scan
+    backwards, 2 flash forwards, 1 dq and 1 dk/dv, all wgmma; then one
+    profiled step (phase 18's checks); then one f32 step of one pattern
+    group at full mixer width on the card against the CPU. Returns (the
+    run's launch counts, its numbers)."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    full = get_config("jamba-v0.1-52b", "full")
+    B, T, steps = JAMBA_TRAIN
+    cfg = dataclasses.replace(
+        full, n_layers=len(full.pattern),
+        moe=dataclasses.replace(full.moe, d_expert=JAMBA_TRAIN_D_EXPERT))
+    n_attn = sum(s.mixer == "attn" for s in cfg.pattern)
+    n_mamba = sum(s.mixer == "mamba" for s in cfg.pattern)
+    per_step = {"flash_attention_fwd": 2 * n_attn,
+                "flash_attention_bwd_dq": n_attn,
+                "flash_attention_bwd_dkv": n_attn,
+                "selective_scan": 2 * n_mamba, "selective_scan_bwd": n_mamba}
+    variants = variants_of({("fwd", "bfloat16"): 2 * n_attn,
+                            ("dq", "bfloat16"): n_attn,
+                            ("dkv", "bfloat16"): n_attn})
+    check(per_step["selective_scan"] == 14 and n_attn == 1,
+          f"jamba's pattern group: {n_mamba} mamba, {n_attn} attention")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = Model(cfg, dev, trainable=True).init_weights(0)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt_state = adamw.init_state(dict(model.named_parameters()))
+    step = make_train_step(cfg, adamw.AdamWConfig(
+        lr=3e-4, schedule="cosine", warmup_steps=2, total_steps=steps))
+    data = SyntheticTokens(cfg, DataConfig(batch=B, seq_len=T))
+    losses, step_ms, launches, by_variant, aux, balance = [], [], [], [], [], []
+    reset_counts()
+    for i in range(steps):
+        batch = {k: torch.from_numpy(v).long().to(dev)
+                 for k, v in data.batch_at(i).items()}
+        before, before_v = read_counts(), read_variants()
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        metrics = step(model, opt_state, batch)
+        losses.append(float(metrics["loss"]))         # waits for the card
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+        after = read_counts()
+        launches.append({k: after[k] - before[k] for k in after})
+        by_variant.append({k: n - before_v.get(k, 0)
+                           for k, n in read_variants().items()
+                           if n != before_v.get(k, 0)})
+        aux.append(float(metrics["moe_aux"]))
+        balance.append(float(metrics["moe_load_balance"]))
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    mean_ms = sum(step_ms[1:]) / (steps - 1)
+    numbers = {"layers": cfg.n_layers, "params": n_params, "batch": B,
+               "seq": T, "d_expert": JAMBA_TRAIN_D_EXPERT, "losses": losses,
+               "step_ms": step_ms, "mean_step_ms": mean_ms,
+               "tokens_per_s": B * T / (mean_ms / 1e3),
+               "peak_memory_bytes": peak, "moe_aux": aux,
+               "moe_load_balance": balance, "launches_per_step": launches[0]}
+    print(f"[28] train jamba full width (d 4096, d_inner 8192, d_state 16, "
+          f"32/8 heads, d_ff 14336, 16 experts top-2), 8 layers; reduced: "
+          f"d_expert 14336 -> {JAMBA_TRAIN_D_EXPERT}; {n_params:,} params, "
+          f"B={B} T={T}: losses {', '.join(f'{x:.4f}' for x in losses)}; "
+          f"moe_aux {aux}, load balance {balance}", flush=True)
+    print(f"[28] step ms {', '.join(f'{x:.1f}' for x in step_ms)}; mean "
+          f"after the first {mean_ms:.1f} ms, {numbers['tokens_per_s']:.0f} "
+          f"tokens/s, peak memory {peak} B ({peak / 2**30:.2f} GiB); "
+          f"launches {counts}; each step {launches[0]}, by variant "
+          f"{by_variant[0]}; {CARD}", flush=True)
+    check(all(math.isfinite(x) for x in losses),
+          f"jamba: non-finite train losses {losses}")
+    check(all(math.isfinite(x) and x > 0 for x in aux + balance),
+          f"jamba: moe_aux {aux} and load balance {balance} must be finite "
+          "and > 0")
+    check(all(s == per_step for s in launches)
+          and all(v == variants for v in by_variant),
+          f"jamba launches per step {launches}, by variant {by_variant}: "
+          f"{per_step}, {variants} expected")
+    check(counts == {k: steps * n for k, n in per_step.items()},
+          f"jamba launches over the run {counts}")
+
+    # (f) one profiled step of the same model
+    numbers["trace"] = traced_call(
+        f"jamba train step (8 layers, d_expert {JAMBA_TRAIN_D_EXPERT}, "
+        f"B={B} T={T})", lambda: step(model, opt_state, batch), cfg,
+        ShapeConfig("train", T, B, "train"), phases=TRAIN_PHASES)
+    del model, opt_state, batch, metrics
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) one f32 pattern group at full mixer width against the CPU
+    W = JAMBA_CHECK_WIDTH
+    ccfg = dataclasses.replace(full, n_layers=len(full.pattern), d_ff=W,
+                               moe=dataclasses.replace(full.moe, d_expert=W),
+                               dtype="float32")
+    numbers["check"] = step_check(
+        "28", f"jamba full mixer width, 8 layers, d_ff and d_expert {W}",
+        ccfg, *JAMBA_TRAIN_CHECK)
+    numbers["phase_s"] = time.perf_counter() - t0
+    print(f"[28] jamba training took {numbers['phase_s']:.1f} s", flush=True)
+    return counts, numbers
 
 
 def card_info():
@@ -2353,13 +2657,15 @@ def build_phase() -> dict:
                        (torch.float32, torch.float32),
                        (torch.bfloat16, torch.bfloat16)):
         for N in scan_kernel.STATE_SIZES:
-            smem, blocks = scan_kernel.selective_scan_info(N, x_dt, p_dt)
-            label = (f"scan x {str(x_dt)[6:]}, dt/B/C {str(p_dt)[6:]}, "
-                     f"N={N}")
-            reports[f"{label} smem"] = (
-                f"{smem} B dynamic shared memory, {blocks} blocks an SM")
-            print(f"    {label}: {smem} B dynamic shared memory, {blocks} "
-                  f"blocks an SM", flush=True)
+            for kind, backward in (("scan", False), ("scan bwd", True)):
+                smem, blocks = scan_kernel.selective_scan_info(
+                    N, x_dt, p_dt, backward=backward)
+                label = (f"{kind} x {str(x_dt)[6:]}, dt/B/C "
+                         f"{str(p_dt)[6:]}, N={N}")
+                reports[f"{label} smem"] = (
+                    f"{smem} B dynamic shared memory, {blocks} blocks an SM")
+                print(f"    {label}: {smem} B dynamic shared memory, "
+                      f"{blocks} blocks an SM", flush=True)
     reports["scan sass"] = scan_sass(libs["selective_scan"])
     return reports
 
@@ -2654,17 +2960,19 @@ def main() -> None:
     xlstm_numbers = xlstm_phase()
     gemma_train_counts, gemma_train = gemma3_train_phase()
     train_paths, moe_xlstm_train = moe_xlstm_train_phase()
+    scan_bwd = scan_backward_phase(sms, clock_hz, reports)
+    jamba_train_counts, jamba_train = jamba_train_phase()
     default_counts = default_commands_phase()
     d16 = d16_timing_phase(qkv)
     halo_counts, halo = halo_phase()
 
-    print(f"[14] phases 1-27 took {time.perf_counter() - T0:.1f} s", flush=True)
+    print(f"[14] phases 1-28 took {time.perf_counter() - T0:.1f} s", flush=True)
 
     # 14. result lines; gemma3's training counts go to the D = 256 rows
     paths = {"serve": serve_counts, "train": train_counts,
              "serve_jamba": jamba_counts, **default_counts,
              "halo": halo_counts, "serve_telemetry": telemetry_counts,
-             **train_paths}
+             "train_jamba": jamba_train_counts, **train_paths}
 
     def launches_of(name):
         by_path = {p: c[name] for p, c in paths.items()}
@@ -2719,7 +3027,8 @@ def main() -> None:
             "card": card,
         })
     # the head-dim-16 instantiations, on the default commands' paths
-    d16_paths = ("serve_default", "serve_jamba_default", "train_default")
+    d16_paths = ("serve_default", "serve_jamba_default", "train_default",
+                 "train_jamba_default")
     for part, name, replaces, source in (
             ("fwd", "flash_attention_fwd", TPU_KERNEL, KERNEL_SOURCE),
             ("dq", "flash_attention_bwd_dq", TPU_DQ, BWD_SOURCE),
@@ -2849,6 +3158,33 @@ def main() -> None:
         "shape": "B=4 T=1024 dI=8192 N=16 x bf16 dt/B/C f32",
         "card": card,
     })
+    total, by_path = launches_of("selective_scan_bwd")
+    t = scan_bwd["timing"]
+    kernels.append({
+        "name": "selective_scan_bwd",
+        "route": "cuda",
+        "design": DESIGN["selective_scan_bwd"],
+        "source": SCAN_BWD_SOURCE,
+        "replaces": TPU_SCAN_BWD,
+        "launches": total,
+        "launches_by_path": by_path,
+        "max_abs_err": max(g["max_abs_err"] for g in
+                           scan_bwd["serving"]["grads"].values()),
+        "rel_err": {n: g["rel_err"] for n, g in
+                    scan_bwd["serving"]["grads"].items()},
+        "bit_identical": scan_bwd["serving"]["bit_identical"],
+        "ms": t["ms"],
+        "ms_again": t["ms_again"],
+        "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"],
+        "library_ms": None,
+        "ptxas": t["ptxas"],
+        "smem": t["smem"],
+        "saved_state_bytes": t["saved_state_bytes"],
+        "shape": "B=4 T=1024 dI=8192 N=16 x bf16 dt/B/C f32",
+        "card": card,
+    })
     print(json.dumps({"kernels": kernels,
                       "train": {k: train_stats[k] for k in (
                           "layers", "params", "step_ms", "mean_step_ms",
@@ -2861,11 +3197,16 @@ def main() -> None:
                       "serve_xlstm": xlstm_numbers,
                       "train_gemma3": gemma_train,
                       "train_moe_xlstm": moe_xlstm_train,
+                      "train_jamba": jamba_train,
+                      "scan_backward": {k: v for k, v in scan_bwd.items()
+                                        if k != "timing"},
                       "captured_vs_eager_yi6b": yi_decode,
                       "card": card,
                       "seconds": time.perf_counter() - T0,
                       "device_traces": {"train": train_trace,
                                         "train_gemma3": gemma_train.pop(
+                                            "trace"),
+                                        "train_jamba": jamba_train.pop(
                                             "trace"),
                                         "serve": serve_trace,
                                         "serve_jamba": jamba["trace"]}}))

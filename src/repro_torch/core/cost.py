@@ -10,8 +10,9 @@ as it runs:
   * FLOPs and bytes of the hand-written CUDA kernels, which are ``ctypes``
     calls that no dispatch mode sees: each kernel wrapper adds its own,
     from its shapes, once per launch (:func:`add_kernel`, with the
-    formulas of :func:`attention_work`, :func:`backward_work` and
-    :func:`scan_work`, which ``chip_smoke.py`` also uses for its bounds);
+    formulas of :func:`attention_work`, :func:`backward_work`,
+    :func:`scan_work` and :func:`scan_bwd_work`, which ``chip_smoke.py``
+    also uses for its bounds);
   * bytes as every op's operand bytes plus result bytes: an **upper
     estimate** of HBM traffic (an operand read from L2, or a fused
     read, counts in full). The card has no HBM counter without ``ncu``.
@@ -82,15 +83,33 @@ def backward_work(B: int, T: int, S: int, H: int, K: int, D: int,
                                             ("dkv", 8, 2 * B * S * K * D))}
 
 
-def scan_work(B: int, T: int, dI: int, N: int, x_item: int, p_item: int
-              ) -> Tuple[int, int, int]:
+def scan_work(B: int, T: int, dI: int, N: int, x_item: int, p_item: int,
+              chunks: int = 0) -> Tuple[int, int, int]:
     """(f32 FLOPs, ex2 evaluations, bytes) of one selective-scan call: 6
     FLOPs per (b, t, d, n) (dt·A, dx·B, two FMAs) and 3 per (b, t, d)
     (dt·x, an FMA with D); one ex2 per (b, t, d, n); x, dt, B, C, A, D read
-    once, y and the final state written once."""
+    once, y and the final state written once, and the f32 state at each of
+    ``chunks`` tile boundaries when a training forward saves them."""
     nbytes = (B * T * dI * (2 * x_item + p_item) + 2 * B * T * N * p_item
-              + dI * N * 4 + dI * 4 + B * dI * N * 4)
+              + dI * N * 4 + dI * 4 + B * dI * N * 4 * (1 + chunks))
     return B * T * dI * (6 * N + 3), B * T * dI * N, nbytes
+
+
+def scan_bwd_work(B: int, T: int, dI: int, N: int, x_item: int,
+                  p_item: int, chunks: int) -> Tuple[int, int, int]:
+    """(f32 FLOPs, ex2 evaluations, bytes) of one selective-scan backward
+    call from the states saved at ``chunks`` tile boundaries. Per (b, t, d,
+    n) 22 FLOPs: h_{t-1} recomputed from the tile's saved state (dt·A,
+    dx·B, an FMA: 4), g_t = dy·C + a·g_{t+1} (3), dx's and ddt's sums
+    (g·B; a·h·A + x·B and g·(…): 8), dA (3), dB and dC (a product and a
+    sum over d each: 4); per (b, t, d) 6 (dt·x, dt·Σ + D·dy, dy·x into
+    dD). One ex2 per (b, t, d, n): the least the gradients need. x, dt, dy,
+    B, C, A, D and the saved states read once; dx, ddt, dB, dC, dA and dD
+    written once (the kernel's per-block partial sums are its own
+    traffic and count none)."""
+    nbytes = (B * T * dI * (3 * x_item + 2 * p_item) + 4 * B * T * N * p_item
+              + 2 * (dI * N * 4 + dI * 4) + B * chunks * dI * N * 4)
+    return B * T * dI * (22 * N + 6), B * T * dI * N, nbytes
 
 
 # ---------------------------------------------------------------------------

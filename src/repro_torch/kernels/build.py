@@ -27,6 +27,8 @@ SOURCES = {
     "flash_fwd": KERNELS / "flash_attention" / "csrc" / "flash_fwd.cu",
     "flash_bwd": KERNELS / "flash_attention" / "csrc" / "flash_bwd.cu",
     "selective_scan": KERNELS / "mamba_scan" / "csrc" / "selective_scan.cu",
+    "selective_scan_bwd": (KERNELS / "mamba_scan" / "csrc"
+                           / "selective_scan_bwd.cu"),
 }
 BUILD_DIR = KERNELS.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

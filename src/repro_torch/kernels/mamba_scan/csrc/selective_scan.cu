@@ -7,7 +7,11 @@
 //   y_t = sum_n h_t[n] * C_t[n] + D * x_t
 // from h_0 = 0, y written in x's dtype. The final state h_T (the TPU
 // kernel's h_sc scratch after the last time block) is written out when
-// h_out is given, since the prefill cache needs it.
+// h_out is given, since the prefill cache needs it. A training forward
+// also gives h_chunks, (B, ceil(T/TT), dI, N) f32, and gets the state at
+// the end of every staged tile of TT steps: the backward kernel
+// (selective_scan_bwd.cu) recomputes each tile's states from the one
+// before it. Serving passes null and writes nothing more.
 //
 // Bound at the serving shape (jamba prefill: B=4, T=1024, dI=8192, N=16,
 // x bf16, dt/B/C f32), computed from shapes, not measured:
@@ -48,69 +52,11 @@
 // second pass and, for the cumulative decay across a chunk, one more exp
 // per (t, n): more SFU work against an SFU bound.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "scan.cuh"
 
 namespace {
 
-constexpr int CH = 64;      // channels a block
-constexpr int TT = 32;      // time steps a staged tile
 constexpr int STAGES = 2;   // input ring
-constexpr unsigned FULL = 0xffffffffu;
-constexpr float LOG2E = 1.4426950408889634f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// four consecutive values from shared memory, as f32
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// cp.async of SIZE (4, 8 or 16) bytes; src_bytes below SIZE zero-fills
-// the rest.
-template <int SIZE>
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         int src_bytes) {
-  if constexpr (SIZE == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_u32(dst)), "l"(src), "r"(src_bytes)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
-                     smem_u32(dst)), "l"(src), "n"(SIZE), "r"(src_bytes)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // Shared memory of one block: STAGES x (x, dt, B, C) of a tile, then two
 // y tiles; each part a multiple of 16 bytes.
@@ -124,35 +70,6 @@ struct ScanSmem {
   static constexpr int BYTES = STAGES * STAGE + 2 * Y;
 };
 
-// Copy rows [0, TT) of `cols` elements of T, rows `stride` elements apart
-// from `src` (row 0 at time t0), into `dst` (rows of `cols` elements);
-// rows at and past time T_len and columns at and past `valid` are zero.
-// vec: pointer and stride aligned to CHUNK bytes, and cols * sizeof(T) a
-// multiple of CHUNK.
-template <typename T, int CHUNK>
-__device__ __forceinline__ void stage_rows(T* dst, const T* src,
-                                           int64_t stride, int cols,
-                                           int valid, int t0, int T_len,
-                                           bool vec, int tid, int nthreads) {
-  if (vec) {
-    constexpr int E = CHUNK / sizeof(T);  // elements a chunk
-    const int per_row = cols / E;
-    for (int i = tid; i < TT * per_row; i += nthreads) {
-      const int r = i / per_row, c = (i % per_row) * E;
-      const int left = t0 + r < T_len ? valid - c : 0;
-      const int bytes = left <= 0 ? 0 : (left >= E ? CHUNK : left * sizeof(T));
-      cp_async<CHUNK>(dst + r * cols + c,
-                      bytes ? src + (t0 + r) * stride + c : src, bytes);
-    }
-  } else {
-    for (int i = tid; i < TT * cols; i += nthreads) {
-      const int r = i / cols, c = i % cols;
-      const bool in = t0 + r < T_len && c < valid;
-      dst[i] = in ? src[(t0 + r) * stride + c] : from_f32<T>(0.f);
-    }
-  }
-}
-
 // TX: x and y; TP: dt, B and C (float, or TX's bfloat16). The bounds ask
 // for 32 warps an SM: at most 64 registers a thread.
 template <typename TX, typename TP, int N>
@@ -161,7 +78,8 @@ selective_scan_kernel(const TX* __restrict__ x, const TP* __restrict__ dt,
                       const float* __restrict__ A,
                       const TP* __restrict__ Bc, const TP* __restrict__ Cc,
                       const float* __restrict__ Dv, TX* __restrict__ y,
-                      float* __restrict__ h_out, int T_len, int dI,
+                      float* __restrict__ h_out,
+                      float* __restrict__ h_chunks, int T_len, int dI,
                       int64_t xsb, int64_t xst, int64_t dsb, int64_t dst,
                       int64_t bsb, int64_t bst, int64_t csb, int64_t cst,
                       int vec_xd, int vec_bc) {
@@ -271,6 +189,10 @@ selective_scan_kernel(const TX* __restrict__ x, const TP* __restrict__ dt,
       if constexpr (L >= 4) part += __shfl_xor_sync(FULL, part, 2);
       if (j == 0) ys[s * CH + c] = from_f32<TX>(fmaf(dd, xv, part));
     }
+    if (h_chunks != nullptr && active)
+      *reinterpret_cast<float4*>(
+          h_chunks + ((static_cast<int64_t>(b) * n_tiles + i) * dI + d) * N +
+          4 * j) = make_float4(h[0], h[1], h[2], h[3]);
   }
   cp_async_wait_all();
   __syncthreads();
@@ -283,19 +205,11 @@ selective_scan_kernel(const TX* __restrict__ x, const TP* __restrict__ dt,
   }
 }
 
-bool aligned(const void* p, const long long* strides, int n, int itemsize,
-             int chunk) {
-  if (reinterpret_cast<uintptr_t>(p) % chunk) return false;
-  for (int i = 0; i < n; ++i)
-    if (strides[i] * itemsize % chunk) return false;
-  return true;
-}
-
 template <typename TX, typename TP, int N>
 cudaError_t launch(const void* x, const void* dt, const void* A,
                    const void* Bc, const void* Cc, const void* D, void* y,
-                   void* h_out, int B, int T_len, int dI, const long long* st,
-                   cudaStream_t stream) {
+                   void* h_out, void* h_chunks, int B, int T_len, int dI,
+                   const long long* st, cudaStream_t stream) {
   constexpr int bytes = ScanSmem<TX, TP, N>::BYTES;
   constexpr int bc_chunk = N * sizeof(TP) < 16 ? N * sizeof(TP) : 16;
   auto kernel = selective_scan_kernel<TX, TP, N>;
@@ -311,7 +225,8 @@ cudaError_t launch(const void* x, const void* dt, const void* A,
       static_cast<const TX*>(x), static_cast<const TP*>(dt),
       static_cast<const float*>(A), static_cast<const TP*>(Bc),
       static_cast<const TP*>(Cc), static_cast<const float*>(D),
-      static_cast<TX*>(y), static_cast<float*>(h_out), T_len, dI, st[0],
+      static_cast<TX*>(y), static_cast<float*>(h_out),
+      static_cast<float*>(h_chunks), T_len, dI, st[0],
       st[1], st[2], st[3], st[4], st[5], st[6], st[7], vec_xd, vec_bc);
   return cudaGetLastError();
 }
@@ -325,27 +240,6 @@ cudaError_t info(int* smem_bytes, int* blocks_per_sm) {
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks_per_sm, kernel, CH * N / 4, *smem_bytes);
-}
-
-// Calls F<TX, TP, N>::run(args...) for the dtype pair and state size, or
-// returns cudaErrorInvalidValue for one the kernel does not take.
-template <template <typename, typename, int> class F, typename... Args>
-cudaError_t dispatch(int x_dtype, int p_dtype, int N, Args... args) {
-  using bf16 = __nv_bfloat16;
-  auto by_n = [&](auto tx, auto tp) -> cudaError_t {
-    using TX = decltype(tx);
-    using TP = decltype(tp);
-    switch (N) {
-      case 4: return F<TX, TP, 4>::run(args...);
-      case 8: return F<TX, TP, 8>::run(args...);
-      case 16: return F<TX, TP, 16>::run(args...);
-      default: return cudaErrorInvalidValue;
-    }
-  };
-  if (x_dtype == 0 && p_dtype == 0) return by_n(float{}, float{});
-  if (x_dtype == 1 && p_dtype == 0) return by_n(bf16{}, float{});
-  if (x_dtype == 1 && p_dtype == 1) return by_n(bf16{}, bf16{});
-  return cudaErrorInvalidValue;
 }
 
 template <typename TX, typename TP, int N>
@@ -366,13 +260,16 @@ struct Info {
 // x (B,T,dI) and dt (B,T,dI) with unit stride over dI; Bc, Cc (B,T,N) with
 // unit stride over N; element strides (batch, time) of each in
 // xsb..cst. A (dI,N) and D (dI,) contiguous f32. y (B,T,dI) contiguous in
-// x's dtype; h_out (B,dI,N) contiguous f32, or null to skip it.
+// x's dtype; h_out (B,dI,N) contiguous f32, or null to skip it; h_chunks
+// (B,ceil(T/32),dI,N) contiguous f32, the state at the end of every tile
+// of 32 steps, or null to skip it.
 // x_dtype / p_dtype (of dt, Bc, Cc): 0 = float32, 1 = bfloat16; taken are
 // (0,0), (1,0) and (1,1). N in {4, 8, 16}.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int selective_scan(const void* x, const void* dt, const void* A,
                               const void* Bc, const void* Cc, const void* D,
-                              void* y, void* h_out, int B, int T_len, int dI,
+                              void* y, void* h_out, void* h_chunks, int B,
+                              int T_len, int dI,
                               int N, long long xsb, long long xst,
                               long long dsb, long long dst, long long bsb,
                               long long bst, long long csb, long long cst,
@@ -381,7 +278,8 @@ extern "C" int selective_scan(const void* x, const void* dt, const void* A,
     return cudaErrorInvalidValue;
   const long long st[8] = {xsb, xst, dsb, dst, bsb, bst, csb, cst};
   return dispatch<Launch>(x_dtype, p_dtype, N, x, dt, A, Bc, Cc, D, y, h_out,
-                          B, T_len, dI, static_cast<const long long*>(st),
+                          h_chunks, B, T_len, dI,
+                          static_cast<const long long*>(st),
                           static_cast<cudaStream_t>(stream));
 }
 

@@ -1,23 +1,83 @@
-"""Public selective scan: the CUDA kernel on the card, the plain version on
+"""Public selective scan: the CUDA kernels on the card, the plain version on
 the CPU.
 
 ``selective_scan(x, dt, A, Bc, Cc, D)`` takes the model layout of
 ``repro.kernels.mamba_scan``: x, dt (B, T, dI), A (dI, N), Bc, Cc
 (B, T, N), D (dI,). A CUDA tensor launches the kernel of :mod:`.kernel`;
 a CPU tensor takes :mod:`.ref`. There is no fallback from one to the
-other. ``selective_scan.launches`` counts the kernel's launches; inside a
+other. When an input needs a gradient the call goes through
+:class:`SelectiveScan`, whose backward on the card is the backward kernel;
+otherwise (serving) it runs the forward kernel alone and saves nothing.
+
+Launch counts, plain integers on ``selective_scan``: ``launches`` (the
+forward kernel) and ``bwd_launches`` (the backward kernel). Inside a
 :func:`repro_torch.core.cost.count_cost` block each launch also adds its
 FLOPs and bytes, from its shapes.
 """
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
 from ...core import cost
 from . import kernel
-from .ref import selective_scan_ref
+from .ref import selective_scan_bwd_ref, selective_scan_ref
+
+
+def _forward(x, dt, A, Bc, Cc, D, return_state: bool, save_chunks: bool
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
+                        Optional[torch.Tensor]]:
+    """(y in x's dtype, final state or None, saved states or None): the
+    forward kernel on CUDA tensors, the plain version on CPU tensors (which
+    saves no states: its backward recomputes through autograd)."""
+    if x.is_cuda:
+        y, h, chunks = kernel.selective_scan(
+            x, dt, A, Bc, Cc, D, return_state=return_state,
+            save_chunks=save_chunks)
+        selective_scan.launches += 1
+        if cost.counting():
+            B, T, dI = x.shape
+            flops, _exps, nbytes = cost.scan_work(
+                B, T, dI, A.shape[1], x.element_size(), dt.element_size(),
+                chunks.shape[1] if save_chunks else 0)
+            cost.add_kernel("selective_scan", flops, nbytes)
+        return y, h, chunks
+    if x.device.type == "cpu":
+        y, h = selective_scan_ref(x, dt, A, Bc, Cc, D)
+        return y.to(x.dtype), h, None
+    raise ValueError(f"selective_scan runs on cuda or cpu, not {x.device}")
+
+
+class SelectiveScan(torch.autograd.Function):
+    """``SelectiveScan.apply(x, dt, A, Bc, Cc, D)`` -> (y, final state),
+    with the gradients of y as its backward: on CUDA tensors the forward
+    kernel saves its states at every tile boundary and the backward kernel
+    reads them; on CPU tensors the plain version runs both ways. The final
+    state is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bc, Cc, D):
+        y, h, chunks = _forward(x, dt, A, Bc, Cc, D, return_state=True,
+                                save_chunks=x.is_cuda)
+        ctx.save_for_backward(x, dt, A, Bc, Cc, D, chunks)
+        ctx.mark_non_differentiable(h)
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, _dh):
+        x, dt, A, Bc, Cc, D, chunks = ctx.saved_tensors
+        if not x.is_cuda:
+            return selective_scan_bwd_ref(x, dt, A, Bc, Cc, D, dy)
+        grads = kernel.selective_scan_bwd(x, dt, A, Bc, Cc, D, dy, chunks)
+        selective_scan.bwd_launches += 1
+        if cost.counting():
+            B, T, dI = x.shape
+            flops, _exps, nbytes = cost.scan_bwd_work(
+                B, T, dI, A.shape[1], x.element_size(), dt.element_size(),
+                chunks.shape[1])
+            cost.add_kernel("selective_scan_bwd", flops, nbytes)
+        return grads
 
 
 def selective_scan(
@@ -33,21 +93,13 @@ def selective_scan(
     the final state (B, dI, N) f32."""
     if x.dim() != 3 or x.shape[1] < 1:
         raise ValueError(f"x must be (B, T >= 1, dI), got {tuple(x.shape)}")
-    if x.is_cuda:
-        y, h = kernel.selective_scan(x, dt, A, Bc, Cc, D,
-                                     return_state=return_state)
-        selective_scan.launches += 1
-        if cost.counting():
-            B, T, dI = x.shape
-            flops, _exps, nbytes = cost.scan_work(
-                B, T, dI, A.shape[1], x.element_size(), dt.element_size())
-            cost.add_kernel("selective_scan", flops, nbytes)
-    elif x.device.type == "cpu":
-        y, h = selective_scan_ref(x, dt, A, Bc, Cc, D)
-        y = y.to(x.dtype)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, Bc, Cc, D)):
+        y, h = SelectiveScan.apply(x, dt, A, Bc, Cc, D)
     else:
-        raise ValueError(f"selective_scan runs on cuda or cpu, not {x.device}")
+        y, h, _ = _forward(x, dt, A, Bc, Cc, D, return_state, False)
     return (y, h) if return_state else y
 
 
 selective_scan.launches = 0
+selective_scan.bwd_launches = 0

@@ -4,7 +4,8 @@ counterpart of ``repro.kernels.mamba_scan.ref.selective_scan_reference``.
 It is the CPU path of :mod:`.ops` and the yardstick the CUDA kernel is held
 to on the card. Like the JAX reference it returns y in f32, before the
 kernel's rounding to x's dtype; beside y it returns the final state, which
-the prefill cache takes.
+the prefill cache takes. Autograd through it is the plain backward:
+:func:`selective_scan_bwd_ref` is the yardstick of the backward kernel.
 """
 from __future__ import annotations
 
@@ -34,3 +35,16 @@ def selective_scan_ref(
         h = dA * h + (dtf[:, t] * xf[:, t])[..., None] * bf[:, t, None, :]
         ys.append((h * cf[:, t, None, :]).sum(-1) + D * xf[:, t])
     return torch.stack(ys, dim=1), h
+
+
+def selective_scan_bwd_ref(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bc: torch.Tensor,
+    Cc: torch.Tensor, D: torch.Tensor,
+    dy: torch.Tensor,        # (B, T, dI), the gradient of y
+) -> Tuple[torch.Tensor, ...]:
+    """(dx, ddt, dA, dBc, dCc, dD), each in its input's dtype: autograd of
+    :func:`selective_scan_ref`'s y against ``dy``."""
+    inputs = [t.detach().requires_grad_(True) for t in (x, dt, A, Bc, Cc, D)]
+    with torch.enable_grad():
+        y, _ = selective_scan_ref(*inputs)
+        return torch.autograd.grad(y, inputs, dy.to(y.dtype))

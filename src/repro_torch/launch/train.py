@@ -3,19 +3,21 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b \
         --preset full --layers 8 --batch 4 --seq 1024 --steps 6
 
-Every family the reference trains, except jamba (its selective scan has
-no backward yet): dense (yi-6b, ...), sliding windows and head dim 256
-(gemma3-12b), MoE (granite-moe-3b-a800m, deepseek-moe-16b) and xLSTM
-(xlstm-125m). ``--layers`` rounds down to whole pattern groups.
+Every token-input family the reference trains: dense (yi-6b, ...),
+sliding windows and head dim 256 (gemma3-12b), MoE (granite-moe-3b-a800m,
+deepseek-moe-16b), xLSTM (xlstm-125m) and the mamba/attention/MoE hybrid
+(jamba-v0.1-52b). ``--layers`` rounds down to whole pattern groups.
 
 Wires the port's pieces together: config -> f32 master weights on one
 device -> profiled train loop -> async checkpoints -> straggler detector ->
 trace export. Runs on the CUDA card unless ``--device cpu`` is given; with
 no card and no ``--device cpu`` it raises. Weights are random, made from
 seed 0; the data is the synthetic bigram stream. Attention runs the CUDA
-flash-attention forward and, in the backward, the dq and dk/dv kernels;
-``stats`` counts their launches each step by kernel, by variant and by
-head dim, and holds each step's MoE aux loss and load balance.
+flash-attention forward and, in the backward, the dq and dk/dv kernels; a
+mamba layer the selective-scan forward and its backward kernel. ``stats``
+counts their launches each step by kernel (flash attention also by
+variant and by head dim), and holds each step's MoE aux loss and load
+balance.
 """
 from __future__ import annotations
 
@@ -35,6 +37,7 @@ from ..core.graphframe import GraphFrame
 from ..data.pipeline import DataConfig, SyntheticTokens
 from ..device import resolve_device
 from ..kernels.flash_attention.ops import flash_attention
+from ..kernels.mamba_scan.ops import selective_scan
 from ..models.model import Model
 from ..optim import adamw
 from ..train.step import make_train_step
@@ -46,7 +49,9 @@ _SHARDING = ("ROADMAP Queue 1, modules still missing (the mesh-sharding "
 def _launch_counts() -> Dict[str, int]:
     return {"flash_attention_fwd": flash_attention.launches,
             "flash_attention_bwd_dq": flash_attention.bwd_dq_launches,
-            "flash_attention_bwd_dkv": flash_attention.bwd_dkv_launches}
+            "flash_attention_bwd_dkv": flash_attention.bwd_dkv_launches,
+            "selective_scan": selective_scan.launches,
+            "selective_scan_bwd": selective_scan.bwd_launches}
 
 
 def main(argv=None) -> Tuple[List[float], Dict[str, Any]]:

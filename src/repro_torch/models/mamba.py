@@ -1,14 +1,18 @@
 """Mamba-1 selective-state-space mixer, jamba's sequence layer (port of
 ``repro.models.mamba``).
 
-Prefill runs the whole prompt through
+Prefill and train run the whole sequence through
 :func:`repro_torch.kernels.mamba_scan.ops.selective_scan` (the CUDA kernel
-on the card, its plain version on the CPU) and takes the cache's state
-from the scan's final state. The JAX package runs a jnp scan in chunks of
-128 steps over time padded to a multiple of the chunk, and keeps the state
-after the pad steps; the port pads nothing and keeps the state after the
-last prompt token. Decode is one recurrence step against the carried
-(h, conv tail) cache, in plain torch, as the JAX package does it in jnp.
+on the card, its plain version on the CPU). Prefill takes the cache's
+state from the scan's final state. The JAX package runs a jnp scan in
+chunks of 128 steps over time padded to a multiple of the chunk, and keeps
+the state after the pad steps; the port pads nothing and keeps the state
+after the last prompt token. Train writes no cache, so the pad steps do
+not reach it: its gradient through the scan is the CUDA backward kernel
+on the card (``SelectiveScan``), autograd through the plain version on the
+CPU, where the JAX package differentiates its jnp scan with ``jax.grad``.
+Decode is one recurrence step against the carried (h, conv tail) cache,
+in plain torch, as the JAX package does it in jnp.
 """
 from __future__ import annotations
 
@@ -77,11 +81,11 @@ def mamba_apply(
     x: torch.Tensor,                         # (B, T, E)
     cfg: ModelConfig,
     cache: Optional[Dict[str, torch.Tensor]],
-    mode: str = "prefill",                   # prefill | decode
+    mode: str = "prefill",                   # train | prefill | decode
 ) -> torch.Tensor:
     """Returns the mixer output (B, T, E). Prefill writes the final state
     and the conv tail into ``cache``; decode (T = 1) steps them, in
-    place."""
+    place; train is prefill's computation without a cache."""
     B, T, E = x.shape
     dI, N, dC, R = _dims(cfg)
     A = -torch.exp(params["A_log"].float())                      # (dI, N)
@@ -102,14 +106,15 @@ def mamba_apply(
         cache["conv"].copy_(torch.cat([conv_tail[:, 1:], xin], dim=1))
         cache["h"].copy_(h)
         return y @ params["out_proj"]
-    if mode != "prefill":
-        raise ValueError(f"mamba runs prefill or decode, got mode={mode!r}")
+    if mode not in ("train", "prefill"):
+        raise ValueError(
+            f"mamba runs train, prefill or decode, got mode={mode!r}")
 
     xc = F.silu(_causal_conv(xin, params["conv_w"], params["conv_b"]))
     dt, Bc, Cc = _project(params, xc, R, N)
     y, h = selective_scan(xc, dt, A, Bc, Cc, params["D"], return_state=True)
     out = (y * F.silu(z)).to(x.dtype) @ params["out_proj"]
-    if cache is not None:
+    if mode == "prefill" and cache is not None:
         cache["h"].copy_(h)
         # the last dC-1 raw conv inputs (zero-padded if T < dC-1)
         cache["conv"].copy_(F.pad(xin, (0, 0, dC - 1, 0))[:, -(dC - 1):])

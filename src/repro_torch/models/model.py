@@ -12,8 +12,9 @@ master weights with gradients and casts them to ``cfg.dtype`` on every
 forward, as the JAX ``forward`` does (``_cast``); its ``train`` forward
 recomputes each layer in the backward when ``cfg.remat == "full"``, and
 returns the MoE aux vector summed over layers, as prefill does, so the
-load-balance and router-z losses reach the gradients. Models with
-``mamba`` layers serve but do not train yet.
+load-balance and router-z losses reach the gradients. A ``mamba`` layer
+trains through the selective scan's autograd function (the CUDA forward
+and backward kernels on the card).
 
 Every decode cache is preallocated (:meth:`Model.alloc_cache`, each
 layer's from its own ``LayerSpec``) and written in place, and
@@ -41,9 +42,6 @@ Cache = List[Dict[str, torch.Tensor]]
 # the fixed-size aux vector of the JAX ``forward``, in its order
 _AUX_KEYS = ("moe_aux_loss", "moe_load_balance", "moe_router_z",
              "moe_dropped_frac")
-_NO_TRAIN = ("training mamba layers is not ported yet: ROADMAP Queue 1, "
-             "item 2 (jamba training: a backward through the selective "
-             "scan)")
 
 
 def _specs_by_path(specs, prefix: str) -> Dict[str, ParamSpec]:
@@ -75,9 +73,9 @@ class Model(nn.Module):
                 "(ROADMAP Queue 1, item 7: frames input)")
         self.cfg = cfg
         self.trainable = trainable
-        self.can_train = all(s.mixer != "mamba" for s in cfg.pattern)
-        if trainable and not self.can_train:
-            raise NotImplementedError(f"{cfg.name}: {_NO_TRAIN}")
+        # every layer kind that builds also trains (mamba through the
+        # selective scan's backward kernel)
+        self.can_train = True
         self.compute_dtype = getattr(torch, cfg.dtype)
         Vp, E = cfg.padded_vocab_size, cfg.d_model
         self.specs: Dict[str, ParamSpec] = {
@@ -187,8 +185,6 @@ class Model(nn.Module):
         ``prefill`` fills ``caches`` in place; ``train`` takes no caches and
         is differentiable (trainable models only)."""
         if mode == "train":
-            if not self.can_train:
-                raise NotImplementedError(f"{self.cfg.name}: {_NO_TRAIN}")
             if not self.trainable:
                 raise ValueError("mode='train' needs Model(..., trainable=True)")
             return self._layers(self.embed_tokens(tokens), 0, None, "train")

@@ -18,9 +18,12 @@ inside a 64-key tile, non-causal attention with S != T at the kernel level,
 and G = H/K of 1 and 8 query heads a kv head. One 64 x N x 16 wgmma product
 is held to torch.matmul on its own (``kernel.wgmma_probe``). Head dim 256
 (gemma3) runs the forward, dq and dk/dv, with and without a window; a
-train step of gemma3 (head dim 256), the MoE and the xLSTM smoke presets
-in f32 matches the CPU. A captured decode step gives the eager step's
-tokens and logits on the smoke presets of the four served families.
+train step of gemma3 (head dim 256), the MoE, the xLSTM and the jamba
+smoke presets in f32 matches the CPU. A captured decode step gives the
+eager step's tokens and logits on the smoke presets of the four served
+families. The selective scan's backward kernel matches the plain backward
+(autograd through the plain scan) per gradient, to the bound of the
+gradient's dtype, and gives the same bits from launch to launch.
 """
 import dataclasses
 
@@ -33,8 +36,10 @@ from repro_torch.kernels.flash_attention.ops import (FlashAttention,
                                                      flash_attention_bwd)
 from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
                                                      flash_attention_ref)
-from repro_torch.kernels.mamba_scan.ops import selective_scan
-from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
+from repro_torch.kernels.mamba_scan import kernel as scan_kernel
+from repro_torch.kernels.mamba_scan.ops import SelectiveScan, selective_scan
+from repro_torch.kernels.mamba_scan.ref import (selective_scan_bwd_ref,
+                                                selective_scan_ref)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -597,6 +602,7 @@ def test_bf16_dq_is_bit_identical_at_head_dim_256():
     ("granite-moe-3b-a800m", dict(n_layers=2)),
     ("deepseek-moe-16b", dict(n_layers=2)),
     ("xlstm-125m", {}),
+    ("jamba-v0.1-52b", {}),
 ])
 def test_f32_train_step_on_the_card_matches_cpu(arch, changes):
     """Smoke presets in f32 (gemma3 at head dim 256, windows cut to 8): the
@@ -656,3 +662,97 @@ def test_captured_decode_gives_the_eager_tokens(arch):
     assert torch.equal(graph, eager)
     assert torch.equal(graph_stats["decode_logits"],
                        eager_stats["decode_logits"])
+
+
+# the selective scan's backward: each gradient against the plain backward
+# to the bound of its dtype (f32 1e-4, bf16 2e-2, as max|err| / max|ref|);
+# the jamba training shape, a ragged T and dI, and the forward's dtypes
+# and state sizes
+SCAN_BWD_CASES = [
+    (torch.bfloat16, torch.float32, 4, 1024, 8192, 16),
+    (torch.bfloat16, torch.float32, 4, 1000, 8000, 16),
+    *SCAN_CASES[2:],
+]
+
+
+def _scan_bwd(args, dy):
+    """The backward kernel on the forward kernel's saved states."""
+    _, _, chunks = scan_kernel.selective_scan(*args, save_chunks=True)
+    return scan_kernel.selective_scan_bwd(*args, dy, chunks)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_dtype,p_dtype,B,T,dI,N", SCAN_BWD_CASES)
+def test_cuda_scan_backward_matches_plain_backward(x_dtype, p_dtype, B, T,
+                                                   dI, N):
+    args = _scan_inputs(x_dtype, p_dtype, B, T, dI, N)
+    dy = torch.randn(args[0].shape, device="cuda").to(x_dtype)
+    got = _scan_bwd(args, dy)
+    torch.cuda.synchronize()
+    want = selective_scan_bwd_ref(*args, dy)
+    for name, a, b in zip(("dx", "ddt", "dA", "dBc", "dCc", "dD"), got,
+                          want):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        tol = GRAD_TOL[str(a.dtype).split(".")[-1]]
+        assert _rel(a, b) < tol, (name, _rel(a, b))
+
+
+@pytest.mark.gpu
+def test_cuda_scan_backward_is_bit_identical_from_launch_to_launch():
+    args = _scan_inputs(torch.bfloat16, torch.float32, 2, 300, 1000, 16)
+    dy = torch.randn(args[0].shape, device="cuda").to(torch.bfloat16)
+    first, second = _scan_bwd(args, dy), _scan_bwd(args, dy)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_autograd_scan_on_the_card_matches_cpu_and_finite_differences():
+    """``SelectiveScan`` in f32 on a small shape: its gradients against the
+    CPU's plain backward, and each against a central difference of the
+    forward kernel along a random direction (a step of 1e-3 of the input's
+    largest value: y is linear in x, B, C and D, and exp(dt A) over 70
+    steps is curved enough in dt and A that a step of 1e-2 is 6% off)."""
+    args = _scan_inputs(torch.float32, torch.float32, 2, 70, 96, 8)
+    w = torch.randn(args[0].shape, device="cuda")
+    leaves = [t.clone().requires_grad_(True) for t in args]
+    bwd = selective_scan.bwd_launches
+    y, _ = SelectiveScan.apply(*leaves)
+    (y * w).sum().backward()
+    assert selective_scan.bwd_launches == bwd + 1
+    cpu = [t.detach().cpu().requires_grad_(True) for t in args]
+    (SelectiveScan.apply(*cpu)[0] * w.cpu()).sum().backward()
+    for i, (a, b) in enumerate(zip(leaves, cpu)):
+        assert _rel(a.grad.cpu(), b.grad) < 1e-4, i
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for i, t in enumerate(args):
+        v = torch.randn(t.shape, generator=gen, device="cuda")
+        eps = 1e-3 * float(t.abs().max())
+        loss = lambda s: float(
+            (scan_kernel.selective_scan(*[u + s * eps * v if k == i else u
+                                          for k, u in enumerate(args)])[0]
+             .double() * w.double()).sum())
+        fd = (loss(1) - loss(-1)) / (2 * eps)
+        an = float((leaves[i].grad.double() * v.double()).sum())
+        assert abs(fd - an) < 1e-2 * max(abs(an), 1e-3), (i, fd, an)
+
+
+@pytest.mark.gpu
+def test_scan_backward_raises_before_any_launch():
+    args = _scan_inputs(torch.bfloat16, torch.float32, 2, 64, 128, 16)
+    _, _, chunks = scan_kernel.selective_scan(*args, save_chunks=True)
+    dy = torch.randn(args[0].shape, device="cuda").to(torch.bfloat16)
+    x = args[0]
+    strided = torch.empty(2, 64, 256, device="cuda",
+                          dtype=x.dtype)[..., ::2].copy_(x)
+    bad = [
+        ((strided, *args[1:]), dy, chunks),          # no unit stride over dI
+        (args, dy.float(), chunks),                   # dy not in x's dtype
+        (args, dy, chunks[:, 1:]),                    # too few saved states
+        (args, dy, chunks.to(torch.bfloat16)),        # states not f32
+        ((x, args[1].double(), *args[2:]), dy, chunks),
+    ]
+    for call_args, d, c in bad:
+        with pytest.raises(ValueError):
+            scan_kernel.selective_scan_bwd(*call_args, d, c)

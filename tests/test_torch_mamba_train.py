@@ -1,0 +1,260 @@
+"""The gradient of the port's selective scan and of the mamba mixer's train
+mode against the JAX package.
+
+The JAX package has no backward kernel: it trains jamba by ``jax.grad``
+through its jnp chunked scan (``repro.models.mamba.mamba_apply``). So the
+port's plain backward (autograd through ``kernels/mamba_scan/ref.py``,
+``selective_scan_bwd_ref``) is held to ``jax.vjp`` of the JAX reference
+scan, and ``mamba_apply(mode="train")`` with its parameter and input
+gradients to ``jax.grad`` of the JAX ``mamba_apply(mode="train")``, at T 40
+and at T 200, where the JAX scan pads time to 256 inside its chunks. The
+backward kernel's algorithm (a reverse-time walk over tiles of 32 steps,
+each tile's states recomputed from the state the forward saved at its
+start, per-block partial sums of dB and dC over 64 channels) is written
+out in numpy here and held to the plain backward; the card holds the CUDA
+kernel to the plain backward (``tests/test_torch_kernels_gpu.py``,
+``chip_smoke.py`` phase 28). Inputs are made with numpy from a seed, f32.
+Bound: max|err| / max|ref| below 1e-4, as ``check_gradients``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.mamba_scan.ref import selective_scan_reference
+from repro.models import mamba as jax_mamba
+from repro_torch.core.cost import scan_bwd_work, scan_work
+from repro_torch.kernels import build as kbuild
+from repro_torch.kernels.mamba_scan import kernel
+from repro_torch.kernels.mamba_scan.ops import SelectiveScan, selective_scan
+from repro_torch.kernels.mamba_scan.ref import (selective_scan_bwd_ref,
+                                                selective_scan_ref)
+from repro_torch.models import mamba
+from test_torch_mamba import (configs, hidden, mixer_params, scan_inputs,
+                              to_jax, to_torch)
+
+CPU = torch.device("cpu")
+GRAD_TOL = 1e-4
+NAMES = ("dx", "ddt", "dA", "dBc", "dCc", "dD")
+
+
+def rel(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def cotangent(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+# ---------------------------------------------------------------------------
+# the scan's backward
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("B,T,dI,N", [(2, 40, 64, 4), (1, 77, 48, 8),
+                                      (2, 100, 96, 16)])
+def test_plain_backward_matches_jax_vjp(B, T, dI, N):
+    arrays = scan_inputs(B, T, dI, N, seed=T)
+    dy = cotangent((B, T, dI), seed=N)
+    got = selective_scan_bwd_ref(*to_torch(arrays), torch.from_numpy(dy))
+    _, vjp = jax.vjp(selective_scan_reference, *to_jax(arrays))
+    want = vjp(jnp.asarray(dy))
+    for name, g, w in zip(NAMES, got, want):
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape, name
+        assert rel(g.numpy(), w) < GRAD_TOL, (name, rel(g.numpy(), w))
+
+
+def test_plain_backward_is_autograd_of_the_plain_scan():
+    args = [t.requires_grad_(True) for t in to_torch(scan_inputs(2, 50, 32,
+                                                                 8))]
+    dy = torch.from_numpy(cotangent((2, 50, 32), seed=1))
+    y, _ = selective_scan_ref(*args)
+    want = torch.autograd.grad(y, args, dy)
+    got = selective_scan_bwd_ref(*args, dy)
+    for name, g, w in zip(NAMES, got, want):
+        assert torch.equal(g, w), name
+
+
+def test_plain_backward_keeps_the_inputs_dtypes():
+    x, dt, A, Bc, Cc, D = to_torch(scan_inputs(1, 20, 16, 4),
+                                   torch.bfloat16)
+    dy = torch.ones_like(x)
+    got = selective_scan_bwd_ref(x, dt, A, Bc, Cc, D, dy)
+    assert [g.dtype for g in got] == [torch.bfloat16] * 2 + [
+        torch.float32] + [torch.bfloat16] * 2 + [torch.float32]
+
+
+def kernel_algorithm(x, dt, A, Bc, Cc, D, dy, tile=kernel.TILE,
+                     channels=kernel.CHANNELS):
+    """The backward kernel's algorithm in numpy, f32: the forward's states
+    at the end of every tile of ``tile`` steps, then each tile walked in
+    reverse from its states recomputed from the one before it; dB and dC
+    as partial sums over blocks of ``channels`` channels, dA and dD over
+    batch rows, each summed over its leading axis at the end."""
+    B, T, dI = x.shape
+    n = -(-T // tile)
+    h = np.zeros((B, dI, A.shape[1]), np.float32)
+    chunks = []
+    for t in range(T):
+        h = np.exp(dt[:, t, :, None] * A) * h + (
+            dt[:, t] * x[:, t])[..., None] * Bc[:, t, None, :]
+        if t % tile == tile - 1 or t == T - 1:
+            chunks.append(h)
+    dx, ddt = np.zeros_like(x), np.zeros_like(dt)
+    blocks = -(-dI // channels)
+    dB_part = np.zeros((blocks, B, T, A.shape[1]), np.float32)
+    dC_part = np.zeros_like(dB_part)
+    dA_part = np.zeros((B,) + A.shape, np.float32)
+    g = np.zeros_like(h)
+    a_next = np.zeros_like(h)
+    for i in reversed(range(n)):
+        h0 = chunks[i - 1] if i else np.zeros_like(h)
+        states, h = [], h0
+        for t in range(i * tile, min(T, (i + 1) * tile)):
+            h = np.exp(dt[:, t, :, None] * A) * h + (
+                dt[:, t] * x[:, t])[..., None] * Bc[:, t, None, :]
+            states.append(h)
+        for s in reversed(range(len(states))):
+            t = i * tile + s
+            a = np.exp(dt[:, t, :, None] * A)
+            h_prev = states[s - 1] if s else h0
+            g = dy[:, t, :, None] * Cc[:, t, None, :] + a_next * g
+            dx[:, t] = (g * Bc[:, t, None, :]).sum(-1) * dt[:, t] + D * dy[:, t]
+            ddt[:, t] = (g * (A * a * h_prev + x[:, t, :, None]
+                              * Bc[:, t, None, :])).sum(-1)
+            dA_part += g * dt[:, t, :, None] * a * h_prev
+            vb = g * (dt[:, t] * x[:, t])[..., None]
+            vc = dy[:, t, :, None] * states[s]
+            for k in range(blocks):
+                cols = slice(k * channels, (k + 1) * channels)
+                dB_part[k, :, t] = vb[:, cols].sum(1)
+                dC_part[k, :, t] = vc[:, cols].sum(1)
+            a_next = a
+    return (dx, ddt, dA_part.sum(0), dB_part.sum(0), dC_part.sum(0),
+            (dy * x).sum((0, 1)))
+
+
+@pytest.mark.parametrize("B,T,dI,N", [(2, 70, 80, 4), (1, 33, 130, 16)])
+def test_kernel_algorithm_matches_plain_backward(B, T, dI, N):
+    arrays = scan_inputs(B, T, dI, N, seed=B + T)
+    dy = cotangent((B, T, dI), seed=3)
+    got = kernel_algorithm(*arrays, dy)
+    want = selective_scan_bwd_ref(*to_torch(arrays), torch.from_numpy(dy))
+    for name, g, w in zip(NAMES, got, want):
+        assert g.shape == tuple(w.shape), name
+        assert rel(g, w.numpy()) < GRAD_TOL, (name, rel(g, w.numpy()))
+
+
+def test_autograd_function_on_the_cpu_is_the_plain_backward():
+    arrays = scan_inputs(2, 45, 24, 8, seed=5)
+    dy = torch.from_numpy(cotangent((2, 45, 24), seed=6))
+    args = [t.requires_grad_(True) for t in to_torch(arrays)]
+    y, h = SelectiveScan.apply(*args)
+    assert not h.requires_grad
+    got = torch.autograd.grad(y, args, dy)
+    y_ref, h_ref = selective_scan_ref(*to_torch(arrays))
+    assert torch.equal(y.detach(), y_ref) and torch.equal(h, h_ref)
+    want = selective_scan_bwd_ref(*to_torch(arrays), dy)
+    for name, g, w in zip(NAMES, got, want):
+        assert torch.equal(g, w), name
+
+
+def test_scan_goes_through_the_function_only_for_a_gradient():
+    x, dt, A, Bc, Cc, D = to_torch(scan_inputs(1, 10, 8, 4))
+    assert selective_scan(x, dt, A, Bc, Cc, D).grad_fn is None
+    dt.requires_grad_(True)
+    y = selective_scan(x, dt, A, Bc, Cc, D)
+    assert type(y.grad_fn).__name__ == "SelectiveScanBackward"
+    with torch.no_grad():
+        assert selective_scan(x, dt, A, Bc, Cc, D).grad_fn is None
+    y.sum().backward()
+    assert dt.grad is not None and dt.grad.shape == dt.shape
+
+
+def test_cpu_scans_count_no_kernel_launch():
+    before = (selective_scan.launches, selective_scan.bwd_launches)
+    args = [t.requires_grad_(True) for t in to_torch(scan_inputs(1, 12, 8,
+                                                                 4))]
+    selective_scan(*args).sum().backward()
+    assert (selective_scan.launches, selective_scan.bwd_launches) == before
+
+
+def test_backward_work_counts_each_byte_once():
+    B, T, dI, N = 4, 1024, 8192, 16
+    flops, exps, nbytes = scan_bwd_work(B, T, dI, N, 2, 4, kernel.n_chunks(T))
+    assert kernel.n_chunks(T) == 32 and kernel.n_chunks(1000) == 32
+    assert exps == B * T * dI * N and flops == B * T * dI * (22 * N + 6)
+    # x, dy, dx (bf16), dt, ddt (f32); B, C, dB, dC; A, D, dA, dD; the
+    # saved states
+    assert nbytes == (B * T * dI * 14 + 4 * B * T * N * 4
+                      + 2 * (dI * N * 4 + dI * 4) + B * 32 * dI * N * 4)
+    # the forward that saves the states writes them once more
+    assert (scan_work(B, T, dI, N, 2, 4, 32)[2] - scan_work(B, T, dI, N, 2,
+                                                            4)[2]
+            == B * 32 * dI * N * 4)
+
+
+def test_the_scan_sources_share_a_header(tmp_path, monkeypatch):
+    names = ("selective_scan", "selective_scan_bwd")
+    src = kbuild.SOURCES["selective_scan"].parent
+    for name in names:
+        assert '#include "scan.cuh"' in kbuild.SOURCES[name].read_text()
+    before = {n: kbuild.library_path(n) for n in names}
+    dst = tmp_path / "csrc"
+    dst.mkdir()
+    for path in src.iterdir():
+        (dst / path.name).write_bytes(path.read_bytes())
+    for name in names:
+        monkeypatch.setitem(kbuild.SOURCES, name,
+                            dst / kbuild.SOURCES[name].name)
+    assert {n: kbuild.library_path(n).name for n in names} == {
+        n: p.name for n, p in before.items()}
+    (dst / "scan.cuh").write_text((dst / "scan.cuh").read_text() + "\n")
+    for name in names:
+        assert kbuild.library_path(name).name != before[name].name
+
+
+# ---------------------------------------------------------------------------
+# mamba_apply(mode="train")
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("T", [40, 200])
+def test_train_mode_and_its_gradients_match_jax(T):
+    jcfg, tcfg = configs()
+    params = mixer_params(jcfg, seed=T)
+    x = hidden(2, T, jcfg.d_model, seed=T + 1)
+    w = cotangent((2, T, jcfg.d_model), seed=T + 2)
+
+    def jax_loss(p, xx):
+        out, cache = jax_mamba.mamba_apply(p, xx, jcfg, mode="train")
+        assert cache is None
+        return (out * w).sum(), out
+
+    (_, j_out), (j_gp, j_gx) = jax.value_and_grad(
+        jax_loss, argnums=(0, 1), has_aux=True)(
+        {k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(x))
+    tp = {k: torch.from_numpy(v).requires_grad_(True)
+          for k, v in params.items()}
+    tx = torch.from_numpy(x).requires_grad_(True)
+    out = mamba.mamba_apply(tp, tx, tcfg, None, mode="train")
+    out.backward(torch.from_numpy(w))
+    assert rel(out.detach().numpy(), j_out) < GRAD_TOL
+    assert rel(tx.grad.numpy(), j_gx) < GRAD_TOL
+    for name, p in tp.items():
+        assert rel(p.grad.numpy(), j_gp[name]) < GRAD_TOL, (
+            name, rel(p.grad.numpy(), j_gp[name]))
+
+
+def test_train_mode_is_prefill_without_a_cache():
+    _, tcfg = configs()
+    params = {k: torch.from_numpy(v)
+              for k, v in mixer_params(tcfg, seed=9).items()}
+    x = torch.from_numpy(hidden(2, 36, tcfg.d_model, seed=10))
+    cache = mamba.alloc_cache(tcfg, 2, CPU)
+    want = mamba.mamba_apply(params, x, tcfg, cache, mode="prefill")
+    got = mamba.mamba_apply(params, x, tcfg, None, mode="train")
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="train, prefill or decode"):
+        mamba.mamba_apply(params, x, tcfg, None, mode="generate")

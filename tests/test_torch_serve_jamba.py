@@ -192,11 +192,3 @@ def test_caches_follow_the_mixer_of_each_layer():
             assert cache["conv"].shape == (3, 3, 128)
             assert cache["conv"].dtype == torch.bfloat16
 
-
-@pytest.mark.parametrize("arch", [ARCH])
-def test_training_mamba_or_moe_raises_with_its_roadmap_entry(arch):
-    cfg = torch_archs.get_config(arch, "smoke")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(cfg, CPU, trainable=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(cfg, CPU)(torch.zeros(1, 8, dtype=torch.long), mode="train")

@@ -356,7 +356,9 @@ def test_train_and_resume(tmp_path):
     assert len(stats["step_ms"]) == 8 and stats["peak_memory_bytes"] is None
     assert stats["launches"] == [{"flash_attention_fwd": 0,
                                   "flash_attention_bwd_dq": 0,
-                                  "flash_attention_bwd_dkv": 0}] * 8
+                                  "flash_attention_bwd_dkv": 0,
+                                  "selective_scan": 0,
+                                  "selective_scan_bwd": 0}] * 8
     names = {c["name"] for c in stats["tree"]["children"]}
     assert names == {"train/step"}
 

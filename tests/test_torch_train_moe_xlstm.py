@@ -107,9 +107,3 @@ def test_xlstm_gradients_match_jax(T):
 
 def test_xlstm_losses_over_three_steps_match_jax():
     check_three_steps(*models("xlstm-125m"), B=2, T=40)
-
-
-def test_jamba_still_refuses_training_naming_its_roadmap_item():
-    cfg = torch_archs.get_config("jamba-v0.1-52b", "smoke")
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-        Model(cfg, CPU, trainable=True)
