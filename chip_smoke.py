@@ -267,7 +267,7 @@ NO_SCAN = {"selective_scan": 0, "selective_scan_bwd": 0}
 # (batch, seq, steps); one group at full width is 13.3e9 parameters, 213 GB
 # at 16 B a parameter of f32 state, so the expert width is cut from 14336
 # (2.83e9 parameters, 45 GB); the f32 card-vs-CPU step's (batch, seq),
-# seq ragged against the scan's 32-step tiles
+# seq ragged against the scan's 16- and 32-step tiles
 JAMBA_TRAIN = (4, 1024, 4)
 JAMBA_TRAIN_D_EXPERT = 1024
 JAMBA_TRAIN_CHECK = (2, 100)
@@ -280,8 +280,11 @@ CARD = ""            # nvidia-smi's name and power limit, named by each phase
 DESIGN = {"flash_attention_fwd": "wgmma", "flash_attention_bwd_dq": "wgmma",
           "flash_attention_bwd_dkv": "wgmma",
           "selective_scan": "states split over lanes, cp.async ring",
-          "selective_scan_bwd": "reverse walk of 32-step tiles recomputed "
-                                "from saved states in shared memory, "
+          "selective_scan_bwd": "16-step sub-tiles recomputed from the "
+                                "states saved every 16 steps and walked "
+                                "back in registers, 4 steps at a time "
+                                "(one ex2 a state), reduce-scatter lane "
+                                "sums, dx and ddt through a shared tile, "
                                 "per-block partial sums"}
 # bf16 edge cases of phases 3 and 6: head dims 32 and 64, lengths shorter
 # than a tile and not multiples of it, a window that starts inside a 64-key
@@ -374,7 +377,8 @@ def ptxas_report(log: str):
             entry = m.group(1)
             u = re.search(r"(selective_scan(?:_bwd)?_kernel)I"
                           r"(f|13__nv_bfloat16)"
-                          r"(f|13__nv_bfloat16|S\d*_)Li(\d+)E", entry)
+                          r"(f|13__nv_bfloat16|S\d*_)Li(\d+)E"
+                          r"(Lb1E)?", entry)
             w = re.search(r"((?:flash_fwd_wgmma|flash_fwd_f32|"
                           r"flash_bwd_dq_wgmma|flash_bwd_dq_f32|"
                           r"flash_bwd_dkv_wgmma|flash_bwd_dkv_f32|"
@@ -384,9 +388,10 @@ def ptxas_report(log: str):
                 entry = f"{w.group(1)}<{w.group(2)}>"
             elif u:
                 # a repeated type is a substitution (S<n>_): bf16, bf16
+                # the forward's instantiation for training saves states
                 entry = (f"{u.group(1)}<x {types[u.group(2)]}, dt/B/C "
                          f"{types.get(u.group(3), types[u.group(2)])}, "
-                         f"N={u.group(4)}>")
+                         f"N={u.group(4)}{', saving' if u.group(5) else ''}>")
         elif "spill" in line:
             spills = line.strip()
         elif "registers" in line:
@@ -2358,8 +2363,10 @@ def scan_backward_phase(sms: int, clock_hz: float, reports: dict) -> dict:
     backward (autograd through the plain scan) on the forward's six cases,
     each gradient as max|err| / max|ref| within the bound of its dtype, and
     two launches bit for bit at the training shape; then the kernel's time
-    there (twice, turn about with the plain backward), its bound, and what
-    ptxas says of it (no spill in any instantiation)."""
+    there (twice, turn about with the plain backward), its bound (from the
+    states at a 32-step interval, the least the gradients need; the extra
+    bytes of the 16-step cadence are printed beside it), and what ptxas
+    says of it (no spill in any instantiation)."""
     import torch
 
     from repro_torch.core import cost
@@ -2420,29 +2427,40 @@ def scan_backward_phase(sms: int, clock_hz: float, reports: dict) -> dict:
     plain_ms = cuda_ms(lambda: ref.selective_scan_bwd_ref(*args, dy),
                        iters=2, warmup=1)
     k2_ms = cuda_ms(run)
+    least = -(-c["T"] // kernel.TILE)
     bound_ms, bound_by, detail = scan_bound_ms(
-        cost.scan_bwd_work(c["B"], c["T"], c["dI"], c["N"], 2, 4,
-                           chunks.shape[1]), sms, clock_hz)
+        cost.scan_bwd_work(c["B"], c["T"], c["dI"], c["N"], 2, 4, least),
+        sms, clock_hz)
     saved = chunks.numel() * 4
+    extra = saved - c["B"] * least * c["dI"] * c["N"] * 4
     del args, dy, chunks
     torch.cuda.empty_cache()
     ptxas = {k: v for k, v in reports.items()
              if k.startswith("selective_scan_bwd_kernel")}
     key = "selective_scan_bwd_kernel<x bf16, dt/B/C f32, N=16>"
-    smem = reports.get("scan bwd x bfloat16, dt/B/C float32, N=16 smem")
+    label = "scan bwd x bfloat16, dt/B/C float32, N=16"
+    smem = reports.get(f"{label} smem")
+    _, blocks, warps = reports[f"{label} occupancy"]
     print(f"[28] training shape (B=4 T=1024 dI=8192 N=16, x bf16, dt/B/C "
           f"f32): backward kernel {k_ms:.3f} / {k2_ms:.3f} ms, plain "
           f"backward {plain_ms:.3f} ms, no single PyTorch call computes it; "
-          f"bound {bound_ms:.4f} ms ({bound_by}: {detail}), kernel at "
-          f"{bound_ms / k_ms:.2%} of bound; saved states {saved} B a layer; "
-          f"ptxas {ptxas.get(key)}; {smem}; {CARD}", flush=True)
+          f"bound {bound_ms:.4f} ms ({bound_by}: {detail}; states every "
+          f"{kernel.TILE} steps), kernel at {bound_ms / k_ms:.2%} of bound; "
+          f"saved states every {kernel.SAVE_EVERY} steps {saved} B a layer, "
+          f"{extra} B beyond the bound's ({extra / PEAK_BYTES * 1e3:.4f} ms "
+          f"at {PEAK_BYTES / 1e12:g} TB/s); ptxas {ptxas.get(key)}; {smem}, "
+          f"{warps} warps an SM; SASS {reports.get('scan bwd sass')}; {CARD}",
+          flush=True)
     check(len(ptxas) == 9 and all("0 bytes spill stores, 0 bytes spill loads"
                                   in v for v in ptxas.values()),
           f"the scan backward spills or is missing: {ptxas}")
     result["timing"] = {"ms": k_ms, "ms_again": k2_ms, "plain_ms": plain_ms,
                         "bound_ms": bound_ms, "bound_by": bound_by,
-                        "saved_state_bytes": saved, "ptxas": ptxas.get(key),
-                        "smem": smem}
+                        "saved_state_bytes": saved,
+                        "saved_bytes_beyond_bound": extra,
+                        "ptxas": ptxas.get(key), "smem": smem,
+                        "blocks_per_sm": blocks, "warps_per_sm": warps,
+                        "sass": reports.get("scan bwd sass")}
     result["phase_s"] = time.perf_counter() - t0
     print(f"[28] scan backward took {result['phase_s']:.1f} s", flush=True)
     return result
@@ -2590,11 +2608,12 @@ def card_info():
     return kind, count, card, sms, clock_hz
 
 
-def scan_sass(lib) -> str:
+def scan_sass(lib, exact=None) -> str:
     """Count, in the SASS of every scan kernel in library ``lib``
     (``cuobjdump -sass``), the special-function (MUFU) instructions and
     the MUFU.EX2 among them; fail unless each kernel's are all EX2 and a
-    multiple of four: one a state, four states a lane and a step."""
+    multiple of four (one a state, four states a lane and a step) or,
+    where ``exact`` is given, exactly that many in each kernel."""
     import re
 
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -2612,12 +2631,15 @@ def scan_sass(lib) -> str:
             counts[fn][1] += "MUFU.EX2" in line
     check(bool(counts), "no kernel in the scan library's SASS")
     ok = all(mufu == ex2 and ex2 % 4 == 0 and ex2 > 0
-             for mufu, ex2 in counts.values())
+             and ex2 == (exact or ex2) for mufu, ex2 in counts.values())
     summary = sorted({f"{mufu} MUFU, {ex2} MUFU.EX2"
                       for mufu, ex2 in counts.values()})
-    print(f"    scan SASS, {len(counts)} kernels: {'; '.join(summary)} a "
-          f"kernel (four EX2 a step body: one a state)", flush=True)
-    check(ok, f"scan SASS: a MUFU other than EX2, or EX2 not four a step: "
+    want = (f"{exact} expected: one a state, 4 states a lane, "
+            f"{exact // 4} unrolled steps" if exact else
+            "four EX2 a step body: one a state")
+    print(f"    {lib.name} SASS, {len(counts)} kernels: "
+          f"{'; '.join(summary)} a kernel ({want})", flush=True)
+    check(ok, f"scan SASS: a MUFU other than EX2, or EX2 not one a state: "
           f"{counts}")
     return "; ".join(summary)
 
@@ -2662,11 +2684,17 @@ def build_phase() -> dict:
                     N, x_dt, p_dt, backward=backward)
                 label = (f"{kind} x {str(x_dt)[6:]}, dt/B/C "
                          f"{str(p_dt)[6:]}, N={N}")
+                warps = blocks * scan_kernel.CHANNELS * N // 4 // 32
                 reports[f"{label} smem"] = (
                     f"{smem} B dynamic shared memory, {blocks} blocks an SM")
+                reports[f"{label} occupancy"] = (smem, blocks, warps)
                 print(f"    {label}: {smem} B dynamic shared memory, "
-                      f"{blocks} blocks an SM", flush=True)
+                      f"{blocks} blocks ({warps} warps) an SM", flush=True)
     reports["scan sass"] = scan_sass(libs["selective_scan"])
+    # the backward: one ex2 a state of the recompute's unrolled sub-tile,
+    # none in the walk
+    reports["scan bwd sass"] = scan_sass(libs["selective_scan_bwd"],
+                                         4 * scan_kernel.SAVE_EVERY)
     return reports
 
 
@@ -3181,7 +3209,11 @@ def main() -> None:
         "library_ms": None,
         "ptxas": t["ptxas"],
         "smem": t["smem"],
+        "blocks_per_sm": t["blocks_per_sm"],
+        "warps_per_sm": t["warps_per_sm"],
+        "sass": t["sass"],
         "saved_state_bytes": t["saved_state_bytes"],
+        "saved_bytes_beyond_bound": t["saved_bytes_beyond_bound"],
         "shape": "B=4 T=1024 dI=8192 N=16 x bf16 dt/B/C f32",
         "card": card,
     })

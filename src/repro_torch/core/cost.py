@@ -88,8 +88,8 @@ def scan_work(B: int, T: int, dI: int, N: int, x_item: int, p_item: int,
     """(f32 FLOPs, ex2 evaluations, bytes) of one selective-scan call: 6
     FLOPs per (b, t, d, n) (dt·A, dx·B, two FMAs) and 3 per (b, t, d)
     (dt·x, an FMA with D); one ex2 per (b, t, d, n); x, dt, B, C, A, D read
-    once, y and the final state written once, and the f32 state at each of
-    ``chunks`` tile boundaries when a training forward saves them."""
+    once, y and the final state written once, and ``chunks`` f32 states
+    when a training forward saves them."""
     nbytes = (B * T * dI * (2 * x_item + p_item) + 2 * B * T * N * p_item
               + dI * N * 4 + dI * 4 + B * dI * N * 4 * (1 + chunks))
     return B * T * dI * (6 * N + 3), B * T * dI * N, nbytes
@@ -98,9 +98,9 @@ def scan_work(B: int, T: int, dI: int, N: int, x_item: int, p_item: int,
 def scan_bwd_work(B: int, T: int, dI: int, N: int, x_item: int,
                   p_item: int, chunks: int) -> Tuple[int, int, int]:
     """(f32 FLOPs, ex2 evaluations, bytes) of one selective-scan backward
-    call from the states saved at ``chunks`` tile boundaries. Per (b, t, d,
-    n) 22 FLOPs: h_{t-1} recomputed from the tile's saved state (dt·A,
-    dx·B, an FMA: 4), g_t = dy·C + a·g_{t+1} (3), dx's and ddt's sums
+    call from ``chunks`` saved states a batch row. Per (b, t, d, n) 22
+    FLOPs: h_{t-1} recomputed from the tile's saved state (dt·A, dx·B, an
+    FMA: 4), g_t = dy·C + a·g_{t+1} (3), dx's and ddt's sums
     (g·B; a·h·A + x·B and g·(…): 8), dA (3), dB and dC (a product and a
     sum over d each: 4); per (b, t, d) 6 (dt·x, dt·Σ + D·dy, dy·x into
     dD). One ex2 per (b, t, d, n): the least the gradients need. x, dt, dy,

@@ -1,8 +1,9 @@
 // Helpers shared by the selective scan's forward (selective_scan.cu) and
-// backward (selective_scan_bwd.cu) kernels: the tile sizes, dtype
-// conversions, ex2, cp.async staging of time tiles into shared memory, and
-// the dispatch over (x dtype, dt/B/C dtype, state size). Each source
-// includes it once; everything here has internal linkage.
+// backward (selective_scan_bwd.cu) kernels: the tile sizes and the saved
+// states' cadence, dtype conversions, ex2, cp.async staging of time tiles
+// into shared memory, and the dispatch over (x dtype, dt/B/C dtype, state
+// size). Each source includes it once; everything here has internal
+// linkage.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -13,6 +14,10 @@ namespace {
 
 constexpr int CH = 64;      // channels a block
 constexpr int TT = 32;      // time steps a staged tile
+// time steps between the states a training forward saves: a sub-tile of
+// the backward, which recomputes and walks one at a time in registers
+constexpr int SAVE_EVERY = 16;
+static_assert(TT % SAVE_EVERY == 0, "a staged tile holds whole sub-tiles");
 constexpr unsigned FULL = 0xffffffffu;
 constexpr float LOG2E = 1.4426950408889634f;
 

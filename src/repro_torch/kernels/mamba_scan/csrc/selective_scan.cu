@@ -8,10 +8,11 @@
 // from h_0 = 0, y written in x's dtype. The final state h_T (the TPU
 // kernel's h_sc scratch after the last time block) is written out when
 // h_out is given, since the prefill cache needs it. A training forward
-// also gives h_chunks, (B, ceil(T/TT), dI, N) f32, and gets the state at
-// the end of every staged tile of TT steps: the backward kernel
-// (selective_scan_bwd.cu) recomputes each tile's states from the one
-// before it. Serving passes null and writes nothing more.
+// also gives h_chunks, (B, ceil(T/SAVE_EVERY), dI, N) f32, and gets the
+// state at the end of every SAVE_EVERY = 16 steps (scan.cuh): the
+// backward kernel (selective_scan_bwd.cu) recomputes each sub-tile's
+// states from the one before it. Serving passes null and writes nothing
+// more.
 //
 // Bound at the serving shape (jamba prefill: B=4, T=1024, dI=8192, N=16,
 // x bf16, dt/B/C f32), computed from shapes, not measured:
@@ -70,9 +71,11 @@ struct ScanSmem {
   static constexpr int BYTES = STAGES * STAGE + 2 * Y;
 };
 
-// TX: x and y; TP: dt, B and C (float, or TX's bfloat16). The bounds ask
-// for 32 warps an SM: at most 64 registers a thread.
-template <typename TX, typename TP, int N>
+// TX: x and y; TP: dt, B and C (float, or TX's bfloat16); SAVE: a
+// training forward, which writes h_chunks (serving runs the instantiation
+// without it). The bounds ask for 32 warps an SM: at most 64 registers a
+// thread.
+template <typename TX, typename TP, int N, bool SAVE>
 __global__ void __launch_bounds__(CH * N / 4, 4096 / (CH * N))
 selective_scan_kernel(const TX* __restrict__ x, const TP* __restrict__ dt,
                       const float* __restrict__ A,
@@ -188,11 +191,16 @@ selective_scan_kernel(const TX* __restrict__ x, const TP* __restrict__ dt,
       if constexpr (L >= 2) part += __shfl_xor_sync(FULL, part, 1);
       if constexpr (L >= 4) part += __shfl_xor_sync(FULL, part, 2);
       if (j == 0) ys[s * CH + c] = from_f32<TX>(fmaf(dd, xv, part));
+      if constexpr (SAVE) {  // the state after every SAVE_EVERY steps, at T
+        const int t = i * TT + s;
+        const int n_saved = (T_len + SAVE_EVERY - 1) / SAVE_EVERY;
+        if (((s + 1) % SAVE_EVERY == 0 || t == T_len - 1) && active)
+          *reinterpret_cast<float4*>(
+              h_chunks + ((static_cast<int64_t>(b) * n_saved +
+                           t / SAVE_EVERY) * dI + d) * N + 4 * j) =
+              make_float4(h[0], h[1], h[2], h[3]);
+      }
     }
-    if (h_chunks != nullptr && active)
-      *reinterpret_cast<float4*>(
-          h_chunks + ((static_cast<int64_t>(b) * n_tiles + i) * dI + d) * N +
-          4 * j) = make_float4(h[0], h[1], h[2], h[3]);
   }
   cp_async_wait_all();
   __syncthreads();
@@ -212,7 +220,8 @@ cudaError_t launch(const void* x, const void* dt, const void* A,
                    const long long* st, cudaStream_t stream) {
   constexpr int bytes = ScanSmem<TX, TP, N>::BYTES;
   constexpr int bc_chunk = N * sizeof(TP) < 16 ? N * sizeof(TP) : 16;
-  auto kernel = selective_scan_kernel<TX, TP, N>;
+  auto kernel = h_chunks != nullptr ? selective_scan_kernel<TX, TP, N, true>
+                                    : selective_scan_kernel<TX, TP, N, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
@@ -234,7 +243,7 @@ cudaError_t launch(const void* x, const void* dt, const void* A,
 template <typename TX, typename TP, int N>
 cudaError_t info(int* smem_bytes, int* blocks_per_sm) {
   *smem_bytes = ScanSmem<TX, TP, N>::BYTES;
-  auto kernel = selective_scan_kernel<TX, TP, N>;
+  auto kernel = selective_scan_kernel<TX, TP, N, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, *smem_bytes);
   if (err != cudaSuccess) return err;
@@ -261,8 +270,8 @@ struct Info {
 // unit stride over N; element strides (batch, time) of each in
 // xsb..cst. A (dI,N) and D (dI,) contiguous f32. y (B,T,dI) contiguous in
 // x's dtype; h_out (B,dI,N) contiguous f32, or null to skip it; h_chunks
-// (B,ceil(T/32),dI,N) contiguous f32, the state at the end of every tile
-// of 32 steps, or null to skip it.
+// (B,ceil(T/16),dI,N) contiguous f32, the state at the end of every 16
+// steps (and at T), or null to skip it.
 // x_dtype / p_dtype (of dt, Bc, Cc): 0 = float32, 1 = bfloat16; taken are
 // (0,0), (1,0) and (1,1). N in {4, 8, 16}.
 // Returns the cudaError_t of the launch (0 on success).

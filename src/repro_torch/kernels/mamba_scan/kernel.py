@@ -17,7 +17,8 @@ import torch
 from .. import build
 
 STATE_SIZES = (4, 8, 16)
-TILE = 32          # time steps a staged tile: the saved states' interval
+TILE = 32          # time steps a staged tile
+SAVE_EVERY = 16    # time steps between the states a training forward saves
 CHANNELS = 64      # channels a block: the backward's dB, dC partials
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -47,8 +48,9 @@ def _bwd_library() -> ctypes.CDLL:
 
 
 def n_chunks(T: int) -> int:
-    """Tiles of ``TILE`` steps in T: the saved states' second axis."""
-    return -(-T // TILE)
+    """Runs of ``SAVE_EVERY`` steps in T: the saved states' second
+    axis."""
+    return -(-T // SAVE_EVERY)
 
 
 def _check(x, dt, A, Bc, Cc, D) -> None:
@@ -90,8 +92,8 @@ def selective_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Bc, Cc (B,T,N), D (dI,) f32.
 
     Returns (y (B,T,dI) in x's dtype, final state (B,dI,N) f32 or None
-    unless ``return_state``, the state at the end of every tile of
-    ``TILE`` steps (B, n_chunks(T), dI, N) f32 or None unless
+    unless ``return_state``, the state after every ``SAVE_EVERY`` steps
+    and at T (B, n_chunks(T), dI, N) f32 or None unless
     ``save_chunks``: what :func:`selective_scan_bwd` takes). Launches on
     the current stream and does not synchronize.
     """

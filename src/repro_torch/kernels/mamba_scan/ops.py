@@ -52,9 +52,9 @@ def _forward(x, dt, A, Bc, Cc, D, return_state: bool, save_chunks: bool
 class SelectiveScan(torch.autograd.Function):
     """``SelectiveScan.apply(x, dt, A, Bc, Cc, D)`` -> (y, final state),
     with the gradients of y as its backward: on CUDA tensors the forward
-    kernel saves its states at every tile boundary and the backward kernel
-    reads them; on CPU tensors the plain version runs both ways. The final
-    state is not differentiable."""
+    kernel saves its state every ``kernel.SAVE_EVERY`` steps and the
+    backward kernel reads them; on CPU tensors the plain version runs both
+    ways. The final state is not differentiable."""
 
     @staticmethod
     def forward(ctx, x, dt, A, Bc, Cc, D):

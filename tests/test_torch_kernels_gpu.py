@@ -23,7 +23,8 @@ smoke presets in f32 matches the CPU. A captured decode step gives the
 eager step's tokens and logits on the smoke presets of the four served
 families. The selective scan's backward kernel matches the plain backward
 (autograd through the plain scan) per gradient, to the bound of the
-gradient's dtype, and gives the same bits from launch to launch.
+gradient's dtype, and gives the same bits from launch to launch; the
+training forward saves the plain scan's state every 16 steps.
 """
 import dataclasses
 
@@ -679,6 +680,32 @@ def _scan_bwd(args, dy):
     """The backward kernel on the forward kernel's saved states."""
     _, _, chunks = scan_kernel.selective_scan(*args, save_chunks=True)
     return scan_kernel.selective_scan_bwd(*args, dy, chunks)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [128, 100])
+def test_training_forward_saves_the_plain_states_every_16_steps(T):
+    """The states a training forward saves (``save_chunks``): after steps
+    16, 32, ... and at T, each the plain scan's final state over that
+    prefix, within the final state's bound (1e-4, f32 on both sides); a
+    T of 100 ends inside a 16-step run."""
+    args = _scan_inputs(torch.float32, torch.float32, 2, T, 192, 16)
+    y, h, chunks = scan_kernel.selective_scan(*args, return_state=True,
+                                              save_chunks=True)
+    torch.cuda.synchronize()
+    every = scan_kernel.SAVE_EVERY
+    assert chunks.shape == (2, -(-T // every), 192, 16)
+    assert torch.equal(chunks[:, -1], h)
+    x, dt, A, Bc, Cc, D = args
+    for q in range(chunks.shape[1]):
+        t = min((q + 1) * every, T)
+        _, want = selective_scan_ref(x[:, :t], dt[:, :t], A, Bc[:, :t],
+                                     Cc[:, :t], D)
+        assert float((chunks[:, q] - want).abs().max()) < 1e-4, q
+    y_serve, h_serve, none = scan_kernel.selective_scan(*args,
+                                                        return_state=True)
+    assert none is None
+    assert torch.equal(y_serve, y) and torch.equal(h_serve, h)
 
 
 @pytest.mark.gpu

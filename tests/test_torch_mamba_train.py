@@ -8,11 +8,13 @@ port's plain backward (autograd through ``kernels/mamba_scan/ref.py``,
 scan, and ``mamba_apply(mode="train")`` with its parameter and input
 gradients to ``jax.grad`` of the JAX ``mamba_apply(mode="train")``, at T 40
 and at T 200, where the JAX scan pads time to 256 inside its chunks. The
-backward kernel's algorithm (a reverse-time walk over tiles of 32 steps,
-each tile's states recomputed from the state the forward saved at its
-start, per-block partial sums of dB and dC over 64 channels) is written
-out in numpy here and held to the plain backward; the card holds the CUDA
-kernel to the plain backward (``tests/test_torch_kernels_gpu.py``,
+backward kernel's algorithm (a reverse-time walk over sub-tiles of 16
+steps, each sub-tile's a_t and h_t recomputed from the state the forward
+saved at its start, a_t h_{t-1} formed as h_t - dt x B, per-block partial
+sums of dB and dC over 64 channels) is written out in numpy here and held
+to the plain backward, and its reduce-scatter of dB and dC over a warp's
+channels is modelled lane by lane and held to plain sums; the card holds
+the CUDA kernel to the plain backward (``tests/test_torch_kernels_gpu.py``,
 ``chip_smoke.py`` phase 28). Inputs are made with numpy from a seed, f32.
 Bound: max|err| / max|ref| below 1e-4, as ``check_gradients``.
 """
@@ -86,22 +88,25 @@ def test_plain_backward_keeps_the_inputs_dtypes():
         torch.float32] + [torch.bfloat16] * 2 + [torch.float32]
 
 
-def kernel_algorithm(x, dt, A, Bc, Cc, D, dy, tile=kernel.TILE,
+def kernel_algorithm(x, dt, A, Bc, Cc, D, dy, every=kernel.SAVE_EVERY,
                      channels=kernel.CHANNELS):
     """The backward kernel's algorithm in numpy, f32: the forward's states
-    at the end of every tile of ``tile`` steps, then each tile walked in
-    reverse from its states recomputed from the one before it; dB and dC
-    as partial sums over blocks of ``channels`` channels, dA and dD over
-    batch rows, each summed over its leading axis at the end."""
+    after every ``every`` steps and at T, then each sub-tile of ``every``
+    steps, last first, recomputed from the state before it (a_t and h_t
+    kept) and walked in reverse with a_t h_{t-1} formed as h_t - dt x B;
+    ddt as sum A g a h_{t-1} + x sum g B; dB and dC as partial sums over
+    blocks of ``channels`` channels, dA and dD over batch rows, each summed
+    over its leading axis at the end."""
     B, T, dI = x.shape
-    n = -(-T // tile)
+    n = -(-T // every)
     h = np.zeros((B, dI, A.shape[1]), np.float32)
     chunks = []
     for t in range(T):
         h = np.exp(dt[:, t, :, None] * A) * h + (
             dt[:, t] * x[:, t])[..., None] * Bc[:, t, None, :]
-        if t % tile == tile - 1 or t == T - 1:
+        if t % every == every - 1 or t == T - 1:
             chunks.append(h)
+    assert len(chunks) == n
     dx, ddt = np.zeros_like(x), np.zeros_like(dt)
     blocks = -(-dI // channels)
     dB_part = np.zeros((blocks, B, T, A.shape[1]), np.float32)
@@ -109,29 +114,31 @@ def kernel_algorithm(x, dt, A, Bc, Cc, D, dy, tile=kernel.TILE,
     dA_part = np.zeros((B,) + A.shape, np.float32)
     g = np.zeros_like(h)
     a_next = np.zeros_like(h)
-    for i in reversed(range(n)):
-        h0 = chunks[i - 1] if i else np.zeros_like(h)
-        states, h = [], h0
-        for t in range(i * tile, min(T, (i + 1) * tile)):
-            h = np.exp(dt[:, t, :, None] * A) * h + (
-                dt[:, t] * x[:, t])[..., None] * Bc[:, t, None, :]
-            states.append(h)
-        for s in reversed(range(len(states))):
-            t = i * tile + s
-            a = np.exp(dt[:, t, :, None] * A)
-            h_prev = states[s - 1] if s else h0
+    for q in reversed(range(n)):
+        steps = range(q * every, min(T, (q + 1) * every))
+        h = chunks[q - 1] if q else np.zeros_like(h)
+        a_s, h_s = [], []
+        for t in steps:
+            a_s.append(np.exp(dt[:, t, :, None] * A))
+            h = a_s[-1] * h + ((dt[:, t] * x[:, t])[..., None]
+                               * Bc[:, t, None, :])
+            h_s.append(h)
+        for s in reversed(range(len(steps))):
+            t = steps[s]
+            dtx = (dt[:, t] * x[:, t])[..., None]
             g = dy[:, t, :, None] * Cc[:, t, None, :] + a_next * g
-            dx[:, t] = (g * Bc[:, t, None, :]).sum(-1) * dt[:, t] + D * dy[:, t]
-            ddt[:, t] = (g * (A * a * h_prev + x[:, t, :, None]
-                              * Bc[:, t, None, :])).sum(-1)
-            dA_part += g * dt[:, t, :, None] * a * h_prev
-            vb = g * (dt[:, t] * x[:, t])[..., None]
-            vc = dy[:, t, :, None] * states[s]
+            p = g * (h_s[s] - dtx * Bc[:, t, None, :])
+            sum_dx = (g * Bc[:, t, None, :]).sum(-1)
+            dx[:, t] = sum_dx * dt[:, t] + D * dy[:, t]
+            ddt[:, t] = (A * p).sum(-1) + x[:, t] * sum_dx
+            dA_part += dt[:, t, :, None] * p
+            vb = g * dtx
+            vc = dy[:, t, :, None] * h_s[s]
             for k in range(blocks):
                 cols = slice(k * channels, (k + 1) * channels)
                 dB_part[k, :, t] = vb[:, cols].sum(1)
                 dC_part[k, :, t] = vc[:, cols].sum(1)
-            a_next = a
+            a_next = a_s[s]
     return (dx, ddt, dA_part.sum(0), dB_part.sum(0), dC_part.sum(0),
             (dy * x).sum((0, 1)))
 
@@ -145,6 +152,67 @@ def test_kernel_algorithm_matches_plain_backward(B, T, dI, N):
     for name, g, w in zip(NAMES, got, want):
         assert g.shape == tuple(w.shape), name
         assert rel(g, w.numpy()) < GRAD_TOL, (name, rel(g, w.numpy()))
+
+
+def channel_sum_model(vals, L):
+    """``channel_sum`` of ``selective_scan_bwd.cu`` over one warp in numpy:
+    ``vals`` (32 lanes, 8) holds each lane's dB then dC of its states
+    4j .. 4j+3, lane = channel * L + j. Lane bits 4, 3 and 2 each halve the
+    values a lane keeps (the lane with the bit set keeps the upper half and
+    adds its partner's), then lane bits 1 and 0, where they name channels
+    (L < 4), add the partner's one value. Yields, after each level, each
+    lane's kept values and their indices into the eight."""
+    lanes = np.arange(32)
+    keep = vals.astype(np.float32).copy()
+    idx = np.tile(np.arange(8), (32, 1))
+    for bit in (16, 8, 4):
+        half = keep.shape[1] // 2
+        hi = (lanes & bit) != 0
+        lo_v, hi_v = keep[:, :half], keep[:, half:]
+        mine = np.where(hi[:, None], hi_v, lo_v)
+        sent = np.where(hi[:, None], lo_v, hi_v)
+        keep = mine + sent[lanes ^ bit]
+        idx = np.where(hi[:, None], idx[:, half:], idx[:, :half])
+        yield bit, keep, idx
+    for bit in (2, 1)[:{4: 0, 2: 1, 1: 2}[L]]:
+        keep = keep + keep[lanes ^ bit]
+        yield bit, keep, idx
+
+
+@pytest.mark.parametrize("N", [4, 8, 16])
+def test_reduce_scatter_sums_each_value_over_the_warps_channels(N):
+    L = N // 4
+    vals = np.random.default_rng(N).standard_normal((32, 8)).astype(
+        np.float32)
+    lanes = np.arange(32)
+    channel_bits = 31 ^ (L - 1)
+    reduced = 0
+    shuffles = 0
+    for bit, keep, idx in channel_sum_model(vals, L):
+        reduced |= bit
+        shuffles += keep.shape[1]
+        # each lane's values: the plain sum over the lanes that differ from
+        # it only in the channel bits reduced so far
+        for lane in lanes:
+            group = lanes[(lanes & ~reduced) == (lane & ~reduced)]
+            want = vals[group][:, idx[lane]].sum(0)
+            np.testing.assert_allclose(keep[lane], want, rtol=1e-6,
+                                       atol=1e-6)
+    assert reduced == channel_bits and keep.shape[1] == 1
+    assert shuffles == {16: 7, 8: 8, 4: 9}[N]
+    # the kernel's writers: one lane for each of the 2N (dB or dC, n),
+    # holding the sum over the warp's 32 / L channels
+    m = lanes >> 2
+    assert np.array_equal(idx[:, 0], m)
+    writers = lanes[(lanes & (3 ^ (L - 1))) == 0]
+    j = writers & (L - 1)
+    red_at = (m[writers] >> 2) * N + 4 * j + (m[writers] & 3)
+    assert sorted(red_at) == list(range(2 * N))
+    for lane, at in zip(writers, red_at):
+        same_j = lanes[(lanes & (L - 1)) == (lane & (L - 1))]
+        k = 4 * (at >= N) + at % 4           # its index into the eight
+        np.testing.assert_allclose(keep[lane, 0], vals[same_j, k].sum(),
+                                   rtol=1e-6, atol=1e-6)
 
 
 def test_autograd_function_on_the_cpu_is_the_plain_backward():
@@ -183,17 +251,19 @@ def test_cpu_scans_count_no_kernel_launch():
 
 def test_backward_work_counts_each_byte_once():
     B, T, dI, N = 4, 1024, 8192, 16
-    flops, exps, nbytes = scan_bwd_work(B, T, dI, N, 2, 4, kernel.n_chunks(T))
-    assert kernel.n_chunks(T) == 32 and kernel.n_chunks(1000) == 32
+    n = kernel.n_chunks(T)
+    flops, exps, nbytes = scan_bwd_work(B, T, dI, N, 2, 4, n)
+    assert kernel.SAVE_EVERY == 16 and kernel.TILE % kernel.SAVE_EVERY == 0
+    assert n == 64 and kernel.n_chunks(1000) == 63
     assert exps == B * T * dI * N and flops == B * T * dI * (22 * N + 6)
     # x, dy, dx (bf16), dt, ddt (f32); B, C, dB, dC; A, D, dA, dD; the
     # saved states
     assert nbytes == (B * T * dI * 14 + 4 * B * T * N * 4
-                      + 2 * (dI * N * 4 + dI * 4) + B * 32 * dI * N * 4)
+                      + 2 * (dI * N * 4 + dI * 4) + B * n * dI * N * 4)
     # the forward that saves the states writes them once more
-    assert (scan_work(B, T, dI, N, 2, 4, 32)[2] - scan_work(B, T, dI, N, 2,
-                                                            4)[2]
-            == B * 32 * dI * N * 4)
+    assert (scan_work(B, T, dI, N, 2, 4, n)[2] - scan_work(B, T, dI, N, 2,
+                                                           4)[2]
+            == B * n * dI * N * 4 == 134_217_728)
 
 
 def test_the_scan_sources_share_a_header(tmp_path, monkeypatch):
