@@ -156,6 +156,31 @@ Phases, each of which fails the run (non-zero exit, no final line):
      balance finite and > 0; one profiled step as phase 18's; then one f32
      step of one pattern group at full mixer width (d_ff and d_expert
      512; batch 2, seq 100) on the card against the CPU;
+ 29. train llama-3.2-vision-11b at full width and 10 of its 40 layers
+     (two pattern groups: 10 self-attention layers, 2 of which add a
+     gated cross-attention sublayer over 4096 encoder embeddings) through
+     ``launch.train.main`` (batch 4, seq 1024, 4 steps, bf16 compute, f32
+     master weights, full remat, AdamW): 24 forwards a step (20 causal at
+     T = S = 1024, 4 non-causal at T 1024 against S 4096), 12 dq and 12
+     dk/dv (2 of each non-causal), all wgmma at head dim 128; one profiled
+     step as phase 18's, whose counted forward FLOPs must split so; then
+     one f32 pattern group at narrow width (T 100, encoder_len 160, the
+     gates at 0.5) on the card against the CPU;
+29b. the forward, dq and dk/dv at the cross-attention's shape (B=4, T=1024,
+     S=4096, H=32, K=8, D=128, bf16, non-causal) against their plain
+     versions; their times (twice), the plain versions',
+     scaled_dot_product_attention's forward and backward and the least
+     time the card could take;
+ 30. train musicgen-large at full width and depth (48 layers, frame input,
+     4 codebooks; batch 4, seq 1024, 4 steps): 96 forwards, 48 dq and 48
+     dk/dv a step, all causal wgmma at head dim 64; one profiled step;
+     then 2 layers at narrow width in f32 on the card against the CPU;
+     then, as 29b, the three kernels at its attention's shape (B=4,
+     T=S=1024, H=K=32, D=64, bf16, causal) against their plain versions,
+     timed beside their bounds and SDPA;
+30b. the "dots" remat policy: one f32 step of phase 8's model under
+     "dots" and "full" (equal gradients), then 3 steps of phase 9's model
+     under each, step ms and peak memory beside phase 9's;
  14. print one JSON line with every ported kernel, then the result line.
 
 Serving (phases 5, 13, 15, 20, 22-24) decodes through one captured CUDA
@@ -274,8 +299,45 @@ JAMBA_TRAIN_CHECK = (2, 100)
 # steps of the default jamba train command on the card and the CPU (phase
 # 15; the CPU runs the plain scan, ~2 s a step)
 JAMBA_DEFAULT_STEPS = 6
+# phase 29: llama-3.2-vision-11b trained at full width on 10 of its 40
+# layers, two pattern groups (10 self-attention layers, 2 of them with a
+# gated cross-attention sublayer;
+# 3.316e9 parameters, ~58 GB at the 17.5 B a parameter that jamba's step
+# peaked at; 40 layers are 10.11e9, ~162 GB): (layers, batch, seq,
+# steps); its f32 card-vs-CPU step, one pattern group at narrow width (G
+# = 4 and head dim 128 kept), T 100 against encoder_len 160, both ragged
+# against the kernels' 64-row tiles: (batch, seq) and the config changes
+VLM = "llama-3.2-vision-11b"
+VLM_TRAIN = (10, 4, 1024, 4)
+VLM_CHECK = (2, 100)
+VLM_CHECK_CFG = dict(d_model=512, n_heads=4, n_kv_heads=1, d_ff=1024,
+                     encoder_len=160)
+# every cross-attention gate of a card-vs-CPU check: at its init of 0,
+# tanh(0) = 0 zeroes the sublayer's output and every gradient into it
+CROSS_GATE = 0.5
+# phase 29b: the cross-attention's shape, T 1024 queries against S =
+# encoder_len 4096 keys, non-causal
+CROSS_ATTENTION = dict(B=4, T=1024, S=4096, H=32, K=8, D=128, causal=False)
+# phase 30: musicgen-large trained at full width and depth (48 layers,
+# 3.238e9 parameters): (layers, batch, seq, steps); its f32 card-vs-CPU
+# step, 2 layers at narrow width (head dim 64 kept): (batch, seq) and the
+# config changes
+AUDIO = "musicgen-large"
+AUDIO_TRAIN = (48, 4, 1024, 4)
+AUDIO_CHECK = (2, 100)
+AUDIO_CHECK_CFG = dict(n_layers=2, d_model=512, n_heads=8, n_kv_heads=8,
+                       d_ff=1024)
+# musicgen-large's attention in phase 30's training: causal, head dim 64,
+# one query head a kv head
+AUDIO_ATTENTION = dict(B=4, T=1024, S=1024, H=32, K=32, D=64, causal=True)
+# phase 30b: steps of each remat policy on phase 9's yi-6b model
+DOTS_STEPS = 3
 T0 = 0.0             # the run's start on the host clock
 CARD = ""            # nvidia-smi's name and power limit, named by each phase
+# the flash kernels' rows: (part, name, the TPU kernel, the source)
+FLASH_PARTS = (("fwd", "flash_attention_fwd", TPU_KERNEL, KERNEL_SOURCE),
+               ("dq", "flash_attention_bwd_dq", TPU_DQ, BWD_SOURCE),
+               ("dkv", "flash_attention_bwd_dkv", TPU_DKV, BWD_SOURCE))
 # each kernel's design on the bf16 main paths
 DESIGN = {"flash_attention_fwd": "wgmma", "flash_attention_bwd_dq": "wgmma",
           "flash_attention_bwd_dkv": "wgmma",
@@ -600,30 +662,44 @@ def backward_phases(qkv) -> dict:
 
 def card_vs_cpu_step(cfg, B: int, T: int) -> dict:
     """One f32 train step of ``cfg`` on the card and on the CPU, from the
-    same weights (drawn on the card from seed 0) and tokens (seed 0).
+    same weights (drawn on the card from seed 0, every cross-attention gate
+    set to ``CROSS_GATE``) and batch (``launch.train``'s synthetic batch of
+    step 0, its encoder embeddings at unit scale).
     Returns both losses and MoE aux losses, the worst gradient as max|err|
     / max|ref| with its name, the number of gradients, the card's flash
-    launches by variant, and the aux vector of a no-grad train forward of
-    the card's model before the step (its last entry the fraction of
-    (token, choice) pairs that overflowing experts dropped)."""
+    launches by variant, the smallest max|gradient| of a cross-attention
+    projection (None without one), and the aux vector of a no-grad train
+    forward of the card's model before the step (its last entry the
+    fraction of (token, choice) pairs that overflowing experts dropped)."""
     import gc
 
     import torch
 
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.train import to_device
     from repro_torch.models.model import Model
     from repro_torch.optim import adamw
-    from repro_torch.train.step import make_train_step
+    from repro_torch.train.step import make_train_step, model_inputs
 
     dev, cpu = torch.device("cuda"), torch.device("cpu")
     t0 = time.perf_counter()
     m_gpu = Model(cfg, dev, trainable=True).init_weights(0)
+    with torch.no_grad():
+        for n, p in m_gpu.named_parameters():
+            if n.endswith(".gate"):
+                p.fill_(CROSS_GATE)
     m_cpu = Model(cfg, cpu, trainable=True)
     m_cpu.load_state_dict(m_gpu.state_dict())
-    toks = torch.randint(0, cfg.vocab_size, (B, T + 1),
-                         generator=torch.Generator().manual_seed(0))
-    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    batch = to_device(SyntheticTokens(cfg, DataConfig(batch=B, seq_len=T)
+                                      ).batch_at(0), cpu)
+    if "encoder_embeddings" in batch:
+        # drawn at unit scale, not the launcher's 0.02: at 0.02 the
+        # cross-attention's scores are near 0 and its projections' gradients
+        # near 1e-7, too small to hold the kernels' gradients to anything
+        batch["encoder_embeddings"] /= 0.02
     with torch.no_grad():
-        _, aux = m_gpu(batch["tokens"].to(dev), mode="train")
+        inputs, enc = model_inputs({k: v.to(dev) for k, v in batch.items()})
+        _, aux = m_gpu(inputs, mode="train", enc=enc)
     step = make_train_step(cfg, adamw.AdamWConfig())
     reset_counts()
     metrics = []
@@ -636,15 +712,19 @@ def card_vs_cpu_step(cfg, B: int, T: int) -> dict:
     scans = {k: n for k, n in read_counts().items() if k in NO_SCAN}
     cpu_grads = {n: p.grad for n, p in m_cpu.named_parameters()}
     worst, worst_name = 0.0, ""
+    cross = []
     for n, p in m_gpu.named_parameters():
         check(bool(torch.isfinite(p.grad).all()), f"non-finite gradient {n}")
         r = rel_err(p.grad.cpu(), cpu_grads[n])
         if r > worst:
             worst, worst_name = r, n
+        if ".cross.w" in n:
+            cross.append(float(p.grad.abs().max()))
     out = {"loss": [x["loss"] for x in metrics],
            "moe_aux": [x["moe_aux"] for x in metrics],
            "worst_grad_rel_err": worst, "worst_grad": worst_name,
            "grads": len(cpu_grads), "launched": used, "scans": scans,
+           "cross_grad_min_abs_max": min(cross) if cross else None,
            "aux": [float(x) for x in aux], "B": B, "T": T}
     del m_gpu, m_cpu, cpu_grads, aux
     gc.collect()
@@ -654,18 +734,21 @@ def card_vs_cpu_step(cfg, B: int, T: int) -> dict:
 
 
 def step_check(tag: str, label: str, cfg, B: int, T: int) -> dict:
-    """Phases 8, 26, 27 and 28: :func:`card_vs_cpu_step`, printed and held
-    to ``TRAIN_LOSS_TOL`` and ``TRAIN_GRAD_TOL``; every attention layer on
-    the card must run the scalar f32 forward, dq and dk/dv, once each, and
-    every mamba layer the scan's forward and backward kernels."""
+    """Phases 8 and 26-30: :func:`card_vs_cpu_step`, printed and held to
+    ``TRAIN_LOSS_TOL`` and ``TRAIN_GRAD_TOL``; every attention layer (and
+    every cross-attention sublayer) on the card must run the scalar f32
+    forward, dq and dk/dv, once each, every mamba layer the scan's forward
+    and backward kernels, and every cross-attention projection must get a
+    non-zero gradient."""
     r = card_vs_cpu_step(cfg, B, T)
-    n_attn = cfg.n_groups * sum(s.mixer == "attn" for s in cfg.pattern)
+    n_attn = cfg.n_groups * sum((s.mixer == "attn") + s.cross_attn
+                                for s in cfg.pattern)
     n_mamba = cfg.n_groups * sum(s.mixer == "mamba" for s in cfg.pattern)
     want = {k: n_attn for k in ("fwd/scalar", "dq/scalar", "dkv/scalar")
             if n_attn}
     scans = {"selective_scan": n_mamba, "selective_scan_bwd": n_mamba}
     # the remat recomputes each layer's forward
-    if cfg.remat == "full":
+    if cfg.remat != "none":
         scans["selective_scan"] *= 2
         if "fwd/scalar" in want:
             want["fwd/scalar"] *= 2
@@ -674,7 +757,9 @@ def step_check(tag: str, label: str, cfg, B: int, T: int) -> dict:
           f"{TRAIN_LOSS_TOL:g}), moe_aux {r['moe_aux'][0]:.6e} vs "
           f"{r['moe_aux'][1]:.6e}, worst gradient max|err|/max|ref| "
           f"{r['worst_grad_rel_err']:.3e} ({r['worst_grad']}, < "
-          f"{TRAIN_GRAD_TOL:g}) over {r['grads']} gradients, aux vector "
+          f"{TRAIN_GRAD_TOL:g}) over {r['grads']} gradients, smallest "
+          f"max|grad| of a cross-attention projection "
+          f"{r['cross_grad_min_abs_max']}, aux vector "
           f"{[round(x, 6) for x in r['aux']]}, {r['seconds']:.1f} s; card "
           f"launches {r['launched']}, {r['scans']}", flush=True)
     check(r["launched"] == want and r["scans"] == scans,
@@ -685,6 +770,8 @@ def step_check(tag: str, label: str, cfg, B: int, T: int) -> dict:
           f"{label}: train loss on the card disagrees with the CPU")
     check(r["worst_grad_rel_err"] < TRAIN_GRAD_TOL,
           f"{label}: train gradients on the card disagree with the CPU")
+    check(r["cross_grad_min_abs_max"] != 0.0,
+          f"{label}: a cross-attention projection got no gradient")
     return r
 
 
@@ -695,11 +782,7 @@ def train_phases():
     import torch
 
     from repro_torch.configs.archs import get_config
-    from repro_torch.models.model import Model
-    from repro_torch.optim import adamw
-    from repro_torch.train.step import make_train_step
 
-    dev = torch.device("cuda")
     # 8. one train step, card vs CPU, full width, 2 layers, f32
     cfg = dataclasses.replace(get_config("yi-6b", "full"), n_layers=2,
                               dtype="float32")
@@ -709,44 +792,17 @@ def train_phases():
     steps, B, T = 6, 4, 1024
     losses, stats, counts = train_run("9", "yi-6b", TRAIN_LAYERS, B, T, steps)
     L = stats["layers"]
-    per_step = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
-                "flash_attention_bwd_dkv": L, **NO_SCAN}
-    per_step_variants = variants_of({("fwd", "bfloat16"): 2 * L,
-                                     ("dq", "bfloat16"): L,
-                                     ("dkv", "bfloat16"): L})
-    check(all(s == per_step for s in stats["launches"]),
-          f"launches per step {stats['launches']}, expected {per_step}")
-    check(all({k: n for k, n in s.items() if n} == per_step_variants
-              for s in stats["launches_by_variant"]),
-          f"launches by variant per step {stats['launches_by_variant']}, "
-          f"expected {per_step_variants}")
-    check(counts == {k: steps * n for k, n in per_step.items()},
-          f"launches over the run {counts}, expected {steps} x {per_step} "
-          "and no scan")
+    check_train_launches("yi-6b", stats, counts, steps, (L, 0), 128)
 
     # 18. one profiled step of the same model and shape (train.main frees
     # its model when it returns: a model of the same seed takes its place)
     import gc
 
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
-
     gc.collect()
     torch.cuda.empty_cache()
     cfg = dataclasses.replace(get_config("yi-6b", "full"), n_layers=L)
-    model = Model(cfg, dev, trainable=True).init_weights(0)
-    opt_state = adamw.init_state(dict(model.named_parameters()))
-    batch = {k: torch.from_numpy(v).long().to(dev) for k, v in
-             SyntheticTokens(cfg, DataConfig(batch=B, seq_len=T)
-                             ).batch_at(0).items()}
-    step = make_train_step(cfg, adamw.AdamWConfig())
-    traced = traced_call(f"yi-6b train step ({L} layers, B={B} T={T})",
-                         lambda: step(model, opt_state, batch), cfg,
-                         ShapeConfig("train", T, B, "train"),
-                         phases=TRAIN_PHASES)
-    del model, opt_state, batch
-    gc.collect()
-    torch.cuda.empty_cache()
+    traced = traced_train_step(f"yi-6b train step ({L} layers, B={B} T={T})",
+                               cfg, B, T)
     return counts, stats, traced
 
 
@@ -1232,7 +1288,7 @@ def traced_call(label: str, fn, cfg, shape, phases=()) -> dict:
             "counted_flops": tally.flops, "counted_bytes": tally.bytes,
             "model_flops": mf, "useful_flops_fraction":
             roof.useful_flops_fraction, "mfu": step_mfu,
-            "launches_in_trace": seen}
+            "launches_in_trace": seen, "kernel_work": tally.kernels}
 
 
 HALO_BACKENDS = ("xla_auto", "explicit_serial", "explicit_overlap",
@@ -2212,7 +2268,8 @@ def train_run(tag: str, arch: str, layers: int, B: int, T: int,
           f"{stats['peak_memory_bytes']} B "
           f"({stats['peak_memory_bytes'] / 2**30:.2f} GiB); launches "
           f"{counts}; by variant, each step {stats['launches_by_variant'][0]}"
-          f"; by head dim, each step {stats['launches_by_head_dim'][0]}; "
+          f"; by head dim and mask, each step "
+          f"{stats['launches_by_shape'][0]}; "
           f"{CARD}", flush=True)
     check(stats["layers"] == layers,
           f"{arch}: trained {stats['layers']} layers, not {layers}")
@@ -2233,54 +2290,18 @@ def gemma3_train_phase() -> tuple:
     import torch
 
     from repro_torch.configs.archs import get_config
-    from repro_torch.configs.base import ShapeConfig
-    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
-    from repro_torch.models.model import Model
-    from repro_torch.optim import adamw
-    from repro_torch.train.step import make_train_step
 
     t0 = time.perf_counter()
     L, B, T, steps = GEMMA_TRAIN
     losses, stats, counts = train_run("26", "gemma3-12b", L, B, T, steps)
-    per_step = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
-                "flash_attention_bwd_dkv": L, **NO_SCAN}
-    variants = variants_of({("fwd", "bfloat16"): 2 * L,
-                            ("dq", "bfloat16"): L, ("dkv", "bfloat16"): L})
-    dims = {"fwd/256": 2 * L, "dq/256": L, "dkv/256": L}
-    check(all(s == per_step for s in stats["launches"])
-          and all({k: n for k, n in s.items() if n} == variants
-                  for s in stats["launches_by_variant"])
-          and all(s == dims for s in stats["launches_by_head_dim"]),
-          f"gemma3 launches per step {stats['launches']}, by variant "
-          f"{stats['launches_by_variant']}, by head dim "
-          f"{stats['launches_by_head_dim']}: {per_step}, {variants}, {dims} "
-          "expected")
-    check(counts == {k: steps * n for k, n in per_step.items()},
-          f"gemma3 launches over the run {counts}")
-    numbers = {k: stats[k] for k in ("layers", "params", "step_ms",
-                                     "mean_step_ms", "tokens_per_s",
-                                     "peak_memory_bytes")}
-    numbers.update(losses=losses, batch=B, seq=T,
-                   launches_by_head_dim=stats["launches_by_head_dim"][0])
+    check_train_launches("gemma3-12b", stats, counts, steps, (L, 0), 256)
+    numbers = train_numbers(stats, losses, B, T)
     del stats
     gc.collect()
     torch.cuda.empty_cache()
-
-    dev = torch.device("cuda")
     cfg = dataclasses.replace(get_config("gemma3-12b", "full"), n_layers=L)
-    model = Model(cfg, dev, trainable=True).init_weights(0)
-    opt_state = adamw.init_state(dict(model.named_parameters()))
-    batch = {k: torch.from_numpy(v).long().to(dev) for k, v in
-             SyntheticTokens(cfg, DataConfig(batch=B, seq_len=T)
-                             ).batch_at(0).items()}
-    step = make_train_step(cfg, adamw.AdamWConfig())
-    numbers["trace"] = traced_call(
-        f"gemma3-12b train step ({L} layers, B={B} T={T})",
-        lambda: step(model, opt_state, batch), cfg,
-        ShapeConfig("train", T, B, "train"), phases=TRAIN_PHASES)
-    del model, opt_state, batch
-    gc.collect()
-    torch.cuda.empty_cache()
+    numbers["trace"] = traced_train_step(
+        f"gemma3-12b train step ({L} layers, B={B} T={T})", cfg, B, T)
 
     # two layers, one windowed (its window cut so that it acts at T 160)
     # and the global one, at full width in f32
@@ -2316,20 +2337,11 @@ def moe_xlstm_train_phase() -> tuple:
     for arch, (L, B, T, steps) in (("granite-moe-3b-a800m", GRANITE_TRAIN),
                                    ("xlstm-125m", XLSTM_TRAIN)):
         losses, stats, counts = train_run("27", arch, L, B, T, steps)
-        pattern = get_config(arch, "full").pattern
-        n_attn = L // len(pattern) * sum(s.mixer == "attn" for s in pattern)
-        per_step = {"flash_attention_fwd": 2 * n_attn,
-                    "flash_attention_bwd_dq": n_attn,
-                    "flash_attention_bwd_dkv": n_attn, **NO_SCAN}
-        variants = variants_of({("fwd", "bfloat16"): 2 * n_attn,
-                                ("dq", "bfloat16"): n_attn,
-                                ("dkv", "bfloat16"): n_attn})
-        check(all(s == per_step for s in stats["launches"])
-              and all({k: n for k, n in s.items() if n} == variants
-                      for s in stats["launches_by_variant"]),
-              f"{arch} launches per step {stats['launches']}, by variant "
-              f"{stats['launches_by_variant']}: {per_step}, {variants} "
-              "expected")
+        full = get_config(arch, "full")
+        n_attn = L // len(full.pattern) * sum(s.mixer == "attn"
+                                              for s in full.pattern)
+        check_train_launches(arch, stats, counts, steps, (n_attn, 0),
+                             full.head_dim)
         if n_attn:
             moe = stats["moe_aux"] + stats["moe_load_balance"]
             check(all(math.isfinite(x) and x > 0 for x in moe),
@@ -2584,6 +2596,422 @@ def jamba_train_phase() -> tuple:
         ccfg, *JAMBA_TRAIN_CHECK)
     numbers["phase_s"] = time.perf_counter() - t0
     print(f"[28] jamba training took {numbers['phase_s']:.1f} s", flush=True)
+    return counts, numbers
+
+
+def train_numbers(stats: dict, losses: list, B: int, T: int) -> dict:
+    """The numbers of a ``train_run`` that the result line keeps."""
+    numbers = {k: stats[k] for k in ("layers", "params", "step_ms",
+                                     "mean_step_ms", "tokens_per_s",
+                                     "peak_memory_bytes")}
+    numbers.update(losses=losses, batch=B, seq=T,
+                   launches_by_shape=stats["launches_by_shape"][0],
+                   launches_by_shape_run={
+                       k: sum(s.get(k, 0) for s in stats["launches_by_shape"])
+                       for k in stats["launches_by_shape"][0]})
+    return numbers
+
+
+def check_train_launches(label: str, stats: dict, counts: dict, steps: int,
+                         layers: tuple, D: int) -> None:
+    """Fail unless every step of a bf16 training run under full remat
+    launched, for ``layers`` = (causal attention layers, cross-attention
+    sublayers), 2 forwards (the forward and the recompute), 1 dq and 1
+    dk/dv for each, all wgmma at head dim ``D``, causal and non-causal as
+    the layers are, and no scan."""
+    causal, cross = layers
+    n = causal + cross
+    per_step = {"flash_attention_fwd": 2 * n, "flash_attention_bwd_dq": n,
+                "flash_attention_bwd_dkv": n, **NO_SCAN}
+    variants = variants_of({("fwd", "bfloat16"): 2 * n,
+                            ("dq", "bfloat16"): n, ("dkv", "bfloat16"): n})
+    shapes = {f"{k}/{D}/{m}": c * (2 if k == "fwd" else 1)
+              for m, c in (("causal", causal), ("non-causal", cross))
+              for k in ("fwd", "dq", "dkv") if c}
+    check(all(s == per_step for s in stats["launches"])
+          and all({k: c for k, c in s.items() if c} == variants
+                  for s in stats["launches_by_variant"])
+          and all(s == shapes for s in stats["launches_by_shape"]),
+          f"{label} launches per step {stats['launches']}, by variant "
+          f"{stats['launches_by_variant']}, by head dim and mask "
+          f"{stats['launches_by_shape']}: {per_step}, {variants}, {shapes} "
+          f"expected")
+    check(counts == {k: steps * c for k, c in per_step.items()},
+          f"{label} launches over the run {counts}")
+
+
+def traced_train_step(label: str, cfg, B: int, T: int) -> dict:
+    """Phase 18's profiled step (:func:`traced_call`) of a model of
+    ``cfg`` (seed 0, as ``launch.train`` draws it) on the synthetic batch of
+    step 0; the model is freed after."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.train import to_device
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+
+    dev = torch.device("cuda")
+    model = Model(cfg, dev, trainable=True).init_weights(0)
+    opt_state = adamw.init_state(dict(model.named_parameters()))
+    batch = to_device(SyntheticTokens(cfg, DataConfig(batch=B, seq_len=T)
+                                      ).batch_at(0), dev)
+    step = make_train_step(cfg, adamw.AdamWConfig())
+    trace = traced_call(label, lambda: step(model, opt_state, batch), cfg,
+                        ShapeConfig("train", T, B, "train"),
+                        phases=TRAIN_PHASES)
+    del model, opt_state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return trace
+
+
+def vlm_train_phase() -> tuple:
+    """Phase 29: train llama-3.2-vision-11b at full width, 10 of its 40
+    layers (two pattern groups: 10 self-attention layers, 2 of which add
+    a gated cross-attention sublayer over 4096 encoder embeddings), B 4,
+    seq 1024, 4 steps, through ``launch.train.main``: every step 24
+    forwards (20 causal at T = S = 1024, 4 non-causal at T 1024 against S
+    4096), 12 dq and 12 dk/dv (2 of each non-causal), all wgmma at head
+    dim 128; one profiled step, whose
+    counted forward FLOPs must split so; then one f32 pattern group at
+    narrow width on the card against the CPU. Returns (the run's launch
+    counts, its numbers)."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.core.cost import attention_work
+
+    t0 = time.perf_counter()
+    L, B, T, steps = VLM_TRAIN
+    full = get_config(VLM, "full")
+    cfg = dataclasses.replace(full, n_layers=L)
+    n_self = cfg.n_groups * sum(s.mixer == "attn" for s in cfg.pattern)
+    n_cross = cfg.n_groups * sum(s.cross_attn for s in cfg.pattern)
+    check((n_self, n_cross) == (10, 2),
+          f"{VLM}: {n_self} attention layers, {n_cross} cross-attention")
+    losses, stats, counts = train_run("29", VLM, L, B, T, steps)
+    check_train_launches(VLM, stats, counts, steps, (n_self, n_cross),
+                         cfg.head_dim)
+    numbers = train_numbers(stats, losses, B, T)
+    del stats
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    trace = traced_train_step(
+        f"{VLM} train step ({L} layers, B={B} T={T}, encoder_len "
+        f"{cfg.encoder_len})", cfg, B, T)
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    want = 2 * (n_self * attention_work(B, T, T, H, K, D, True, None, 2)[0]
+                + n_cross * attention_work(B, T, cfg.encoder_len, H, K, D,
+                                           False, None, 2)[0])
+    got = trace["kernel_work"]["flash_attention_fwd"]["flops"]
+    print(f"[29] counted forward FLOPs a step {got:.6e}: {2 * n_self} causal "
+          f"at T = S = {T} and {2 * n_cross} non-causal at S "
+          f"{cfg.encoder_len} give {want:.6e}", flush=True)
+    check(got == want, f"{VLM}: the forwards' counted FLOPs {got} are not "
+          f"those of {2 * n_self} causal and {2 * n_cross} cross calls")
+    numbers["trace"] = trace
+
+    ccfg = dataclasses.replace(full, n_layers=len(full.pattern),
+                               dtype="float32", **VLM_CHECK_CFG)
+    numbers["check"] = step_check(
+        "29", f"{VLM} one pattern group, {VLM_CHECK_CFG}, gates "
+        f"{CROSS_GATE}", ccfg, *VLM_CHECK)
+    numbers["phase_s"] = time.perf_counter() - t0
+    print(f"[29] took {numbers['phase_s']:.1f} s", flush=True)
+    return counts, numbers
+
+
+def attention_shape_phase(tag: str, label: str, c: dict) -> dict:
+    """Phases 29b and 30: the forward, dq and dk/dv kernels at a training
+    path's attention shape (``c``: B, T, S, H, K, D, causal; bf16) against
+    their plain versions on the card, with the bounds of phases 3 and 6;
+    then each kernel's time (twice), the plain versions', scaled_dot_
+    product_attention's forward and backward (yardstick only) and the
+    least time the card could take."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import kernel, ops, ref
+
+    t0 = time.perf_counter()
+    B, T, S, H, K, D, causal = (c[x] for x in ("B", "T", "S", "H", "K", "D",
+                                               "causal"))
+    mask = "causal" if causal else "non-causal"
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(int(tag[:2]))
+    rn = lambda *shape: torch.randn(shape, generator=gen, device=dev).to(
+        torch.bfloat16)
+    q, do = rn(B, T, H, D), rn(B, T, H, D)
+    k, v = rn(B, S, K, D), rn(B, S, K, D)
+    reset_counts()
+    out, lse = ops.flash_attention(q, k, v, causal=causal)
+    r_out, r_lse = ref.flash_attention_ref(q, k, v, causal=causal)
+    got = ops.flash_attention_bwd(q, k, v, r_out, r_lse, do, causal=causal)
+    torch.cuda.synchronize()
+    used = read_variants()
+    want = ref.flash_attention_bwd_ref(q, k, v, r_out, r_lse, do,
+                                       causal=causal)
+    e_out = float((out.float() - r_out.float()).abs().max())
+    e_lse = float((lse - r_lse).abs().max())
+    rels = [rel_err(a, b) for a, b in zip(got, want)]
+    abss = [float((a.float() - b.float()).abs().max())
+            for a, b in zip(got, want)]
+    tol = GRAD_TOL["bfloat16"]
+    print(f"[{tag}] {label} (B={B} T={T} S={S} H={H} K={K} D={D}, bf16, "
+          f"{mask}): out max|err| {e_out:.3e} (< {OUT_TOL['bfloat16']:g})"
+          f", lse {e_lse:.3e} (< {LSE_TOL:g}); dq/dk/dv max|err|/max|ref| "
+          f"{rels[0]:.3e} / {rels[1]:.3e} / {rels[2]:.3e} (< {tol:g}), "
+          f"max|err| {abss[0]:.3e} / {abss[1]:.3e} / {abss[2]:.3e}; {used}",
+          flush=True)
+    check(used == {"fwd/wgmma": 1, "dq/wgmma": 1, "dkv/wgmma": 1},
+          f"the {label} launched {used}")
+    check(e_out < OUT_TOL["bfloat16"] and e_lse < LSE_TOL,
+          f"the forward disagrees with its plain version at the {label}")
+    check(all(r < tol for r in rels),
+          f"the backward kernels disagree with the plain version at the "
+          f"{label}")
+    del got, want
+
+    delta = (do.float() * r_out.float()).sum(-1).transpose(1, 2).contiguous()
+    r_lse = r_lse.contiguous()
+    run = {"fwd": lambda: kernel.flash_fwd(q, k, v, causal=causal),
+           "dq": lambda: kernel.flash_bwd_dq(q, k, v, do, r_lse, delta,
+                                             causal=causal),
+           "dkv": lambda: kernel.flash_bwd_dkv(q, k, v, do, r_lse, delta,
+                                               causal=causal)}
+    ms = {name: cuda_ms(fn) for name, fn in run.items()}
+    plain_fwd = cuda_ms(lambda: ref.flash_attention_ref(q, k, v,
+                                                        causal=causal),
+                        iters=3, warmup=1)
+    plain_bwd = cuda_ms(lambda: ref.flash_attention_bwd_ref(
+        q, k, v, r_out, r_lse, do, causal=causal), iters=3, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    lib_fwd = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                   enable_gqa=True))
+    ot = sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+    dot = do.transpose(1, 2).contiguous()
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                                  retain_graph=True))
+    backend = sdpa_backend(lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                        enable_gqa=True))
+    again = {name: cuda_ms(fn) for name, fn in run.items()}
+    bounds = {"fwd": attention_bound_ms(B, T, S, H, K, D, causal, None, 2,
+                                        PEAK_BF16_FLOPS)}
+    bounds.update(backward_bound_ms(B, T, S, H, K, D, causal, None, 2,
+                                    PEAK_BF16_FLOPS))
+    result = {"shape": f"B={B} T={T} S={S} H={H} K={K} D={D} bf16 {mask}",
+              "max_abs_err": {"fwd": e_out, "dq": abss[0],
+                              "dkv": max(abss[1:])},
+              "rel_err": {"dq": rels[0], "dkv": max(rels[1:])},
+              "lse_max_abs_err": e_lse, "plain_ms": {"fwd": plain_fwd,
+                                                     "bwd": plain_bwd},
+              "library_ms": {"fwd": lib_fwd, "bwd": lib_bwd},
+              "library_backend": backend, "timing": {}}
+    for name in run:
+        b_ms, b_by, flops, nbytes = bounds[name]
+        result["timing"][name] = {"ms": ms[name], "ms_again": again[name],
+                                  "bound_ms": b_ms, "bound_by": b_by}
+        print(f"[{tag}] {name}: kernel {ms[name]:.3f} / {again[name]:.3f} ms; "
+              f"bound {b_ms:.4f} ms ({b_by}: {flops:.3e} FLOP, "
+              f"{nbytes / 1e6:.1f} MB), kernel at {b_ms / ms[name]:.2%} of "
+              f"bound", flush=True)
+    print(f"[{tag}] plain forward {plain_fwd:.3f} ms, plain backward (dq, dk, "
+          f"dv together) {plain_bwd:.3f} ms; sdpa forward {lib_fwd:.3f} ms, "
+          f"backward (dq, dk, dv together) {lib_bwd:.3f} ms ({backend}); "
+          f"{CARD}", flush=True)
+    del q, k, v, do, out, lse, r_out, r_lse, delta, qt, kt, vt, ot, dot
+    torch.cuda.empty_cache()
+    result["phase_s"] = time.perf_counter() - t0
+    print(f"[{tag}] {label} took {result['phase_s']:.1f} s", flush=True)
+    return result
+
+
+def audio_train_phase() -> tuple:
+    """Phase 30: train musicgen-large at full width and depth (48 layers,
+    frame input, 4 codebooks), B 4, seq 1024, 4 steps, through
+    ``launch.train.main``: every step 96 forwards, 48 dq and 48 dk/dv, all
+    causal wgmma at head dim 64; one profiled step; then 2 layers at narrow
+    width in f32 on the card against the CPU. Returns (the run's launch
+    counts, its numbers)."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.archs import get_config
+
+    t0 = time.perf_counter()
+    L, B, T, steps = AUDIO_TRAIN
+    full = get_config(AUDIO, "full")
+    check(full.n_layers == L and full.input_mode == "frames",
+          f"{AUDIO}: {full.n_layers} layers, input {full.input_mode}")
+    shape = (full.n_heads, full.n_kv_heads, full.head_dim, B, T)
+    want = tuple(AUDIO_ATTENTION[x] for x in ("H", "K", "D", "B", "T"))
+    check(shape == want, f"{AUDIO}'s attention {shape} is not "
+                         f"AUDIO_ATTENTION's {want}")
+    losses, stats, counts = train_run("30", AUDIO, L, B, T, steps)
+    check_train_launches(AUDIO, stats, counts, steps, (L, 0), full.head_dim)
+    numbers = train_numbers(stats, losses, B, T)
+    del stats
+    gc.collect()
+    torch.cuda.empty_cache()
+    numbers["trace"] = traced_train_step(
+        f"{AUDIO} train step ({L} layers, B={B} T={T})", full, B, T)
+    ccfg = dataclasses.replace(full, dtype="float32", **AUDIO_CHECK_CFG)
+    numbers["check"] = step_check("30", f"{AUDIO} {AUDIO_CHECK_CFG}", ccfg,
+                                  *AUDIO_CHECK)
+    numbers["phase_s"] = time.perf_counter() - t0
+    print(f"[30] took {numbers['phase_s']:.1f} s", flush=True)
+    return counts, numbers
+
+
+def _count_mm_mode():
+    from torch.utils._python_dispatch import TorchDispatchMode
+    import torch
+
+    class CountMM(TorchDispatchMode):
+        """Counts the ``aten.mm`` calls dispatched inside it."""
+
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += func is torch.ops.aten.mm.default
+            return func(*args, **(kwargs or {}))
+
+    return CountMM
+
+
+def dots_phase(full_stats: dict) -> tuple:
+    """Phase 30b: the "dots" remat policy on the card. One f32 train step
+    of phase 8's 2-layer yi-6b under "dots" and under "full", from the same
+    weights and batch: every gradient equal; then ``DOTS_STEPS`` steps of
+    phase 9's model (8 layers, B 4, T 1024) under each policy, "dots"
+    first: step ms and peak memory, beside phase 9's, and one profiled
+    step of each (phase 18's). Returns (the dots run's launch counts, its
+    numbers)."""
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.train import to_device
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    CountMM = _count_mm_mode()
+    cfg = dataclasses.replace(get_config("yi-6b", "full"), n_layers=2,
+                              dtype="float32")
+    batch = to_device(SyntheticTokens(cfg, DataConfig(batch=2, seq_len=100)
+                                      ).batch_at(0), dev)
+    grads, mms = {}, {}
+    for remat in ("full", "dots"):
+        c = dataclasses.replace(cfg, remat=remat)
+        m = Model(c, dev, trainable=True).init_weights(0)
+        with CountMM() as count:
+            make_train_step(c, adamw.AdamWConfig(lr=0.0))(
+                m, adamw.init_state(dict(m.named_parameters())), batch)
+        grads[remat] = {n: p.grad for n, p in m.named_parameters()}
+        mms[remat] = count.n
+        del m
+    worst = max(rel_err(g, grads["full"][n])
+                for n, g in grads["dots"].items())
+    same = all(torch.equal(g, grads["full"][n])
+               for n, g in grads["dots"].items())
+    # each layer's 7 products (wq, wk, wv, wo, wg, wi, wo): "full"
+    # recomputes the first 6 (the recompute stops after the last tensor the
+    # backward needs), "dots" keeps them all
+    saved = 6 * cfg.n_layers
+    print(f"[30b] yi-6b width, 2 layers, f32: dots vs full gradients, worst "
+          f"max|err|/max|ref| {worst:.3e} (< 1e-5), bit-identical {same}; "
+          f"aten.mm calls a step {mms} ({saved} fewer under dots expected)",
+          flush=True)
+    check(worst < 1e-5, "the dots policy changes the gradients")
+    check(mms["full"] - mms["dots"] == saved,
+          f"dots recomputed products: aten.mm calls {mms}")
+    del grads, batch
+
+    L, B, T = TRAIN_LAYERS, 4, 1024
+    numbers = {"grad_rel_err": worst, "grads_bit_identical": same,
+               "layers": L, "batch": B, "seq": T, "steps": DOTS_STEPS,
+               "phase9_full": {k: full_stats[k] for k in (
+                   "mean_step_ms", "tokens_per_s", "peak_memory_bytes")}}
+    counts = None
+    for remat in ("dots", "full"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        c = dataclasses.replace(get_config("yi-6b", "full"), n_layers=L,
+                                remat=remat)
+        model = Model(c, dev, trainable=True).init_weights(0)
+        opt_state = adamw.init_state(dict(model.named_parameters()))
+        step = make_train_step(c, adamw.AdamWConfig(
+            lr=3e-4, warmup_steps=2, total_steps=DOTS_STEPS))
+        data = SyntheticTokens(c, DataConfig(batch=B, seq_len=T))
+        reset_counts()
+        losses, step_ms = [], []
+        for i in range(DOTS_STEPS):
+            batch = to_device(data.batch_at(i), dev)
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            losses.append(float(step(model, opt_state, batch)["loss"]))
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+        peak = torch.cuda.max_memory_allocated(dev)
+        mean_ms = sum(step_ms[1:]) / (DOTS_STEPS - 1)
+        run_counts = read_counts()
+        numbers[remat] = {"losses": losses, "step_ms": step_ms,
+                          "mean_step_ms": mean_ms,
+                          "tokens_per_s": B * T / (mean_ms / 1e3),
+                          "peak_memory_bytes": peak, "launches": run_counts}
+        trace = traced_call(
+            f"yi-6b train step ({L} layers, B={B} T={T}, remat {remat})",
+            lambda: step(model, opt_state, batch), c,
+            ShapeConfig("train", T, B, "train"), phases=TRAIN_PHASES)
+        numbers[remat]["trace"] = {k: trace[k] for k in (
+            "wall_ms", "busy_ms", "idle_share", "by_phase")}
+        print(f"[30b] yi-6b full width, {L} layers, B={B} T={T}, remat "
+              f"{remat}: losses {', '.join(f'{x:.4f}' for x in losses)}; "
+              f"step ms {', '.join(f'{x:.1f}' for x in step_ms)}, mean after "
+              f"the first {mean_ms:.1f} ms; peak memory {peak} B "
+              f"({peak / 2**30:.2f} GiB); launches {run_counts}; {CARD}",
+              flush=True)
+        check(all(math.isfinite(x) for x in losses),
+              f"remat {remat}: non-finite losses {losses}")
+        # the flash forward runs again in the backward under both policies
+        per_step = {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+                    "flash_attention_bwd_dkv": L, **NO_SCAN}
+        check(run_counts == {k: DOTS_STEPS * n for k, n in per_step.items()},
+              f"remat {remat}: launches {run_counts}")
+        if remat == "dots":
+            counts = run_counts
+        del model, opt_state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(max(abs(a - b) for a, b in zip(numbers["dots"]["losses"],
+                                         numbers["full"]["losses"]))
+          < DEFAULT_LOSS_TOL,
+          f"dots and full train to other losses: {numbers['dots']['losses']}"
+          f", {numbers['full']['losses']}")
+    print(f"[30b] phase 9 (full, {full_stats['layers']} layers, 6 steps): "
+          f"mean {full_stats['mean_step_ms']:.1f} ms, peak "
+          f"{full_stats['peak_memory_bytes'] / 2**30:.2f} GiB", flush=True)
+    numbers["phase_s"] = time.perf_counter() - t0
+    print(f"[30b] took {numbers['phase_s']:.1f} s", flush=True)
     return counts, numbers
 
 
@@ -2990,20 +3418,43 @@ def main() -> None:
     train_paths, moe_xlstm_train = moe_xlstm_train_phase()
     scan_bwd = scan_backward_phase(sms, clock_hz, reports)
     jamba_train_counts, jamba_train = jamba_train_phase()
+    vlm_counts, vlm_train = vlm_train_phase()
+    cross = attention_shape_phase("29b", "cross shape", CROSS_ATTENTION)
+    audio_counts, audio_train = audio_train_phase()
+    audio_attention = attention_shape_phase("30", "musicgen's shape",
+                                            AUDIO_ATTENTION)
+    dots_counts, dots = dots_phase(train_stats)
     default_counts = default_commands_phase()
     d16 = d16_timing_phase(qkv)
     halo_counts, halo = halo_phase()
 
-    print(f"[14] phases 1-28 took {time.perf_counter() - T0:.1f} s", flush=True)
+    print(f"[14] phases 1-30b took {time.perf_counter() - T0:.1f} s",
+          flush=True)
 
-    # 14. result lines; gemma3's training counts go to the D = 256 rows
+    # 14. result lines; gemma3's training counts go to the D = 256 rows,
+    # granite's and musicgen's (head dim 64) to the D = 64 rows, the vlm's
+    # non-causal ones to the cross rows, the default commands' flash
+    # launches to the D = 16 rows: each row's launches were timed at its
+    # shape
+    vlm_run = vlm_train["launches_by_shape_run"]
+    vlm_by_mask = {mask: dict(vlm_counts, **{
+        name: vlm_run.get(f"{part}/128/{mask}", 0)
+        for part, name, _, _ in FLASH_PARTS}) for mask in ("causal",
+                                                           "non-causal")}
+    d64_paths = {"train_granite": train_paths.pop("train_granite"),
+                 "train_audio": audio_counts}
     paths = {"serve": serve_counts, "train": train_counts,
              "serve_jamba": jamba_counts, **default_counts,
              "halo": halo_counts, "serve_telemetry": telemetry_counts,
-             "train_jamba": jamba_train_counts, **train_paths}
+             "train_jamba": jamba_train_counts, **train_paths,
+             "train_vlm": vlm_by_mask["causal"], "train_dots": dots_counts}
+
+    d16_paths = ("serve_default", "serve_jamba_default", "train_default",
+                 "train_jamba_default")
 
     def launches_of(name):
-        by_path = {p: c[name] for p, c in paths.items()}
+        by_path = {p: c[name] for p, c in paths.items()
+                   if not (name.startswith("flash") and p in d16_paths)}
         return sum(by_path.values()), by_path
 
     shape = "B=4 T=1024 H=32 K=4 D=128 bf16 causal"
@@ -3055,12 +3506,7 @@ def main() -> None:
             "card": card,
         })
     # the head-dim-16 instantiations, on the default commands' paths
-    d16_paths = ("serve_default", "serve_jamba_default", "train_default",
-                 "train_jamba_default")
-    for part, name, replaces, source in (
-            ("fwd", "flash_attention_fwd", TPU_KERNEL, KERNEL_SOURCE),
-            ("dq", "flash_attention_bwd_dq", TPU_DQ, BWD_SOURCE),
-            ("dkv", "flash_attention_bwd_dkv", TPU_DKV, BWD_SOURCE)):
+    for part, name, replaces, source in FLASH_PARTS:
         t = d16[part]
         if part == "fwd":
             err = errs["bf16 D=16 default commands"][0]
@@ -3159,6 +3605,39 @@ def main() -> None:
             "shape": "B=2 T=2048 H=16 K=8 D=256 bf16 window 1024, causal",
             "card": card,
         })
+    # the cross-attention's shape, on the vlm training path (its
+    # non-causal launches), and head dim 64 on granite's and musicgen's
+    for suffix, res, D, row_paths in (
+            ("cross", cross, 128,
+             {"train_vlm": vlm_by_mask["non-causal"]}),
+            ("D=64", audio_attention, 64, d64_paths)):
+        for part, name, replaces, source in FLASH_PARTS:
+            t = res["timing"][part]
+            by_path = {p: c[name] for p, c in row_paths.items()}
+            kernels.append({
+                "name": f"{name}[{suffix}]",
+                "route": "cuda",
+                "design": DESIGN[name],
+                "source": source,
+                "replaces": replaces,
+                "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                "max_abs_err": res["max_abs_err"][part],
+                "ms": t["ms"],
+                "ms_again": t["ms_again"],
+                "plain_ms": res["plain_ms"]["fwd" if part == "fwd"
+                                            else "bwd"],
+                "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"],
+                "library_ms": res["library_ms"]["fwd" if part == "fwd"
+                                                else "bwd"],
+                "library_backend": res["library_backend"],
+                "ptxas": reports.get(
+                    f"{'flash_fwd' if part == 'fwd' else 'flash_bwd_' + part}"
+                    f"_wgmma_kernel<{D}>"),
+                "shape": res["shape"],
+                "card": card,
+            })
     total, by_path = launches_of("selective_scan")
     t = scan["timing"]
     kernels.append({
@@ -3230,6 +3709,11 @@ def main() -> None:
                       "train_gemma3": gemma_train,
                       "train_moe_xlstm": moe_xlstm_train,
                       "train_jamba": jamba_train,
+                      "train_vlm": vlm_train,
+                      "train_audio": audio_train,
+                      "cross_attention": cross,
+                      "audio_attention": audio_attention,
+                      "remat_dots": dots,
                       "scan_backward": {k: v for k, v in scan_bwd.items()
                                         if k != "timing"},
                       "captured_vs_eager_yi6b": yi_decode,
@@ -3239,6 +3723,9 @@ def main() -> None:
                                         "train_gemma3": gemma_train.pop(
                                             "trace"),
                                         "train_jamba": jamba_train.pop(
+                                            "trace"),
+                                        "train_vlm": vlm_train.pop("trace"),
+                                        "train_audio": audio_train.pop(
                                             "trace"),
                                         "serve": serve_trace,
                                         "serve_jamba": jamba["trace"]}}))

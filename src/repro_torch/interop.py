@@ -39,10 +39,14 @@ def params_from_jax(np_tree: Dict[str, Any], cfg: ModelConfig,
     ``l % len(pattern)``. Nested leaves (``mixer.A_log``, ``ffn.router``)
     keep their paths, stacked experts ``(n_groups, Ne, E, F)`` become
     ``(Ne, E, F)``, and every leaf keeps its dtype until
-    ``load_state_dict`` copies it into the parameter's."""
+    ``load_state_dict`` copies it into the parameter's. A ``frames``
+    model has no ``embed``."""
     plen = len(cfg.pattern)
     state: Dict[str, torch.Tensor] = {}
-    for name in ("embed", "final_norm", "lm_head"):
+    top = ("final_norm", "lm_head")
+    if cfg.input_mode != "frames":
+        top = ("embed",) + top
+    for name in top:
         state[name] = tensor_from_numpy(np_tree[name], device)
     for l in range(cfg.n_layers):
         group = np_tree[f"pos{l % plen}"]

@@ -15,8 +15,10 @@ Launch counts, plain integers on ``flash_attention``: ``launches``
 kernel launch under "<kernel>/<variant>" (``fwd``, ``dq``, ``dkv``;
 ``wgmma`` or ``scalar``) as the C entry reports the kernel it ran: bf16
 inputs run all three on the tensor cores (``wgmma``), f32 inputs on the
-scalar f32 kernels; ``launches_by_head_dim`` counts them under
-"<kernel>/<head dim>" (``fwd/256``, ``dq/128``, ...). Inside a
+scalar f32 kernels; ``launches_by_shape`` counts them under
+"<kernel>/<head dim>/<mask>" (``fwd/256/causal``, ``dq/128/non-causal``,
+...; a window counts as causal, non-causal is the cross-attention's T
+queries against S keys). Inside a
 :func:`repro_torch.core.cost.count_cost` block each launch also adds its
 FLOPs and bytes, from its shapes.
 """
@@ -65,7 +67,7 @@ def flash_attention(
     if q.is_cuda:
         out = kernel.flash_fwd(q, k, v, causal=causal, window=window)
         flash_attention.launches += 1
-        flash_attention.launches_by_head_dim[f"fwd/{q.shape[-1]}"] += 1
+        flash_attention.launches_by_shape[_shape("fwd", q, causal)] += 1
         if cost.counting():
             cost.add_kernel("flash_attention_fwd", *cost.attention_work(
                 *_dims(q, k), causal, window, q.element_size()))
@@ -77,8 +79,13 @@ flash_attention.launches = 0
 flash_attention.bwd_dq_launches = 0
 flash_attention.bwd_dkv_launches = 0
 flash_attention.launches_by_variant = kernel.launches_by_variant
-flash_attention.launches_by_head_dim = {
-    f"{name}/{D}": 0 for name, dims in kernel.HEAD_DIMS.items() for D in dims}
+flash_attention.launches_by_shape = {
+    f"{name}/{D}/{mask}": 0 for name, dims in kernel.HEAD_DIMS.items()
+    for D in dims for mask in ("causal", "non-causal")}
+
+
+def _shape(name: str, q: torch.Tensor, causal: bool) -> str:
+    return f"{name}/{q.shape[-1]}/{'causal' if causal else 'non-causal'}"
 
 
 def flash_attention_bwd(
@@ -101,11 +108,11 @@ def flash_attention_bwd(
     dq = kernel.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal,
                              window=window)
     flash_attention.bwd_dq_launches += 1
-    flash_attention.launches_by_head_dim[f"dq/{q.shape[-1]}"] += 1
+    flash_attention.launches_by_shape[_shape("dq", q, causal)] += 1
     dk, dv = kernel.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal,
                                   window=window)
     flash_attention.bwd_dkv_launches += 1
-    flash_attention.launches_by_head_dim[f"dkv/{q.shape[-1]}"] += 1
+    flash_attention.launches_by_shape[_shape("dkv", q, causal)] += 1
     if cost.counting():
         work = cost.backward_work(*_dims(q, k), causal, window,
                                   q.element_size())

@@ -3,21 +3,24 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b \
         --preset full --layers 8 --batch 4 --seq 1024 --steps 6
 
-Every token-input family the reference trains: dense (yi-6b, ...),
-sliding windows and head dim 256 (gemma3-12b), MoE (granite-moe-3b-a800m,
-deepseek-moe-16b), xLSTM (xlstm-125m) and the mamba/attention/MoE hybrid
-(jamba-v0.1-52b). ``--layers`` rounds down to whole pattern groups.
+Every family the reference trains: dense (yi-6b, ...), sliding windows
+and head dim 256 (gemma3-12b), MoE (granite-moe-3b-a800m,
+deepseek-moe-16b), xLSTM (xlstm-125m), the mamba/attention/MoE hybrid
+(jamba-v0.1-52b), gated cross-attention over encoder embeddings
+(llama-3.2-vision-11b) and frame input with 4 codebooks
+(musicgen-large). ``--layers`` rounds down to whole pattern groups.
 
 Wires the port's pieces together: config -> f32 master weights on one
 device -> profiled train loop -> async checkpoints -> straggler detector ->
 trace export. Runs on the CUDA card unless ``--device cpu`` is given; with
 no card and no ``--device cpu`` it raises. Weights are random, made from
-seed 0; the data is the synthetic bigram stream. Attention runs the CUDA
-flash-attention forward and, in the backward, the dq and dk/dv kernels; a
-mamba layer the selective-scan forward and its backward kernel. ``stats``
-counts their launches each step by kernel (flash attention also by
-variant and by head dim), and holds each step's MoE aux loss and load
-balance.
+seed 0; the data is the synthetic bigram stream (random frames and
+encoder embeddings beside it, for the families that take them).
+Attention runs the CUDA flash-attention forward and, in the backward, the
+dq and dk/dv kernels; a mamba layer the selective-scan forward and its
+backward kernel. ``stats`` counts their launches each step by kernel
+(flash attention also by variant, and by head dim and mask: causal or
+not), and holds each step's MoE aux loss and load balance.
 """
 from __future__ import annotations
 
@@ -52,6 +55,16 @@ def _launch_counts() -> Dict[str, int]:
             "flash_attention_bwd_dkv": flash_attention.bwd_dkv_launches,
             "selective_scan": selective_scan.launches,
             "selective_scan_bwd": selective_scan.bwd_launches}
+
+
+def to_device(batch: Dict[str, Any], device: torch.device
+              ) -> Dict[str, torch.Tensor]:
+    """A numpy batch on ``device``: integer arrays (tokens, labels) as
+    int64, float arrays (frames, encoder embeddings) as f32; the model
+    casts those to its compute dtype, as the JAX package does."""
+    return {k: torch.from_numpy(v).to(
+        device, torch.long if v.dtype.kind in "iu" else torch.float32)
+        for k, v in batch.items()}
 
 
 def main(argv=None) -> Tuple[List[float], Dict[str, Any]]:
@@ -134,17 +147,16 @@ def main(argv=None) -> Tuple[List[float], Dict[str, Any]]:
     step_ms: List[float] = []
     launches: List[Dict[str, int]] = []
     by_variant: List[Dict[str, int]] = []
-    by_head_dim: List[Dict[str, int]] = []
+    by_shape: List[Dict[str, int]] = []
     moe_aux: List[float] = []
     moe_load_balance: List[float] = []
     for step in range(start_step, args.steps):
         with regions.annotate("train/step", category="app", step=step):
             with regions.annotate("train/data", category="data"):
-                batch = {k: torch.from_numpy(v).long().to(device)
-                         for k, v in data.batch_at(step).items()}
+                batch = to_device(data.batch_at(step), device)
             before = _launch_counts()
             before_v = dict(flash_attention.launches_by_variant)
-            before_d = dict(flash_attention.launches_by_head_dim)
+            before_s = dict(flash_attention.launches_by_shape)
             t0 = time.perf_counter()
             with regions.annotate("train/compute", category="api"):
                 metrics = step_fn(model, opt_state, batch)
@@ -154,9 +166,9 @@ def main(argv=None) -> Tuple[List[float], Dict[str, Any]]:
             launches.append({k: after[k] - before[k] for k in after})
             by_variant.append({k: n - before_v[k] for k, n in
                                flash_attention.launches_by_variant.items()})
-            by_head_dim.append({k: n - before_d[k] for k, n in
-                                flash_attention.launches_by_head_dim.items()
-                                if n != before_d[k]})
+            by_shape.append({k: n - before_s[k] for k, n in
+                             flash_attention.launches_by_shape.items()
+                             if n != before_s[k]})
             moe_aux.append(float(metrics["moe_aux"]))
             moe_load_balance.append(float(metrics["moe_load_balance"]))
             detector.record(rank=0, step=step, duration_s=dt)
@@ -201,7 +213,7 @@ def main(argv=None) -> Tuple[List[float], Dict[str, Any]]:
                               if device.type == "cuda" else None),
         "launches": launches,
         "launches_by_variant": by_variant,
-        "launches_by_head_dim": by_head_dim,
+        "launches_by_shape": by_shape,
         "moe_aux": moe_aux,
         "moe_load_balance": moe_load_balance,
         "tree": gf.to_dict(),

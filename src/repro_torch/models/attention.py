@@ -8,7 +8,9 @@ Decode attends one query against the KV cache in plain torch, as the JAX
 package does in plain jnp, at a position that may stay on the device
 (a 0-d tensor), so that a captured decode step replays at any position.
 Sliding-window layers keep a ring-buffer cache of at most ``window``
-slots.
+slots. The gated cross-attention sublayer of the vlm family attends from
+the text positions to precomputed encoder embeddings, non-causal and
+without RoPE, through the same kernels.
 """
 from __future__ import annotations
 
@@ -185,3 +187,93 @@ def alloc_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, seq_len: int,
         "v": torch.zeros((batch, seq_len, K, D), dtype=dt, device=device),
         "pos": torch.full((seq_len,), -1, dtype=torch.int32, device=device),
     }
+
+
+# ---------------------------------------------------------------------------
+# cross-attention sublayer (vlm): kv from precomputed encoder embeddings
+# ---------------------------------------------------------------------------
+
+def cross_attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    specs = attn_specs(cfg)
+    specs["gate"] = ParamSpec((), (), init="zeros")   # gated cross-attn (llama3.2)
+    return specs
+
+
+def build_cross_kv(params, enc: torch.Tensor, cfg: ModelConfig
+                   ) -> Dict[str, torch.Tensor]:
+    """Keys and values (B, N, K, D) of the encoder embeddings ``enc`` (B,
+    N, E): no RoPE, the keys qk-normed when the config has it."""
+    B, N, _ = enc.shape
+    K, D = cfg.n_kv_heads, cfg.head_dim
+    k = (enc @ params["wk"]).view(B, N, K, D)
+    v = (enc @ params["wv"]).view(B, N, K, D)
+    if cfg.qk_norm:
+        k = rms_norm(k, params["k_norm"], cfg.norm_eps)
+    return {"k": k, "v": v}
+
+
+def _cross_q(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    B, T, _ = x.shape
+    q = (x @ params["wq"]).view(B, T, cfg.n_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+    return q
+
+
+def _gated_out(params, out: torch.Tensor) -> torch.Tensor:
+    """``tanh(gate) * (out @ wo)``, the gate (an f32 scalar) cast to the
+    output's dtype as the JAX package casts it."""
+    B, T = out.shape[:2]
+    out = out.reshape(B, T, -1) @ params["wo"]
+    return torch.tanh(params["gate"]).to(out.dtype) * out
+
+
+def cross_attn_apply(params, x: torch.Tensor, enc: Optional[torch.Tensor],
+                     cfg: ModelConfig,
+                     cache: Optional[Dict[str, torch.Tensor]] = None,
+                     mode: str = "prefill") -> torch.Tensor:
+    """Gated cross-attention of ``x`` (B, T, E) over the encoder
+    embeddings ``enc`` (B, N, E): every query attends every encoder
+    position. Train and prefill run the flash kernels non-causal (T
+    queries against N keys); prefill also writes the encoder's keys and
+    values into ``cache`` ({"k", "v": (B, N, K, D)}, :func:`alloc_cross_kv`),
+    which decode reads instead of ``enc`` (:func:`cross_from_cache`)."""
+    if mode == "decode":
+        return cross_from_cache(params, x, cache, cfg)
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"unknown mode {mode!r}")
+    q = _cross_q(params, x, cfg)
+    kv = build_cross_kv(params, enc, cfg)
+    if mode == "train":
+        out, _lse = FlashAttention.apply(q, kv["k"], kv["v"], False, None)
+    else:
+        cache["k"].copy_(kv["k"])
+        cache["v"].copy_(kv["v"])
+        out, _lse = flash_attention(q, kv["k"], kv["v"], causal=False)
+    return _gated_out(params, out)
+
+
+def cross_from_cache(params, x: torch.Tensor, kv: Dict[str, torch.Tensor],
+                     cfg: ModelConfig) -> torch.Tensor:
+    """One decode position (B, 1, E) against the cached encoder keys and
+    values, every one of the N slots valid: the query's position is 2**30,
+    as in the JAX package, a 0-d tensor filled in on the device."""
+    B, T, _ = x.shape
+    K = cfg.n_kv_heads
+    q = _cross_q(params, x, cfg)
+    q = q.view(B, T, K, cfg.n_heads // K, cfg.head_dim)
+    N = kv["k"].shape[1]
+    pos_k = torch.arange(N, dtype=torch.int32, device=x.device)
+    out = decode_attention(q, kv["k"], kv["v"], pos_k,
+                           device_pos(2 ** 30, x.device))
+    return _gated_out(params, out)
+
+
+def alloc_cross_kv(cfg: ModelConfig, batch: int, device: torch.device
+                   ) -> Dict[str, torch.Tensor]:
+    """The cross-attention cache of one layer: the encoder's keys and values
+    (B, encoder_len, K, D) in the compute dtype, written by prefill."""
+    shape = (batch, cfg.encoder_len, cfg.n_kv_heads, cfg.head_dim)
+    dt = getattr(torch, cfg.dtype)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}

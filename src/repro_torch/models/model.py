@@ -1,4 +1,4 @@
-"""Model assembly: embedding -> layers -> final norm -> lm head
+"""Model assembly: embedding (or frames) -> layers -> final norm -> lm head
 (port of ``repro.models.model``).
 
 Where the JAX package stacks each pattern position's parameters over a
@@ -14,7 +14,15 @@ recomputes each layer in the backward when ``cfg.remat == "full"``, and
 returns the MoE aux vector summed over layers, as prefill does, so the
 load-balance and router-z losses reach the gradients. A ``mamba`` layer
 trains through the selective scan's autograd function (the CUDA forward
-and backward kernels on the card).
+and backward kernels on the card). ``remat="dots"`` saves the products
+with no batch dimension (``x @ W``) and recomputes the rest, the flash
+kernels included, as ``jax.checkpoint_policies.
+dots_with_no_batch_dims_saveable`` does.
+
+A ``frames`` model (the audio family) takes (B, T, E) frame embeddings in
+place of tokens and has no embedding table; a vlm model takes encoder
+embeddings (B, N, E) beside its tokens, which every cross-attention layer
+attends. Both are cast to the compute dtype once a call.
 
 Every decode cache is preallocated (:meth:`Model.alloc_cache`, each
 layer's from its own ``LayerSpec``) and written in place, and
@@ -24,12 +32,14 @@ on the device, so a decode step can be captured once and replayed
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import LayerSpec, ModelConfig
 from ..core.regions import profiler_span
@@ -38,7 +48,7 @@ from .blocks import alloc_cache, block_apply, block_specs, mlp_specs
 from .common import (ParamSpec, SpecModule, cast_params, init_module_,
                      param_dtype, rms_norm)
 
-Cache = List[Dict[str, torch.Tensor]]
+Cache = List[Dict[str, Any]]
 # the fixed-size aux vector of the JAX ``forward``, in its order
 _AUX_KEYS = ("moe_aux_loss", "moe_load_balance", "moe_router_z",
              "moe_dropped_frac")
@@ -55,8 +65,18 @@ def _specs_by_path(specs, prefix: str) -> Dict[str, ParamSpec]:
     return out
 
 
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The selective-checkpoint policy of ``remat="dots"``: keep the
+    outputs of ``aten.mm`` (``x @ W`` lowers to it: a product with no batch
+    dimension), recompute every other op, ``bmm`` and the flash
+    attention's autograd function among them."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 class Model(nn.Module):
-    """Decoder-only LM over tokens.
+    """Decoder-only LM over tokens or frames.
 
     Inference-only (the default): matrices are held in the compute dtype
     (``cfg.dtype``), 1-D norm scales in f32, ``requires_grad=False``.
@@ -67,10 +87,6 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, device: torch.device,
                  trainable: bool = False):
         super().__init__()
-        if cfg.input_mode != "tokens":
-            raise NotImplementedError(
-                f"{cfg.name}: input_mode={cfg.input_mode!r} is not ported yet "
-                "(ROADMAP Queue 1, item 7: frames input)")
         self.cfg = cfg
         self.trainable = trainable
         # every layer kind that builds also trains (mamba through the
@@ -78,13 +94,13 @@ class Model(nn.Module):
         self.can_train = True
         self.compute_dtype = getattr(torch, cfg.dtype)
         Vp, E = cfg.padded_vocab_size, cfg.d_model
-        self.specs: Dict[str, ParamSpec] = {
-            "embed": ParamSpec((Vp, E), ("vocab", None)),
-            "final_norm": ParamSpec((E,), (None,), init="zeros"),
-            "lm_head": ParamSpec((E, cfg.n_codebooks * Vp), (None, "vocab")),
-        }
-        for name in ("embed", "final_norm", "lm_head"):
-            spec = self.specs[name]
+        self.specs: Dict[str, ParamSpec] = {}
+        if cfg.input_mode != "frames":
+            self.specs["embed"] = ParamSpec((Vp, E), ("vocab", None))
+        self.specs["final_norm"] = ParamSpec((E,), (None,), init="zeros")
+        self.specs["lm_head"] = ParamSpec((E, cfg.n_codebooks * Vp),
+                                          (None, "vocab"))
+        for name, spec in list(self.specs.items()):
             self.register_parameter(name, nn.Parameter(torch.empty(
                 spec.shape, dtype=param_dtype(spec, self.compute_dtype,
                                               trainable, name),
@@ -99,7 +115,7 @@ class Model(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.embed.device
+        return self.final_norm.device
 
     def init_weights(self, seed: int) -> "Model":
         """Seeded random weights (per tensor, from ``seed`` and its path)."""
@@ -126,32 +142,48 @@ class Model(nn.Module):
         scale = float(torch.tensor(math.sqrt(float(self.cfg.d_model)), dtype=dt))
         return self.embed.to(dt)[tokens] * scale
 
+    def embed_inputs(self, x: torch.Tensor) -> torch.Tensor:
+        """The first hidden states: tokens (B, T) through the table, or
+        frame embeddings (B, T, E) of a ``frames`` model cast to the
+        compute dtype."""
+        if self.cfg.input_mode == "frames":
+            return x.to(self.compute_dtype)
+        return self.embed_tokens(x)
+
     def _layers(self, x: torch.Tensor, pos, caches: Optional[Cache],
-                mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Every layer, then the final norm. Returns (x, aux (4,) f32): the
-        MoE stats summed over layers, as the JAX ``_aux_vector``."""
+                mode: str, enc: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Every layer, then the final norm. ``enc``, the encoder
+        embeddings, is cast to the compute dtype here, once for every
+        layer. Returns (x, aux (4,) f32): the MoE stats summed over layers,
+        as the JAX ``_aux_vector``."""
         cfg = self.cfg
+        if enc is not None:
+            enc = enc.to(self.compute_dtype)
         aux = torch.zeros((len(_AUX_KEYS),), dtype=torch.float32,
                           device=x.device)
         for l, layer in enumerate(self.layers):
             lspec = cfg.pattern[l % len(cfg.pattern)]
             if mode == "train":
-                x, layer_aux = self._train_layer(layer, x, lspec)
+                x, layer_aux = self._train_layer(layer, x, lspec, enc)
             else:
                 x, layer_aux = block_apply(layer, x, cfg, lspec, pos,
-                                           caches[l], mode=mode)
+                                           caches[l], mode=mode, enc=enc)
                 layer_aux = _aux_vector(layer_aux)
             if layer_aux is not None:
                 aux = aux + layer_aux
         return rms_norm(x, self.final_norm, cfg.norm_eps), aux
 
-    def _train_layer(self, layer: SpecModule, x: torch.Tensor, lspec
+    def _train_layer(self, layer: SpecModule, x: torch.Tensor, lspec,
+                     enc: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """One layer of the train forward on weights cast inside it, so a
         recomputed layer casts again and no cast copy outlives it. Returns
         (x, the layer's aux vector, or None without an MoE FFN); under
-        full remat the aux comes out of the checkpoint beside x, so its
-        gradient flows through the recomputed layer."""
+        remat the aux comes out of the checkpoint beside x, so its
+        gradient flows through the recomputed layer. ``enc`` enters as a
+        closure (it needs no gradient): the recompute reads the same
+        tensor."""
         cfg = self.cfg
 
         def run(x):
@@ -159,16 +191,19 @@ class Model(nn.Module):
             # forward (inside train/backward) from the first
             with profiler_span("model/layer"):
                 x, aux = block_apply(cast_params(layer, self.compute_dtype),
-                                     x, cfg, lspec, 0, None, mode="train")
+                                     x, cfg, lspec, 0, None, mode="train",
+                                     enc=enc)
             return x, _aux_vector(aux)
 
         if cfg.remat == "none":
             return run(x)
         if cfg.remat == "full":
             return checkpoint(run, x, use_reentrant=False)
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} is not ported yet: ROADMAP Queue 1, item 7 "
-            "(\"dots\" remat policy)")
+        if cfg.remat == "dots":
+            return checkpoint(run, x, use_reentrant=False, context_fn=(
+                functools.partial(create_selective_checkpoint_contexts,
+                                  _save_dots)))
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         """(B, E) hidden -> (B, n_codebooks, Vp) f32 logits, pad masked."""
@@ -177,28 +212,34 @@ class Model(nn.Module):
         logits = logits.view(B, self.cfg.n_codebooks, self.cfg.padded_vocab_size)
         return mask_pad_logits(logits, self.cfg)
 
-    def forward(self, tokens: torch.Tensor, caches: Optional[Cache] = None,
-                mode: str = "prefill") -> Tuple[torch.Tensor, torch.Tensor]:
-        """Run ``tokens`` (B, T) from position 0 and return (hidden states
-        (B, T, E), aux (4,) f32: [moe_aux_loss, load balance, router z,
-        dropped fraction]) as the JAX ``forward`` does.
-        ``prefill`` fills ``caches`` in place; ``train`` takes no caches and
-        is differentiable (trainable models only)."""
+    def forward(self, inputs: torch.Tensor, caches: Optional[Cache] = None,
+                mode: str = "prefill", enc: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Run ``inputs`` from position 0 (tokens (B, T), or frames (B, T,
+        E) for a ``frames`` model; ``enc`` the encoder embeddings (B, N, E)
+        of a vlm model) and return (hidden states (B, T, E), aux (4,) f32:
+        [moe_aux_loss, load balance, router z, dropped fraction]) as the
+        JAX ``forward`` does. ``prefill`` fills ``caches`` in place;
+        ``train`` takes no caches and is differentiable (trainable models
+        only)."""
         if mode == "train":
             if not self.trainable:
                 raise ValueError("mode='train' needs Model(..., trainable=True)")
-            return self._layers(self.embed_tokens(tokens), 0, None, "train")
-        if mode != "prefill":
+            caches = None
+        elif mode != "prefill":
             raise ValueError(f"forward runs train or prefill, got mode={mode!r}")
-        return self._layers(self.embed_tokens(tokens), 0, caches, "prefill")
+        return self._layers(self.embed_inputs(inputs), 0, caches, mode, enc)
 
-    def decode_step(self, tokens: torch.Tensor, pos, caches: Cache
+    def decode_step(self, inputs: torch.Tensor, pos, caches: Cache
                     ) -> torch.Tensor:
-        """One decode step of ``tokens`` (B, 1) at position ``pos`` (an
-        int, or a 0-d int tensor on the model's device, which nothing reads
-        back to the host); updates ``caches`` in place and returns logits
-        (B, n_codebooks, Vp)."""
-        h, _aux = self._layers(self.embed_tokens(tokens), pos, caches, "decode")
+        """One decode step of ``inputs`` (tokens (B, 1), or frames (B, 1,
+        E)) at position ``pos`` (an int, or a 0-d int tensor on the model's
+        device, which nothing reads back to the host); updates ``caches``
+        in place (a cross-attention layer reads the encoder's keys and
+        values its prefill cached) and returns logits (B, n_codebooks,
+        Vp)."""
+        h, _aux = self._layers(self.embed_inputs(inputs), pos, caches,
+                               "decode")
         return self.logits(h[:, 0])
 
 
@@ -241,7 +282,7 @@ def _layer_shapes(cfg: ModelConfig, spec: LayerSpec) -> List[Tuple[int, ...]]:
     elif spec.mixer == "slstm":
         shapes += of(xlstm.slstm_specs(cfg))
     if spec.cross_attn:                 # norm, projections, a scalar gate
-        shapes += [(E,), *of(attention.attn_specs(cfg)), ()]
+        shapes += [(E,), *of(attention.cross_attn_specs(cfg))]
     if spec.ffn == "mlp":
         shapes += [(E,), *of(mlp_specs(cfg))]
     elif spec.ffn == "moe":

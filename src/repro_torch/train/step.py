@@ -5,7 +5,10 @@ The training step differentiates the model with autograd, where the JAX
 package uses ``jax.value_and_grad``: gradients land in each parameter's
 ``.grad`` (f32, as the master weights) and stay there after the step, and
 :func:`repro_torch.optim.adamw.apply_updates` then updates the weights in
-place. While a ``torch.profiler`` runs, the step's forward, backward and
+place. A batch is a dict as in the JAX package: ``tokens`` (B, T) or,
+for a ``frames`` model, ``frames`` (B, T, E); ``encoder_embeddings`` (B,
+N, E) for a vlm model; ``labels`` (B, T), or (B, T, n_codebooks). While a
+``torch.profiler`` runs, the step's forward, backward and
 update are ``record_function`` spans (``train/forward``, ``train/backward``,
 ``train/update``), so a device trace splits the step by phase.
 
@@ -16,7 +19,7 @@ place, then replayed at every position.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -27,14 +30,22 @@ from ..optim import adamw
 from .losses import chunked_ce_loss
 
 
-def _loss(model: Model, tokens: torch.Tensor, labels: torch.Tensor,
-          cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def model_inputs(batch: Dict[str, torch.Tensor]
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(tokens or frames, encoder embeddings or None) of a batch."""
+    inputs = batch["frames"] if "frames" in batch else batch["tokens"]
+    return inputs, batch.get("encoder_embeddings")
+
+
+def _loss(model: Model, batch: Dict[str, torch.Tensor], cfg: ModelConfig
+          ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The JAX ``loss_fn``: chunked CE on the train forward plus the MoE
     aux loss (``aux[0]``: the router load-balance and z losses, weighted
     and summed over the MoE layers; 0 for a model without them)."""
-    hidden, aux = model(tokens, mode="train")
+    inputs, enc = model_inputs(batch)
+    hidden, aux = model(inputs, mode="train", enc=enc)
     lm_head = model.lm_head.to(model.compute_dtype)
-    loss, metrics = chunked_ce_loss(hidden, lm_head, labels, cfg)
+    loss, metrics = chunked_ce_loss(hidden, lm_head, batch["labels"], cfg)
     return loss + aux[0], dict(metrics, moe_aux=aux[0],
                                moe_load_balance=aux[1])
 
@@ -42,8 +53,8 @@ def _loss(model: Model, tokens: torch.Tensor, labels: torch.Tensor,
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                     microbatches: int = 1):
     """Training step; ``microbatches > 1`` accumulates gradients over
-    batch slices, dividing peak activation memory by N (the update runs
-    once, in f32). The step's loss is the mean over microbatches; the
+    batch slices (every entry of the batch split along B), dividing peak
+    activation memory by N (the update runs once, in f32). The step's loss is the mean over microbatches; the
     other loss metrics are the last microbatch's, as in the JAX scan."""
 
     def train_step(model: Model, opt_state: Dict, batch: Dict[str, torch.Tensor]
@@ -53,16 +64,16 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
         params = dict(model.named_parameters())
         for p in params.values():
             p.grad = None
-        B = batch["tokens"].shape[0]
+        B = batch["labels"].shape[0]
         if B % microbatches:
             raise ValueError(f"batch {B} does not split into {microbatches} "
                              "microbatches")
-        tokens = batch["tokens"].split(B // microbatches)
-        labels = batch["labels"].split(B // microbatches)
-        loss_sum = torch.zeros((), device=batch["tokens"].device)
-        for tok, lab in zip(tokens, labels):
+        parts = {k: v.split(B // microbatches) for k, v in batch.items()}
+        loss_sum = torch.zeros((), device=batch["labels"].device)
+        for i in range(microbatches):
             with profiler_span("train/forward"):
-                loss, metrics = _loss(model, tok, lab, cfg)
+                loss, metrics = _loss(model, {k: v[i] for k, v in
+                                              parts.items()}, cfg)
             with profiler_span("train/backward"):
                 loss.backward()
             loss_sum = loss_sum + loss.detach()
@@ -84,7 +95,7 @@ def make_eval_step(cfg: ModelConfig):
     def eval_step(model: Model, batch: Dict[str, torch.Tensor]
                   ) -> Dict[str, torch.Tensor]:
         with torch.no_grad():
-            loss, metrics = _loss(model, batch["tokens"], batch["labels"], cfg)
+            loss, metrics = _loss(model, batch, cfg)
         metrics["loss"] = loss
         return metrics
 
@@ -93,9 +104,11 @@ def make_eval_step(cfg: ModelConfig):
 
 def make_prefill_step(cfg: ModelConfig):
     def prefill_step(model: Model, batch, caches: Cache) -> torch.Tensor:
-        """Prefill ``batch["tokens"]`` (B, P) into ``caches``; returns the
-        last position's logits (B, n_codebooks, Vp) f32."""
-        hidden, _aux = model(batch["tokens"], caches, mode="prefill")
+        """Prefill ``batch`` (tokens (B, P) or frames (B, P, E), and a vlm
+        model's encoder embeddings) into ``caches``; returns the last
+        position's logits (B, n_codebooks, Vp) f32."""
+        inputs, enc = model_inputs(batch)
+        hidden, _aux = model(inputs, caches, mode="prefill", enc=enc)
         return model.logits(hidden[:, -1])
 
     return prefill_step
@@ -103,8 +116,9 @@ def make_prefill_step(cfg: ModelConfig):
 
 def make_decode_step(cfg: ModelConfig):
     def decode_step(model: Model, caches: Cache, batch, pos: int):
-        """Greedy step: returns (logits, next_token (B, n_codebooks) int32)."""
-        logits = model.decode_step(batch["tokens"], pos, caches)
+        """Greedy step of ``batch`` (tokens (B, 1) or frames (B, 1, E)):
+        returns (logits, next_token (B, n_codebooks) int32)."""
+        logits = model.decode_step(model_inputs(batch)[0], pos, caches)
         return logits, logits.argmax(dim=-1).to(torch.int32)
 
     return decode_step

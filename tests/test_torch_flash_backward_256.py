@@ -104,11 +104,11 @@ def test_autograd_function_at_head_dim_256_matches_autograd_of_plain_forward(
 
 def test_cpu_backward_at_head_dim_256_counts_no_launch():
     _, (tq, tk, tv, tdo) = inputs("float32", seed=3)
-    before = dict(flash_attention.launches_by_head_dim)
+    before = dict(flash_attention.launches_by_shape)
     out, lse = flash_attention(tq, tk, tv, window=32)
     port_bwd(tq, tk, tv, out, lse, tdo, window=32)
-    assert flash_attention.launches_by_head_dim == before
-    assert {"fwd/256", "dq/256", "dkv/256"} <= set(before)
+    assert flash_attention.launches_by_shape == before
+    assert {"fwd/256/causal", "dq/256/causal", "dkv/256/causal"} <= set(before)
 
 
 @pytest.mark.parametrize("fn", ["flash_bwd_dq", "flash_bwd_dkv"])

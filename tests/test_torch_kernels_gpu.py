@@ -783,3 +783,85 @@ def test_scan_backward_raises_before_any_launch():
     for call_args, d, c in bad:
         with pytest.raises(ValueError):
             scan_kernel.selective_scan_bwd(*call_args, d, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,T,S,G,K", [
+    (128, 256, 1024, 4, 8),      # the vlm's cross-attention, cut in B and T
+    (128, 100, 160, 4, 2),       # ragged against the tiles on both sides
+    (64, 200, 330, 1, 4),        # head dim 64, one query head a kv head
+])
+def test_cross_attention_shape_through_autograd(D, T, S, G, K):
+    """Non-causal, T queries against S != T keys, as the gated
+    cross-attention runs it: forward, dq and dk/dv through
+    ``FlashAttention`` against the plain versions, counted as non-causal."""
+    q, k, v, do = _bf16_inputs(D, T, G, S=S, K=K)
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    before = dict(flash_attention.launches_by_shape)
+    out, _ = FlashAttention.apply(q, k, v, False, None)
+    got = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    after = flash_attention.launches_by_shape
+    assert {key: n - before[key] for key, n in after.items()
+            if n != before[key]} == {f"{name}/{D}/non-causal": 1
+                                     for name in ("fwd", "dq", "dkv")}
+    ref_out, ref_lse = flash_attention_ref(q, k, v, causal=False)
+    assert float((out.float() - ref_out.float()).abs().max()) < TOL["bfloat16"]
+    want = flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(),
+                                   ref_out.detach(), ref_lse, do,
+                                   causal=False)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == b.shape, name
+        assert _rel(a, b) < GRAD_TOL["bfloat16"], (name, _rel(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch,changes", [
+    ("llama-3.2-vision-11b", {}),
+    ("musicgen-large", dict(n_layers=2)),
+])
+def test_f32_vlm_and_audio_train_step_on_the_card_matches_cpu(arch, changes):
+    """Smoke presets in f32, the cross-attention gate at 0.5 (at its init
+    of 0 the sublayer and its gradients are zero): the loss to 1e-4 and
+    every gradient to 1e-3 of its largest value, the cross-attention's
+    projections with non-zero gradients."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import numpy as np
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.launch.train import to_device
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+
+    cfg = dataclasses.replace(get_config(arch, "smoke"), dtype="float32",
+                              **changes)
+    models = [Model(cfg, torch.device("cuda"), trainable=True).init_weights(0)]
+    with torch.no_grad():
+        for n, p in models[0].named_parameters():
+            if n.endswith(".gate"):
+                p.fill_(0.5)
+    models.append(Model(cfg, torch.device("cpu"), trainable=True))
+    models[1].load_state_dict(models[0].state_dict())
+    rng = np.random.default_rng(0)
+    B, T = 2, 40
+    batch = {"labels": rng.integers(0, cfg.vocab_size, (B, T, cfg.n_codebooks)
+                                    if cfg.input_mode == "frames" else (B, T))}
+    if cfg.input_mode == "frames":
+        batch["frames"] = rng.standard_normal((B, T, cfg.d_model),
+                                              dtype=np.float32)
+    else:
+        batch["tokens"] = rng.integers(0, cfg.vocab_size, (B, T))
+        batch["encoder_embeddings"] = rng.standard_normal(
+            (B, cfg.encoder_len, cfg.d_model), dtype=np.float32)
+    step = make_train_step(cfg, adamw.AdamWConfig(lr=0.0))
+    losses = [float(step(m, adamw.init_state(dict(m.named_parameters())),
+                         to_device(batch, m.device))["loss"])
+              for m in models]
+    assert abs(losses[0] - losses[1]) < 1e-4
+    cpu_grads = dict(models[1].named_parameters())
+    for name, p in models[0].named_parameters():
+        assert _rel(p.grad.cpu(), cpu_grads[name].grad) < 1e-3, name
+        if ".cross.w" in name:
+            assert float(p.grad.abs().max()) > 0, name

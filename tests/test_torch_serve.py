@@ -248,8 +248,17 @@ def test_seeded_init_is_stable_and_seed_dependent():
 
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "musicgen-large"])
 def test_unported_layers_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(torch_archs.get_config(arch, "smoke"), CPU)
+    # (named for the refusal this test once checked) the vlm's
+    # cross-attention and the audio model's frames build; a mixer the port
+    # does not have raises
+    cfg = torch_archs.get_config(arch, "smoke")
+    model = Model(cfg, CPU)
+    assert ("embed" in dict(model.named_parameters())) == (
+        cfg.input_mode != "frames")
+    bad = dataclasses.replace(cfg, pattern=tuple(
+        dataclasses.replace(s, mixer="conv") for s in cfg.pattern))
+    with pytest.raises(ValueError, match="unknown mixer 'conv'"):
+        Model(bad, CPU)
 
 
 def _served_smoke(arch):

@@ -304,8 +304,43 @@ def test_remat_none_gives_the_same_gradients_as_full():
 
 
 def test_dots_remat_raises_with_its_roadmap_entry():
-    _, _, tcfg, model = models(remat="dots")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # (named for the refusal this test once checked) "dots" is ported: it
+    # keeps every x @ W product (aten.mm) of the forward, so the backward
+    # recomputes no mm that "full" recomputes, and the gradients are the
+    # same; an unknown policy raises
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountMM(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += func is torch.ops.aten.mm.default
+            return func(*args, **(kwargs or {}))
+
+    batch = torch_batch(batch_np(2, 48, seed=5))
+    mms, grads = {}, {}
+    for remat in ("full", "dots", "none"):
+        _, _, tcfg, model = models(remat=remat)
+        hidden, _ = model(batch["tokens"], mode="train")
+        with CountMM() as count:
+            hidden.float().square().sum().backward()
+        mms[remat] = count.n
+        # lm_head takes no part in this loss
+        grads[remat] = {n: p.grad for n, p in model.named_parameters()
+                        if n != "lm_head"}
+    # each of the 2 layers has 7 forward products (wq, wk, wv, wo, wg, wi,
+    # wo); "full" recomputes the first 6 (the recompute stops early, and
+    # the backward needs no output of the FFN's wo), "dots" none
+    assert mms["full"] - mms["dots"] == 2 * 6
+    assert mms["dots"] == mms["none"]
+    for remat in ("dots", "none"):
+        for name, g in grads["full"].items():
+            assert torch.allclose(g, grads[remat][name], rtol=1e-5,
+                                  atol=1e-7), (remat, name)
+    _, _, tcfg, model = models(remat="some")
+    with pytest.raises(ValueError, match="unknown remat policy 'some'"):
         model(torch.zeros(1, 8, dtype=torch.long), mode="train")
 
 

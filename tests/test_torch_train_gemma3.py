@@ -53,8 +53,12 @@ def windowed(cfg):
 
 def jax_params_from_port(model, jcfg):
     """The JAX parameter tree of ``model``'s weights: the inverse of
-    ``params_from_jax``, each ``pos{i}`` leaf stacked over the groups."""
-    state = {k: v.detach().numpy() for k, v in model.state_dict().items()}
+    ``params_from_jax``, each ``pos{i}`` leaf stacked over the groups.
+    Every leaf is a copy: ``jnp.asarray`` of an aligned numpy view would
+    share memory with the port's weights, which its optimizer updates in
+    place."""
+    state = {k: v.detach().numpy().copy()
+             for k, v in model.state_dict().items()}
     plen = len(jcfg.pattern)
 
     def group(tree, prefix, i):
@@ -182,12 +186,12 @@ def test_gemma3_losses_over_three_steps_match_jax_at_head_dim_256():
 
 
 def test_gemma3_cpu_training_counts_no_kernel_launch():
-    before = dict(flash_attention.launches_by_head_dim)
+    before = dict(flash_attention.launches_by_shape)
     losses, stats = train.main([
         "--device", "cpu", "--arch", "gemma3-12b", "--preset", "smoke",
         "--steps", "2", "--batch", "2", "--seq", "32", "--layers", "7"])
     assert stats["layers"] == 6                 # whole pattern groups
     assert len(losses) == 2 and all(np.isfinite(losses))
-    assert stats["launches_by_head_dim"] == [{}, {}]
+    assert stats["launches_by_shape"] == [{}, {}]
     assert stats["moe_aux"] == [0.0, 0.0]
-    assert flash_attention.launches_by_head_dim == before
+    assert flash_attention.launches_by_shape == before
