@@ -181,6 +181,23 @@ Phases, each of which fails the run (non-zero exit, no final line):
 30b. the "dots" remat policy: one f32 step of phase 8's model under
      "dots" and "full" (equal gradients), then 3 steps of phase 9's model
      under each, step ms and peak memory beside phase 9's;
+ 31. the sharded train step on the card: a one-rank NCCL process group
+     from a ``FileStore`` in a temporary directory and a (1,1)
+     ``DeviceMesh``; phase 9's cell (yi-6b, full width, 8 layers, B 4, T
+     1024, bf16 compute, f32 masters, full remat) trained 3 steps on plain
+     tensors, then 3 steps from the same weights and batches on DTensor
+     parameters placed by the sharding rules (``tree_shardings``,
+     ``distribute_tensor``) under ``sharding_context``, the flash kernels
+     on local shards through ``local_map``: equal losses, equal first-step
+     gradients, equal flash launches by shape; both step times;
+31b. the rest of the sharded path: ``compressed_psum`` over phase 31's
+     gradients at world size 1 (the identity within half a quantization
+     step, the error buffer the residual); a checkpoint saved by the plain
+     launcher (smoke preset, B 8, T 256) resumed through ``reshard_state``
+     on the (1,1) mesh, whose losses must continue an unbroken run's;
+ 32. the ported examples on the card: ``examples/quickstart_torch.py`` (8
+     steps of the smoke preset) and ``examples/train_e2e_torch.py`` (its
+     tiny preset, 300 steps), finite losses that fall;
  14. print one JSON line with every ported kernel, then the result line.
 
 Serving (phases 5, 13, 15, 20, 22-24) decodes through one captured CUDA
@@ -332,6 +349,15 @@ AUDIO_CHECK_CFG = dict(n_layers=2, d_model=512, n_heads=8, n_kv_heads=8,
 AUDIO_ATTENTION = dict(B=4, T=1024, S=1024, H=32, K=32, D=64, causal=True)
 # phase 30b: steps of each remat policy on phase 9's yi-6b model
 DOTS_STEPS = 3
+# phase 31: steps of phase 9's model on plain tensors and on DTensors
+SHARDED_STEPS = 3
+# phase 31: the sharded step against the plain one on a (1,1) mesh, where
+# DTensor runs the same local operations: losses relative, first-step
+# gradients max|err| / max|ref|, both f32 round-off
+SHARDED_TOL = 1e-6
+# phase 31b: the plain launcher's run that saves at step 2 and the
+# unbroken run it continues: (batch, seq, steps)
+RESUME_RUN = (8, 256, 4)
 T0 = 0.0             # the run's start on the host clock
 CARD = ""            # nvidia-smi's name and power limit, named by each phase
 # the flash kernels' rows: (part, name, the TPU kernel, the source)
@@ -3015,6 +3041,276 @@ def dots_phase(full_stats: dict) -> tuple:
     return counts, numbers
 
 
+def sharded_phases() -> tuple:
+    """Phases 31 and 31b inside one one-rank NCCL process group, made from
+    a ``FileStore`` in a temporary directory and destroyed at the end.
+    Returns (phase 31's sharded launch counts, phase 31b's resumed launch
+    counts, their numbers)."""
+    import contextlib
+    import gc
+    import math
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.elastic import reshard_state
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs.archs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.optim.compress import compressed_psum, init_error
+    from repro_torch.sharding import rules as R
+    from repro_torch.train.step import make_train_step
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = make_mesh_for(1, 1, "cuda")
+        rules = R.make_rules(mesh)
+
+        def sharded():
+            return R.sharding_context(mesh, rules)
+
+        # 31. phase 9's cell on plain tensors, then on DTensors
+        L, B, T, steps = TRAIN_LAYERS, 4, 1024, SHARDED_STEPS
+        cfg = dataclasses.replace(get_config("yi-6b", "full"), n_layers=L)
+        data = SyntheticTokens(cfg, DataConfig(batch=B, seq_len=T))
+        opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=2,
+                                    total_steps=steps)
+        runs, plain_grads, psum = {}, {}, {}
+        for mode in ("plain", "sharded"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            model = Model(cfg, dev, trainable=True).init_weights(0)
+            if mode == "sharded":
+                train.place_model(model, mesh, rules)
+            opt_state = adamw.init_state(dict(model.named_parameters()))
+            step = make_train_step(cfg, opt_cfg)
+            reset_counts()
+            shapes0 = dict(flash_attention.launches_by_shape)
+            losses, step_ms = [], []
+            for i in range(steps):
+                batch = train.to_device(data.batch_at(i), dev)
+                if mode == "sharded":
+                    batch = train.place_batch(batch, mesh, rules)
+                torch.cuda.synchronize()
+                ts = time.perf_counter()
+                with sharded() if mode == "sharded" else \
+                        contextlib.nullcontext():
+                    losses.append(float(step(model, opt_state, batch)["loss"]))
+                step_ms.append((time.perf_counter() - ts) * 1e3)
+                if i == 0 and mode == "plain":
+                    plain_grads = {n: p.grad.to("cpu") for n, p in
+                                   model.named_parameters()}
+                if i == 0 and mode == "sharded":
+                    worst, same = 0.0, True
+                    for n, p in model.named_parameters():
+                        g, want = R.unshard(p.grad), plain_grads[n].to(dev)
+                        worst = max(worst, rel_err(g, want))
+                        same = same and torch.equal(g, want)
+                        del g, want
+            peak = torch.cuda.max_memory_allocated(dev)
+            counts = read_counts()
+            by_shape = {k: n - shapes0[k] for k, n in
+                        flash_attention.launches_by_shape.items()
+                        if n != shapes0[k]}
+            mean_ms = sum(step_ms[1:]) / (steps - 1)
+            runs[mode] = {"losses": losses, "step_ms": step_ms,
+                          "mean_step_ms": mean_ms,
+                          "tokens_per_s": B * T / (mean_ms / 1e3),
+                          "peak_memory_bytes": peak, "launches": counts,
+                          "launches_by_shape": by_shape}
+            print(f"[31] yi-6b full width, {L} layers, B={B} T={T}, {mode}"
+                  f"{' (DTensor on a (1,1) NCCL mesh)' if mode == 'sharded' else ''}"
+                  f": losses {', '.join(f'{x:.6f}' for x in losses)}; step "
+                  f"ms {', '.join(f'{x:.1f}' for x in step_ms)}, mean after "
+                  f"the first {mean_ms:.1f} ms; peak memory {peak} B; "
+                  f"launches {counts}, by shape {by_shape}; {CARD}",
+                  flush=True)
+            check(all(math.isfinite(x) for x in losses),
+                  f"phase 31 {mode}: non-finite losses {losses}")
+            if mode == "plain":
+                # 31b. compressed_psum at world size 1 over these gradients
+                del opt_state
+                gc.collect()
+                grads = {n: p.grad for n, p in model.named_parameters()}
+                reduced, errors = compressed_psum(grads, init_error(grads))
+                worst_q, worst_r = 0.0, 0.0
+                for n, g in grads.items():
+                    y = g.float()
+                    step_q = float(y.abs().max()) / 127
+                    worst_q = max(worst_q, float(
+                        (reduced[n] - y).abs().max()) / max(step_q, 1e-30))
+                    # the error buffer is the residual y - q*scale, to the
+                    # rounding of q*scale in reduced
+                    resid = (y.double() - reduced[n].double()
+                             - errors[n].double()).abs().max()
+                    worst_r = max(worst_r, float(resid) / max(float(
+                        reduced[n].abs().max()), 1e-30))
+                psum = {"max_err_in_steps": worst_q,
+                        "residual_rel_err": worst_r,
+                        "tensors": len(grads),
+                        "elements": sum(g.numel() for g in grads.values())}
+                del grads, reduced, errors
+                print(f"[31b] compressed_psum at world size 1 over yi-6b's "
+                      f"{psum['tensors']} gradients ({psum['elements']:,} "
+                      f"elements): largest |reduced - g| "
+                      f"{worst_q:.6f} quantization steps (<= 0.5, and the "
+                      f"rounding of q*scale); error buffer minus the "
+                      f"residual at most {worst_r:.3e} of max|reduced| (<= "
+                      f"2^-23); {CARD}", flush=True)
+                check(worst_q <= 0.5 + 1e-4,
+                      "compressed_psum at world size 1 is not the identity")
+                check(worst_r <= 2.0 ** -23,
+                      "the error buffer is not the residual")
+            del model, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+        a, b = runs["plain"], runs["sharded"]
+        loss_err = max(abs(x - y) / abs(y) for x, y in zip(b["losses"],
+                                                           a["losses"]))
+        numbers = {"layers": L, "batch": B, "seq": T, "steps": steps,
+                   "plain": a, "sharded": b, "loss_rel_err": loss_err,
+                   "grad_rel_err": worst, "grads_bit_identical": same,
+                   "dtensor_host_ms": b["mean_step_ms"] - a["mean_step_ms"],
+                   "compressed_psum": psum}
+        print(f"[31] sharded vs plain: losses max rel err {loss_err:.3e}, "
+              f"first-step gradients max|err|/max|ref| {worst:.3e} (< "
+              f"{SHARDED_TOL:g}), bit-identical {same}; mean step "
+              f"{b['mean_step_ms']:.1f} ms sharded against "
+              f"{a['mean_step_ms']:.1f} ms plain ({b['mean_step_ms'] - a['mean_step_ms']:+.1f} "
+              f"ms of DTensor host work); {CARD}", flush=True)
+        check(loss_err < SHARDED_TOL and worst < SHARDED_TOL,
+              "the sharded step disagrees with the plain one")
+        check(a["launches"] == b["launches"]
+              and a["launches_by_shape"] == b["launches_by_shape"]
+              and b["launches_by_shape"] == {
+                  "fwd/128/causal": 2 * L * steps,
+                  "dq/128/causal": L * steps, "dkv/128/causal": L * steps},
+              f"sharded launches {b['launches']} {b['launches_by_shape']}, "
+              f"plain {a['launches']} {a['launches_by_shape']}")
+
+        # 31b. a checkpoint of the plain launcher resumed on the mesh
+        RB, RT, RS = RESUME_RUN
+        args = ["--preset", "smoke", "--batch", str(RB), "--seq", str(RT)]
+        unbroken, _ = train.main(args + ["--steps", str(RS)])
+        ckpt_dir = os.path.join(tmp, "ckpt")
+        saved, _ = train.main(args + ["--steps", "2", "--ckpt-dir",
+                                      ckpt_dir])
+        start, host_state, _ = CheckpointManager(ckpt_dir).restore()
+        scfg = get_config("yi-6b", "smoke")
+        model = train.place_model(
+            Model(scfg, dev, trainable=True).init_weights(1), mesh, rules)
+        params = dict(model.named_parameters())
+        opt_state = adamw.init_state(params)
+        state = reshard_state(scfg, host_state, mesh)
+        with torch.no_grad():
+            for n, p in params.items():
+                p.copy_(state["params"][n])
+                for key in ("m", "v"):
+                    opt_state[key][n].copy_(state["opt_state"][key][n])
+        opt_state["step"] = state["opt_state"]["step"]
+        step = make_train_step(scfg, adamw.AdamWConfig(
+            lr=3e-4, warmup_steps=max(2, RS // 10), total_steps=RS))
+        rdata = SyntheticTokens(scfg, DataConfig(batch=RB, seq_len=RT))
+        reset_counts()
+        resumed = []
+        for i in range(start, RS):
+            batch = train.place_batch(train.to_device(rdata.batch_at(i), dev),
+                                      mesh, rules)
+            with sharded():
+                resumed.append(float(step(model, opt_state, batch)["loss"]))
+        resume_counts = read_counts()
+        resume_err = max(abs(x - y) / abs(y) for x, y in
+                         zip(saved + resumed, unbroken))
+        numbers["resume"] = {"unbroken": unbroken, "saved": saved,
+                             "resumed": resumed, "from_step": start,
+                             "loss_rel_err": resume_err,
+                             "launches": resume_counts}
+        print(f"[31b] yi-6b smoke, B={RB} T={RT}: saved at step {start} by "
+              f"the plain launcher ({', '.join(f'{x:.6f}' for x in saved)}), "
+              f"resumed through reshard_state on the (1,1) mesh: "
+              f"{', '.join(f'{x:.6f}' for x in resumed)}; unbroken "
+              f"{', '.join(f'{x:.6f}' for x in unbroken)}; max rel err "
+              f"{resume_err:.3e} (< {SHARDED_TOL:g}); launches "
+              f"{resume_counts}; {CARD}", flush=True)
+        check(start == 2 and len(resumed) == RS - 2
+              and resume_err < SHARDED_TOL,
+              "the resumed run does not continue the unbroken one")
+        check(resume_counts["flash_attention_fwd"] == 2 * scfg.n_layers
+              * (RS - 2), f"resumed launches {resume_counts}")
+        del model, params, opt_state, state, host_state
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    numbers["phase_s"] = time.perf_counter() - t0
+    print(f"[31] phases 31-31b took {numbers['phase_s']:.1f} s", flush=True)
+    return runs["sharded"]["launches"], resume_counts, numbers
+
+
+def examples_phase() -> tuple:
+    """Phase 32: the ported examples on the card, in this process: the
+    quickstart (8 steps of the smoke preset, head dim 16) and the
+    end-to-end driver's tiny preset (300 steps, head dim 64, checkpoints
+    in a temporary directory). Returns ({example: launch counts}, their
+    numbers)."""
+    import importlib.util
+    import math
+    import tempfile
+
+    t0 = time.perf_counter()
+
+    def load(name):
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(HERE, "examples", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    counts, numbers = {}, {}
+    reset_counts()
+    losses = load("quickstart_torch").main([])
+    counts["quickstart"] = read_counts()
+    numbers["quickstart"] = {"losses": losses}
+    print(f"[32] examples/quickstart_torch.py on the card: losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; launches "
+          f"{counts['quickstart']}; {CARD}", flush=True)
+    check(len(losses) == 8 and all(math.isfinite(x) for x in losses),
+          f"quickstart losses {losses}")
+    check(counts["quickstart"]["flash_attention_fwd"] == 2 * 8,
+          f"quickstart launches {counts['quickstart']}")
+    with tempfile.TemporaryDirectory() as d:
+        reset_counts()
+        losses, stats = load("train_e2e_torch").main(["--ckpt-dir", d])
+        counts["train_e2e"] = read_counts()
+    numbers["train_e2e"] = {"first_loss": losses[0], "last_loss": losses[-1],
+                            "steps": len(losses),
+                            "mean_step_ms": stats["mean_step_ms"],
+                            "launches_by_shape": stats["launches_by_shape"][0]}
+    print(f"[32] examples/train_e2e_torch.py tiny on the card: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} over {len(losses)} steps, "
+          f"mean step {stats['mean_step_ms']:.1f} ms; launches "
+          f"{counts['train_e2e']}, by shape each step "
+          f"{stats['launches_by_shape'][0]}; {CARD}", flush=True)
+    check(len(losses) == 300 and all(math.isfinite(x) for x in losses)
+          and losses[-1] < losses[0] - 0.1, "train_e2e did not train")
+    check(stats["launches_by_shape"][0] == {
+        "fwd/64/causal": 8, "dq/64/causal": 4, "dkv/64/causal": 4},
+        f"train_e2e launches {stats['launches_by_shape'][0]}")
+    numbers["phase_s"] = time.perf_counter() - t0
+    print(f"[32] took {numbers['phase_s']:.1f} s", flush=True)
+    return counts, numbers
+
+
 def card_info():
     """(device name, device count, the card line of nvidia-smi, SM count,
     top SM clock in Hz)."""
@@ -3424,11 +3720,13 @@ def main() -> None:
     audio_attention = attention_shape_phase("30", "musicgen's shape",
                                             AUDIO_ATTENTION)
     dots_counts, dots = dots_phase(train_stats)
+    sharded_counts, resume_counts, sharded = sharded_phases()
+    example_counts, examples = examples_phase()
     default_counts = default_commands_phase()
     d16 = d16_timing_phase(qkv)
     halo_counts, halo = halo_phase()
 
-    print(f"[14] phases 1-30b took {time.perf_counter() - T0:.1f} s",
+    print(f"[14] phases 1-32 took {time.perf_counter() - T0:.1f} s",
           flush=True)
 
     # 14. result lines; gemma3's training counts go to the D = 256 rows,
@@ -3442,15 +3740,20 @@ def main() -> None:
         for part, name, _, _ in FLASH_PARTS}) for mask in ("causal",
                                                            "non-causal")}
     d64_paths = {"train_granite": train_paths.pop("train_granite"),
-                 "train_audio": audio_counts}
+                 "train_audio": audio_counts,
+                 "train_e2e_example": example_counts["train_e2e"]}
     paths = {"serve": serve_counts, "train": train_counts,
              "serve_jamba": jamba_counts, **default_counts,
              "halo": halo_counts, "serve_telemetry": telemetry_counts,
              "train_jamba": jamba_train_counts, **train_paths,
-             "train_vlm": vlm_by_mask["causal"], "train_dots": dots_counts}
+             "train_vlm": vlm_by_mask["causal"], "train_dots": dots_counts,
+             "train_sharded": sharded_counts,
+             "train_sharded_resumed": resume_counts,
+             "quickstart_example": example_counts["quickstart"]}
 
     d16_paths = ("serve_default", "serve_jamba_default", "train_default",
-                 "train_jamba_default")
+                 "train_jamba_default", "train_sharded_resumed",
+                 "quickstart_example")
 
     def launches_of(name):
         by_path = {p: c[name] for p, c in paths.items()
@@ -3714,6 +4017,8 @@ def main() -> None:
                       "cross_attention": cross,
                       "audio_attention": audio_attention,
                       "remat_dots": dots,
+                      "train_sharded": sharded,
+                      "examples": examples,
                       "scan_backward": {k: v for k, v in scan_bwd.items()
                                         if k != "timing"},
                       "captured_vs_eager_yi6b": yi_decode,

@@ -31,6 +31,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..core import regions
 
@@ -55,6 +57,8 @@ def _unflatten(flat: Dict[str, Any]):
 
 
 def _to_numpy(x) -> np.ndarray:
+    if isinstance(x, DTensor):
+        x = x.full_tensor()        # a collective: every rank gathers
     if isinstance(x, torch.Tensor):
         x = x.detach().cpu()
         if x.dtype == torch.bfloat16:
@@ -83,12 +87,17 @@ class CheckpointManager:
     def save(self, step: int, state: Dict[str, Any],
              metadata: Optional[dict] = None, block: bool = False) -> None:
         """Snapshot to host memory and enqueue the write. The snapshot
-        copies device tensors to the host, so it waits for the device."""
+        copies device tensors to the host, so it waits for the device.
+        Under a process group every rank takes the snapshot (a DTensor
+        gathers its shards, so the checkpoint holds unsharded arrays, as
+        the reference's does) and rank 0 alone writes it."""
         if self._error:
             raise RuntimeError("checkpoint writer failed") from self._error
         with regions.annotate("ckpt/snapshot", category="runtime", step=step):
             flat = dict(_flatten(state))
             host = {k: _to_numpy(v) for k, v in flat.items()}
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return
         meta = dict(metadata or {})
         meta["bfloat16"] = sorted(
             k for k, v in flat.items()

@@ -6,14 +6,14 @@
 # timelines (``cost``, ``device_timeline``, imported by name).
 #
 # The public names of ``repro.core``, with ``annotate_torch`` in place of
-# ``annotate_jax``. ``compat``, ``hlo`` and ``hlo_cost`` are left out until
-# the mesh-sharding layer is ported (ROADMAP Queue 1, item 8).
+# ``annotate_jax``. ``hlo`` and ``hlo_cost`` are left out: they read XLA's
+# compiled text and are not ported yet (ROADMAP Queue 1, item 8).
 #
-# ``regions`` imports torch, and the host packages (``telemetry``,
-# ``faults``, ``workloads``, ``corpus``) import ``core.counters`` without
-# it. So ``regions`` and the names that come from it load at first use
-# (PEP 562 ``__getattr__``); every other module here imports no torch and
-# loads with the package.
+# ``regions`` and ``compat`` import torch, and the host packages
+# (``telemetry``, ``faults``, ``workloads``, ``corpus``) import
+# ``core.counters`` without it. So those two modules and the names that
+# come from ``regions`` load at first use (PEP 562 ``__getattr__``); every
+# other module here imports no torch and loads with the package.
 from importlib import import_module
 
 from . import analyses, comparison, counters, graphframe, timeline
@@ -31,7 +31,7 @@ from .roofline import HW, Roofline
 _FROM_REGIONS = ("annotate", "annotate_torch", "configure", "profiled")
 
 __all__ = [
-    "analyses", "comparison", "counters", "graphframe",
+    "analyses", "comparison", "compat", "counters", "graphframe",
     "regions", "timeline", "Collector", "global_collector",
     "reset_global_collector", "CounterLane", "CounterRegistry", "CounterStat",
     "counter_stats", "global_registry", "lane_events", "merge_lane_stats",
@@ -44,8 +44,8 @@ __all__ = [
 
 
 def __getattr__(name):
-    if name == "regions":
-        return import_module(".regions", __name__)
+    if name in ("regions", "compat"):
+        return import_module(f".{name}", __name__)
     if name in _FROM_REGIONS:
         return getattr(import_module(".regions", __name__), name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -15,12 +15,16 @@ without RoPE, through the same kernels.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
 from ..configs.base import LayerSpec, ModelConfig
 from ..kernels.flash_attention.ops import FlashAttention, flash_attention
+from ..sharding.rules import constrain
 from .common import ParamSpec, apply_rope, rms_norm
 
 NEG_INF = -2.0e38
@@ -81,6 +85,47 @@ def decode_attention(
                            causal=True, window=window)
 
 
+def _whole_heads(x: torch.Tensor, n: int) -> torch.Tensor:
+    """``x`` (B, T, n*D), with its fused dimension gathered where a DTensor
+    splits it inside a head (mesh axes that divide n*D but not n): DTensor
+    unflattens a sharded dimension only at shard boundaries."""
+    if isinstance(x, DTensor):
+        mesh, pl = x.device_mesh, x.placements
+        parts = math.prod(mesh.size(d) for d, p in enumerate(pl)
+                          if p == Shard(2))
+        if n % parts:
+            x = x.redistribute(mesh, [Replicate() if p == Shard(2) else p
+                                      for p in pl])
+    return x
+
+
+class _WholeHeadsGrad(torch.autograd.Function):
+    """Identity whose cotangent is :func:`_whole_heads`'."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _whole_heads(g, ctx.n), None
+
+
+def split_heads(x: torch.Tensor, n: int, D: int) -> torch.Tensor:
+    """(B, T, n*D) -> (B, T, n, D), whole heads (:func:`_whole_heads`)."""
+    B, T = x.shape[:2]
+    return _whole_heads(x, n).view(B, T, n, D)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, T, n, D) -> (B, T, n*D); a DTensor's gradient comes back in
+    whole heads."""
+    B, T, n, D = x.shape
+    y = x.reshape(B, T, n * D)
+    return _WholeHeadsGrad.apply(y, n) if isinstance(y, DTensor) else y
+
+
 def device_pos(pos, device: torch.device) -> torch.Tensor:
     """``pos`` (a Python int or a 0-d integer tensor) as a 0-d int32
     tensor on ``device``; an int is filled in on the device, with no copy
@@ -124,9 +169,9 @@ def attn_apply(
     H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     G = H // K
     window = spec.window
-    q = (x @ params["wq"]).view(B, T, H, D)
-    k = (x @ params["wk"]).view(B, T, K, D)
-    v = (x @ params["wv"]).view(B, T, K, D)
+    q = split_heads(x @ params["wq"], H, D)
+    k = split_heads(x @ params["wk"], K, D)
+    v = split_heads(x @ params["wv"], K, D)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
@@ -153,7 +198,14 @@ def attn_apply(
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     if mode == "train":
-        out, _lse = FlashAttention.apply(q, k, v, True, window)
+        # Megatron-SP boundary under a mesh: the sequence gathers here and
+        # the heads go to the model axis
+        q = constrain(q, ("batch", None, "heads", None))
+        k = constrain(k, ("batch", None, "kv_heads", None))
+        v = constrain(v, ("batch", None, "kv_heads", None))
+        out = flash(q, k, v, True, window, train=True)
+        out = constrain(out, ("batch", None, "heads", None))
+        return merge_heads(out) @ params["wo"]
     else:
         S = cache["k"].shape[1]
         if T <= S:
@@ -171,6 +223,71 @@ def attn_apply(
                              f"global layer's cache of {S} slots")
         out, _lse = flash_attention(q, k, v, causal=True, window=window)
     return out.reshape(B, T, H * D) @ params["wo"]
+
+
+def _local_kv_heads(H: int, K: int, Hl: int, r: int) -> List[int]:
+    """The kv heads that q heads ``[r*Hl, (r+1)*Hl)`` read, one a q head
+    (q head ``h`` reads kv head ``h // (H/K)``)."""
+    G = H // K
+    return [(r * Hl + j) // G for j in range(Hl)]
+
+
+def _kv_slice(k: torch.Tensor, heads: List[int]) -> torch.Tensor:
+    """The kv heads of ``k`` (B, S, K, D) that local q heads read, in the
+    layout the kernels take (q head ``j`` of ``Hl`` reads kv head ``j //
+    (Hl / K')`` of the ``K'`` kept): a slice when the q heads fall evenly
+    on a run of kv heads, else one kv head a q head."""
+    lo, n = heads[0], heads[-1] - heads[0] + 1
+    Hl = len(heads)
+    if Hl % n == 0 and heads == [lo + j // (Hl // n) for j in range(Hl)]:
+        return k if n == k.shape[2] else k[:, :, lo:lo + n]
+    return k[:, :, heads]
+
+
+def flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+          window: Optional[int], train: bool = False) -> torch.Tensor:
+    """Flash attention of model-layout q (B, T, H, D) over k, v (B, S, K,
+    D): :class:`FlashAttention` (forward and backward kernels) when
+    ``train``, else the forward kernel alone; returns out (B, T, H, D).
+
+    DTensors run the kernels on their local shards through ``local_map``:
+    each rank's kernel sees its local batch rows and local q heads, and
+    k and v cut to the kv heads those q heads read. Where q's heads are
+    split over a mesh axis that k and v are replicated on, each rank's dk
+    and dv is a partial sum over that axis (``Partial``)."""
+    def run(q, k, v):
+        if train:
+            return FlashAttention.apply(q, k, v, causal, window)[0]
+        return flash_attention(q, k, v, causal=causal, window=window)[0]
+
+    if not isinstance(q, DTensor):
+        return run(q, k, v)
+    mesh = q.device_mesh
+    H, K = q.shape[2], k.shape[2]
+    kv_grad = list(k.placements)
+    head_dims = []
+    for d, (pq, pk) in enumerate(zip(q.placements, k.placements)):
+        if pq == Shard(2) and pk == Replicate():
+            head_dims.append(d)
+            kv_grad[d] = Partial()
+        elif pq != pk or pq not in (Replicate(), Shard(0)):
+            raise ValueError(f"flash attention over q {q.placements} and k "
+                             f"{k.placements}: only batch and q heads split")
+    r = 0
+    coord = mesh.get_coordinate()
+    for d in head_dims:
+        r = r * mesh.size(d) + coord[d]
+
+    def local(q, k, v):
+        if head_dims:
+            heads = _local_kv_heads(H, K, q.shape[2], r)
+            k, v = _kv_slice(k, heads), _kv_slice(v, heads)
+        return run(q, k, v)
+
+    return local_map(local, out_placements=list(q.placements),
+                     in_placements=(q.placements, k.placements, v.placements),
+                     in_grad_placements=(q.placements, kv_grad, kv_grad),
+                     device_mesh=mesh)(q, k, v)
 
 
 def alloc_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, seq_len: int,

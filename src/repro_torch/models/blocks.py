@@ -13,6 +13,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..configs.base import LayerSpec, ModelConfig
+from ..sharding.rules import constrain, grad_constrained
 from . import attention, mamba, moe, xlstm
 from .common import ParamSpec, activation, rms_norm
 
@@ -83,6 +84,16 @@ def alloc_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, seq_len: int,
     return out
 
 
+def _seq_whole(h: torch.Tensor) -> torch.Tensor:
+    return constrain(h, ("batch", None, None))
+
+
+def _seq_whole_grad(out: torch.Tensor) -> torch.Tensor:
+    """A sublayer's output, whose gradient from the residual stream gathers
+    the sequence before the projections' backward folds (B, T)."""
+    return grad_constrained(out, ("batch", None, None))
+
+
 def block_apply(params, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
                 pos, cache: Optional[Dict[str, Any]], mode: str = "prefill",
                 enc: Optional[torch.Tensor] = None
@@ -93,8 +104,11 @@ def block_apply(params, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
     in decode a 0-d tensor on the device) and ``cache`` go to the mixer;
     prefill writes ``cache["cross_kv"]`` and decode reads it in place of
     ``enc``. Returns (x, aux), aux the MoE stats (empty for an MLP or no
-    FFN)."""
-    h = rms_norm(x, params["norm_mixer"], cfg.norm_eps)
+    FFN). Under a mesh the residual stream may be split over the sequence
+    (``act_seq``); each normed input gathers it before the sublayer's
+    projections (the Megatron-SP boundary: DTensor folds (B, T) into the
+    rows of a matmul only when T is whole)."""
+    h = _seq_whole(rms_norm(x, params["norm_mixer"], cfg.norm_eps))
     if spec.mixer == "attn":
         out = attention.attn_apply(params["mixer"], h, cfg, spec, pos, cache,
                                    mode=mode)
@@ -105,16 +119,16 @@ def block_apply(params, x: torch.Tensor, cfg: ModelConfig, spec: LayerSpec,
     else:
         # the sLSTM block is self-contained (its own MLP and residual)
         out = xlstm.slstm_apply(params["mixer"], h, cfg, cache, mode=mode)
-    x = x + out
+    x = x + _seq_whole_grad(out)
     if spec.cross_attn:
-        h = rms_norm(x, params["norm_cross"], cfg.norm_eps)
-        x = x + attention.cross_attn_apply(
+        h = _seq_whole(rms_norm(x, params["norm_cross"], cfg.norm_eps))
+        x = x + _seq_whole_grad(attention.cross_attn_apply(
             params["cross"], h, enc, cfg,
-            None if cache is None else cache["cross_kv"], mode=mode)
+            None if cache is None else cache["cross_kv"], mode=mode))
     if spec.ffn == "none":
         return x, {}
-    h = rms_norm(x, params["norm_ffn"], cfg.norm_eps)
+    h = _seq_whole(rms_norm(x, params["norm_ffn"], cfg.norm_eps))
     if spec.ffn == "mlp":
-        return x + mlp_apply(params["ffn"], h, cfg), {}
+        return x + _seq_whole_grad(mlp_apply(params["ffn"], h, cfg)), {}
     out, aux = moe.moe_apply(params["ffn"], h, cfg)
-    return x + out, aux
+    return x + _seq_whole_grad(out), aux

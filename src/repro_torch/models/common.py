@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..sharding.rules import replicated_like
+
 Axes = Tuple[Optional[str], ...]
 
 
@@ -73,18 +75,23 @@ class SpecModule(nn.Module):
         return getattr(self, name)
 
 
-def cast_params(module: nn.Module, dtype: torch.dtype) -> Dict[str, Any]:
+def cast_params(module: nn.Module, dtype: torch.dtype,
+                pre: Optional[Callable[[str, torch.Tensor], torch.Tensor]]
+                = None, prefix: str = "") -> Dict[str, Any]:
     """The compute view of a module's parameters (``model._cast``): a nested
     dict by spec name in which f32 matrices are cast to ``dtype``; 1-D
     tensors, other dtypes and ``_KEEP_F32`` names are the parameters
     themselves. The cast is differentiable, so gradients reach the f32
-    master weights in f32."""
+    master weights in f32. ``pre(path, p)``, when given, maps each
+    parameter (by its dotted path under ``module``) before the cast."""
     out: Dict[str, Any] = {}
     for name, p in module.named_parameters(recurse=False):
+        if pre is not None:
+            p = pre(prefix + name, p)
         keep = name in _KEEP_F32 or p.dim() <= 1 or p.dtype != torch.float32
         out[name] = p if keep else p.to(dtype)
     for name, child in module.named_children():
-        out[name] = cast_params(child, dtype)
+        out[name] = cast_params(child, dtype, pre, f"{prefix}{name}.")
     return out
 
 
@@ -209,8 +216,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
     d = x.shape[-1]
     freqs = rope_freqs(d, theta, x.device)                       # (D/2,)
     angles = positions[..., :, None].float() * freqs             # (..., T, D/2)
-    cos = torch.cos(angles)[..., :, None, :]                     # (..., T, 1, D/2)
-    sin = torch.sin(angles)[..., :, None, :]
+    cos = replicated_like(torch.cos(angles)[..., :, None, :], x)  # (..., T, 1, D/2)
+    sin = replicated_like(torch.sin(angles)[..., :, None, :], x)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

@@ -4,8 +4,14 @@
 Where the JAX package stacks each pattern position's parameters over a
 leading ``layers`` axis and scans over groups, the port holds one module
 per layer in an ``nn.ModuleList`` and loops. Layer ``l`` is pattern
-position ``l % len(pattern)`` of group ``l // len(pattern)``. Sharding
-constraints are dropped: without a mesh they are the identity.
+position ``l % len(pattern)`` of group ``l // len(pattern)``. Under a
+sharding context (:mod:`repro_torch.sharding.rules`) with DTensor
+weights, the reference's sharding constraints place the activations
+(``constrain``: the residual stream split over the batch and sequence
+axes at each pattern group's entry and exit), each layer's weight
+gradients take the weights' placements (``grad_constrained``), and the
+embedding is a vocab-parallel ``local_map`` lookup; without one they are
+the identity.
 
 A trainable model (``Model(cfg, device, trainable=True)``) holds f32
 master weights with gradients and casts them to ``cfg.dtype`` on every
@@ -41,8 +47,13 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
+
 from ..configs.base import LayerSpec, ModelConfig
 from ..core.regions import profiler_span
+from ..sharding import rules as R
+from ..sharding.collectives import psum, psum_scatter
 from . import attention, mamba, moe, xlstm
 from .blocks import alloc_cache, block_apply, block_specs, mlp_specs
 from .common import (ParamSpec, SpecModule, cast_params, init_module_,
@@ -63,6 +74,32 @@ def _specs_by_path(specs, prefix: str) -> Dict[str, ParamSpec]:
         else:
             out.update(_specs_by_path(spec, path + "."))
     return out
+
+
+def model_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    """Every parameter's spec by its path in :class:`Model` (``embed``,
+    ``layers.3.mixer.wq``, ...): the reference's ``model_specs`` with one
+    entry a layer where the reference stacks each pattern position over a
+    leading ``layers`` axis, so the logical axes are the reference's
+    without that first one."""
+    Vp, E = cfg.padded_vocab_size, cfg.d_model
+    specs: Dict[str, ParamSpec] = {}
+    if cfg.input_mode != "frames":
+        specs["embed"] = ParamSpec((Vp, E), ("vocab", None))
+    specs["final_norm"] = ParamSpec((E,), (None,), init="zeros")
+    specs["lm_head"] = ParamSpec((E, cfg.n_codebooks * Vp), (None, "vocab"))
+    for l in range(cfg.n_layers):
+        specs.update(_specs_by_path(
+            block_specs(cfg, cfg.pattern[l % len(cfg.pattern)]), f"layers.{l}."))
+    return specs
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    return {name: spec.axes for name, spec in model_specs(cfg).items()}
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    return {name: spec.shape for name, spec in model_specs(cfg).items()}
 
 
 def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
@@ -93,25 +130,17 @@ class Model(nn.Module):
         # selective scan's backward kernel)
         self.can_train = True
         self.compute_dtype = getattr(torch, cfg.dtype)
-        Vp, E = cfg.padded_vocab_size, cfg.d_model
-        self.specs: Dict[str, ParamSpec] = {}
-        if cfg.input_mode != "frames":
-            self.specs["embed"] = ParamSpec((Vp, E), ("vocab", None))
-        self.specs["final_norm"] = ParamSpec((E,), (None,), init="zeros")
-        self.specs["lm_head"] = ParamSpec((E, cfg.n_codebooks * Vp),
-                                          (None, "vocab"))
-        for name, spec in list(self.specs.items()):
-            self.register_parameter(name, nn.Parameter(torch.empty(
-                spec.shape, dtype=param_dtype(spec, self.compute_dtype,
-                                              trainable, name),
-                device=device), requires_grad=trainable))
-        self.layers = nn.ModuleList()
-        for l in range(cfg.n_layers):
-            lspec = cfg.pattern[l % len(cfg.pattern)]
-            bspecs = block_specs(cfg, lspec)
-            self.layers.append(SpecModule(bspecs, self.compute_dtype, device,
-                                          trainable))
-            self.specs.update(_specs_by_path(bspecs, f"layers.{l}."))
+        self.specs: Dict[str, ParamSpec] = model_specs(cfg)
+        for name, spec in self.specs.items():
+            if "." not in name:
+                self.register_parameter(name, nn.Parameter(torch.empty(
+                    spec.shape, dtype=param_dtype(spec, self.compute_dtype,
+                                                  trainable, name),
+                    device=device), requires_grad=trainable))
+        self.layers = nn.ModuleList(
+            SpecModule(block_specs(cfg, cfg.pattern[l % len(cfg.pattern)]),
+                       self.compute_dtype, device, trainable)
+            for l in range(cfg.n_layers))
 
     @property
     def device(self) -> torch.device:
@@ -140,7 +169,10 @@ class Model(nn.Module):
         tokens in the compute dtype, as JAX's does."""
         dt = self.compute_dtype
         scale = float(torch.tensor(math.sqrt(float(self.cfg.d_model)), dtype=dt))
-        return self.embed.to(dt)[tokens] * scale
+        table = self.embed.to(dt)
+        if isinstance(table, DTensor):
+            return _vocab_parallel_embed(table, tokens) * scale
+        return table[tokens] * scale
 
     def embed_inputs(self, x: torch.Tensor) -> torch.Tensor:
         """The first hidden states: tokens (B, T) through the table, or
@@ -162,39 +194,53 @@ class Model(nn.Module):
             enc = enc.to(self.compute_dtype)
         aux = torch.zeros((len(_AUX_KEYS),), dtype=torch.float32,
                           device=x.device)
+        # sequence-parallel residual stream under a mesh: each pattern
+        # group enters and leaves it sharded over the model axis
+        x = R.constrain(x, ("batch", "act_seq", None))
+        plen = len(cfg.pattern)
         for l, layer in enumerate(self.layers):
-            lspec = cfg.pattern[l % len(cfg.pattern)]
+            lspec = cfg.pattern[l % plen]
             if mode == "train":
-                x, layer_aux = self._train_layer(layer, x, lspec, enc)
+                x, layer_aux = self._train_layer(layer, x, lspec, enc, l)
             else:
                 x, layer_aux = block_apply(layer, x, cfg, lspec, pos,
                                            caches[l], mode=mode, enc=enc)
                 layer_aux = _aux_vector(layer_aux)
             if layer_aux is not None:
                 aux = aux + layer_aux
+            if (l + 1) % plen == 0:
+                x = R.constrain(x, ("batch", "act_seq", None))
         return rms_norm(x, self.final_norm, cfg.norm_eps), aux
 
     def _train_layer(self, layer: SpecModule, x: torch.Tensor, lspec,
-                     enc: Optional[torch.Tensor] = None
+                     enc: Optional[torch.Tensor] = None, index: int = 0
                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """One layer of the train forward on weights cast inside it, so a
+        """One layer (``layers.{index}``) of the train forward on weights
+        cast inside it, so a
         recomputed layer casts again and no cast copy outlives it. Returns
         (x, the layer's aux vector, or None without an MoE FFN); under
         remat the aux comes out of the checkpoint beside x, so its
         gradient flows through the recomputed layer. ``enc`` enters as a
         closure (it needs no gradient): the recompute reads the same
-        tensor."""
+        tensor. Under a mesh each weight's gradient is constrained to the
+        weight's own placement (``grad_constrained``)."""
         cfg = self.cfg
+        prefix = f"layers.{index}."
+
+        def constrained(name: str, p: torch.Tensor) -> torch.Tensor:
+            return R.grad_constrained(p, self.specs[prefix + name].axes)
 
         def run(x):
             # a span of its own, so a device trace tells the remat's second
             # forward (inside train/backward) from the first
             with profiler_span("model/layer"):
-                x, aux = block_apply(cast_params(layer, self.compute_dtype),
+                x, aux = block_apply(cast_params(layer, self.compute_dtype,
+                                                 constrained),
                                      x, cfg, lspec, 0, None, mode="train",
                                      enc=enc)
             return x, _aux_vector(aux)
 
+        run = R.keep_context(run)
         if cfg.remat == "none":
             return run(x)
         if cfg.remat == "full":
@@ -241,6 +287,66 @@ class Model(nn.Module):
         h, _aux = self._layers(self.embed_inputs(inputs), pos, caches,
                                "decode")
         return self.logits(h[:, 0])
+
+
+def _vocab_parallel_embed(table: DTensor, tokens: torch.Tensor
+                          ) -> torch.Tensor:
+    """Rows of a DTensor ``table`` (Vp, E) for ``tokens`` (B, T), as a
+    ``local_map`` over each rank's shards.
+
+    With the table's vocab split over a model axis of more than one rank,
+    this is the reference's ``shard_map`` masked *local* lookup +
+    ``psum_scatter``: each model shard gathers the ids it owns, and the
+    partial rows are reduce-scattered straight into the
+    sequence-parallel layout (or summed, when the sequence does not
+    split), so the table is never gathered; the backward is a
+    shard-local scatter-add. Otherwise each rank looks up its own tokens
+    in its whole table. Where the tokens are split over an axis that the
+    table is replicated on, each rank's table gradient is a partial sum
+    (``Partial``)."""
+    mesh = table.device_mesh
+    names = mesh.mesh_dim_names or ()
+    md = names.index("model") if "model" in names else None
+    split = (md is not None and mesh.size(md) > 1
+             and table.placements[md] == Shard(0))
+    ctx = R.current()
+    if ctx is not None:
+        tokens = R.constrain(tokens, ("batch", None))
+    tokens = R.replicated_like(tokens, table)
+    scatter_seq = False
+    if split:
+        model_size = mesh.size(md)
+        v_shard = table.shape[0] // model_size
+        scatter_seq = (ctx is not None and ctx[1].get("act_seq") == "model"
+                       and tokens.shape[-1] % model_size == 0)
+        group = mesh.get_group(md)
+        lo = mesh.get_local_rank(md) * v_shard
+
+    def local(tab, tok):
+        if not split:
+            return tab[tok]
+        ids = (tok - lo).clamp(0, v_shard - 1)
+        ok = (tok >= lo) & (tok < lo + v_shard)
+        x = torch.where(ok[..., None], tab[ids],
+                        torch.zeros((), dtype=tab.dtype, device=tab.device))
+        return psum_scatter(x, group, 1) if scatter_seq else psum(x, group)
+
+    out_pl, tab_grad = [], []
+    for d, (pt, pk) in enumerate(zip(table.placements, tokens.placements)):
+        if d == md and split:
+            out_pl.append(Shard(1) if scatter_seq else Replicate())
+            tab_grad.append(pt)
+        elif pt == Replicate() or mesh.size(d) == 1:
+            out_pl.append(pk)
+            # each rank's rows are a partial sum of the table's gradient
+            tab_grad.append(Partial() if pk != Replicate() else pt)
+        else:
+            raise ValueError(f"embedding over table {table.placements} and "
+                             f"tokens {tokens.placements}")
+    return local_map(local, out_placements=out_pl,
+                     in_placements=(table.placements, tokens.placements),
+                     in_grad_placements=(tab_grad, tokens.placements),
+                     device_mesh=mesh)(table, tokens)
 
 
 def _aux_vector(aux: Dict[str, torch.Tensor]) -> Optional[torch.Tensor]:

@@ -15,6 +15,9 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Replicate
+
+from ..sharding.rules import unshard
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,8 +65,9 @@ def schedule_fn(cfg: AdamWConfig) -> Callable[[int], float]:
 
 
 def init_state(params: Dict[str, torch.Tensor]) -> Dict:
-    """Zero f32 (m, v) beside each parameter, and step 0."""
-    zeros = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    """Zero f32 (m, v) beside each parameter, placed as the parameter is
+    (a DTensor parameter gets DTensor moments), and step 0."""
+    zeros = {n: torch.zeros_like(p, dtype=torch.float32, requires_grad=False)
              for n, p in params.items()}
     return {"m": zeros,
             "v": {n: torch.zeros_like(z) for n, z in zeros.items()},
@@ -71,8 +75,10 @@ def init_state(params: Dict[str, torch.Tensor]) -> Dict:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in f32, on the device."""
-    sums = [torch.sum(torch.square(x.float())) for x in tensors]
+    """sqrt of the sum of squares of every element, in f32, on the device.
+    A DTensor's sum of squares is its global one (a collective), so every
+    rank gets the same norm and clips by the same factor."""
+    sums = [unshard(torch.sum(torch.square(x.float()))) for x in tensors]
     return torch.sqrt(torch.sum(torch.stack(sums)))
 
 
@@ -95,7 +101,8 @@ def apply_updates(
     """One AdamW step, in place on ``params`` and ``state``.
 
     Returns the metrics ``grad_norm`` (a device tensor, the norm before
-    clipping) and ``lr`` (a float).
+    clipping) and ``lr`` (a float). DTensor parameters update on their
+    local shards: each gradient is first placed as its parameter.
     """
     step = state["step"] + 1
     lr = schedule_fn(cfg)(step)
@@ -109,7 +116,13 @@ def apply_updates(
     b1c = float(np.float32(1) - np.float32(cfg.b1) ** np.float32(step))
     b2c = float(np.float32(1) - np.float32(cfg.b2) ** np.float32(step))
     for name, p in params.items():
-        g = grads[name].float() * scale
+        g, s = grads[name], scale
+        if isinstance(p, DTensor):
+            if g.placements != p.placements:
+                g = g.redistribute(p.device_mesh, p.placements)
+            s = DTensor.from_local(scale, p.device_mesh,
+                                   [Replicate()] * p.device_mesh.ndim)
+        g = g.float() * s
         m, v = state["m"][name], state["v"][name]
         m.copy_(cfg.b1 * m + (1 - cfg.b1) * g)
         v.copy_(cfg.b2 * v + (1 - cfg.b2) * g * g)

@@ -18,19 +18,23 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..sharding.rules import constrain, keep_context, replicated_like
 
 IGNORE = -100
 
 
 def _chunk_sums(h: torch.Tensor, lm_head: torch.Tensor, lab: torch.Tensor,
                 ncb: int, V: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(nll sum, z sum) over the valid labels of one chunk."""
+    """(nll sum, z sum) over the valid labels of one chunk. Under a mesh
+    the chunk's logits gather their vocab shards before the logsumexp (one
+    chunk's, never the sequence's)."""
     B, c, _ = h.shape
-    logits = (h @ lm_head).float().view(B, c, ncb, -1)
+    logits = constrain((h @ lm_head).float(), ("batch", None, None))
+    logits = logits.view(B, c, ncb, -1)
     Vp = logits.shape[-1]
     if Vp != V:
-        logits = logits.masked_fill(torch.arange(Vp, device=h.device) >= V,
-                                    -1e30)
+        pad = replicated_like(torch.arange(Vp, device=h.device) >= V, logits)
+        logits = logits.masked_fill(pad, -1e30)
     lse = torch.logsumexp(logits, dim=-1)                      # (B, c, ncb)
     safe = lab.clamp(0, V - 1)
     ll = torch.gather(logits, -1, safe[..., None].long())[..., 0]
@@ -53,6 +57,8 @@ def chunked_ce_loss(
     ``z_weight`` times the mean squared logsumexp (z-loss). Returns
     (loss, {"ce", "z_loss", "tokens"}), all f32 scalars on the device."""
     B, T, E = hidden.shape
+    # SP boundary: the chunk loop slices the time dim
+    hidden = constrain(hidden, ("batch", None, None))
     ncb, V = cfg.n_codebooks, cfg.vocab_size
     if labels.dim() == 2:
         labels = labels[..., None]     # (B, T, 1)
@@ -62,8 +68,9 @@ def chunked_ce_loss(
         hidden = F.pad(hidden, (0, 0, 0, pad))
         labels = F.pad(labels, (0, 0, 0, pad), value=IGNORE)
     nll = zsum = torch.zeros((), device=hidden.device)
+    sums = keep_context(_chunk_sums)       # the recompute places as the forward
     for i in range(0, T + pad, c):
-        n, z = checkpoint(_chunk_sums, hidden[:, i:i + c], lm_head,
+        n, z = checkpoint(sums, hidden[:, i:i + c], lm_head,
                           labels[:, i:i + c], ncb, V, use_reentrant=False)
         nll, zsum = nll + n, zsum + z
     denom = (labels != IGNORE).sum().clamp_min(1).float()

@@ -27,6 +27,7 @@ from ..configs.base import ModelConfig
 from ..core.regions import profiler_span
 from ..models.model import Cache, Model
 from ..optim import adamw
+from ..sharding.rules import constrain, unshard
 from .losses import chunked_ce_loss
 
 
@@ -46,8 +47,10 @@ def _loss(model: Model, batch: Dict[str, torch.Tensor], cfg: ModelConfig
     hidden, aux = model(inputs, mode="train", enc=enc)
     lm_head = model.lm_head.to(model.compute_dtype)
     loss, metrics = chunked_ce_loss(hidden, lm_head, batch["labels"], cfg)
-    return loss + aux[0], dict(metrics, moe_aux=aux[0],
-                               moe_load_balance=aux[1])
+    # under a mesh the loss is summed over the batch shards: replicate it,
+    # so every rank's backward starts from the same total
+    return constrain(loss + aux[0], ()), dict(metrics, moe_aux=aux[0],
+                                              moe_load_balance=aux[1])
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
@@ -68,7 +71,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
         if B % microbatches:
             raise ValueError(f"batch {B} does not split into {microbatches} "
                              "microbatches")
-        parts = {k: v.split(B // microbatches) for k, v in batch.items()}
+        # under a mesh each microbatch is split over the batch axes again
+        parts = {k: [constrain(x, ("batch",) + (None,) * (x.dim() - 1))
+                     for x in v.split(B // microbatches)]
+                 if microbatches > 1 else [v] for k, v in batch.items()}
         loss_sum = torch.zeros((), device=batch["labels"].device)
         for i in range(microbatches):
             with profiler_span("train/forward"):
@@ -76,12 +82,12 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
                                               parts.items()}, cfg)
             with profiler_span("train/backward"):
                 loss.backward()
-            loss_sum = loss_sum + loss.detach()
+            loss_sum = loss_sum + unshard(loss.detach())
         with profiler_span("train/update"):
             if microbatches > 1:
                 for p in params.values():
                     p.grad.div_(microbatches)
-            metrics = {k: v.detach() for k, v in metrics.items()}
+            metrics = {k: unshard(v.detach()) for k, v in metrics.items()}
             metrics.update(adamw.apply_updates(
                 params, {n: p.grad for n, p in params.items()}, opt_state,
                 opt_cfg))

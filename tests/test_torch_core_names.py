@@ -1,8 +1,8 @@
 """``repro_torch.core`` carries the public names of ``repro.core``.
 
 The port's ``__all__`` is the reference's with ``annotate_torch`` in place
-of ``annotate_jax`` and without ``compat``, ``hlo`` and ``hlo_cost`` (not
-ported until the mesh-sharding layer). Every name resolves to the object of
+of ``annotate_jax`` and without ``hlo`` and ``hlo_cost`` (they read XLA's
+compiled text; not ported yet). Every name resolves to the object of
 its submodule. ``regions`` imports torch, so it loads at first use:
 importing ``repro_torch.core.counters``, as the host packages do, still
 imports no torch.
@@ -17,7 +17,7 @@ import repro.core as jax_core
 import repro_torch.core as core
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LEFT_OUT = {"compat", "hlo", "hlo_cost", "annotate_jax"}
+LEFT_OUT = {"hlo", "hlo_cost", "annotate_jax"}
 
 
 def test_all_is_the_references_with_annotate_torch():
@@ -29,13 +29,14 @@ def test_all_is_the_references_with_annotate_torch():
 
 @pytest.mark.parametrize("name", sorted(core.__all__))
 def test_every_name_is_its_submodules_object(name):
-    from repro_torch.core import (analyses, collector, comparison, counters,
-                                  events, graphframe, regions, roofline,
-                                  timeline)
+    from repro_torch.core import (analyses, collector, comparison, compat,
+                                  counters, events, graphframe, regions,
+                                  roofline, timeline)
 
     got = getattr(core, name)
     modules = {m.__name__.rsplit(".", 1)[-1]: m for m in (
-        analyses, comparison, counters, graphframe, regions, timeline)}
+        analyses, comparison, compat, counters, graphframe, regions,
+        timeline)}
     if name in modules:
         assert got is modules[name]
         return

@@ -13,11 +13,25 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
 
+PORTED_DRIVERS = [
+    "scripts/corpus_run_torch.py", "scripts/profile_hotpath_torch.py",
+    "scripts/trace_convert_torch.py", "scripts/make_trace_goldens_torch.py",
+    "examples/quickstart_torch.py", "examples/train_e2e_torch.py",
+    "examples/matching_tour_torch.py", "examples/replay_tour_torch.py",
+    "examples/telemetry_tour_torch.py"]
+
+
 def port_files():
+    """The port's package, ``chip_smoke.py`` and the ported scripts and
+    examples (``scripts/*_torch.py``, ``examples/*_torch.py``)."""
     root = os.path.join(REPO, "src", "repro_torch")
     files = [os.path.join(REPO, "chip_smoke.py")]
     for dirpath, _dirs, names in os.walk(root):
         files += [os.path.join(dirpath, n) for n in names if n.endswith(".py")]
+    for sub in ("scripts", "examples"):
+        files += [os.path.join(REPO, sub, n)
+                  for n in os.listdir(os.path.join(REPO, sub))
+                  if n.endswith("_torch.py")]
     return sorted(files)
 
 
@@ -35,6 +49,8 @@ def test_port_files_exist():
     files = port_files()
     assert os.path.join(REPO, "chip_smoke.py") in files
     assert len(files) > 15
+    for rel in PORTED_DRIVERS:
+        assert os.path.join(REPO, rel) in files, rel
 
 
 @pytest.mark.parametrize("path", port_files(),

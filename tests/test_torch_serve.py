@@ -247,10 +247,9 @@ def test_seeded_init_is_stable_and_seed_dependent():
 
 
 @pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "musicgen-large"])
-def test_unported_layers_raise(arch):
-    # (named for the refusal this test once checked) the vlm's
-    # cross-attention and the audio model's frames build; a mixer the port
-    # does not have raises
+def test_vlm_and_audio_build_and_unknown_mixer_raises(arch):
+    # the vlm's cross-attention and the audio model's frames build; a mixer
+    # the port does not have raises
     cfg = torch_archs.get_config(arch, "smoke")
     model = Model(cfg, CPU)
     assert ("embed" in dict(model.named_parameters())) == (

@@ -303,11 +303,10 @@ def test_remat_none_gives_the_same_gradients_as_full():
         assert torch.allclose(g, grads[1][name], rtol=1e-5, atol=1e-7), name
 
 
-def test_dots_remat_raises_with_its_roadmap_entry():
-    # (named for the refusal this test once checked) "dots" is ported: it
-    # keeps every x @ W product (aten.mm) of the forward, so the backward
-    # recomputes no mm that "full" recomputes, and the gradients are the
-    # same; an unknown policy raises
+def test_dots_remat_saves_products_and_matches_full():
+    # "dots" keeps every x @ W product (aten.mm) of the forward, so the
+    # backward recomputes no mm that "full" recomputes, and the gradients
+    # are the same; an unknown policy raises
     from torch.utils._python_dispatch import TorchDispatchMode
 
     class CountMM(TorchDispatchMode):
@@ -415,8 +414,10 @@ def test_trace_out_writes_a_chrome_trace(tmp_path):
     assert {"train/step", "train/data", "train/compute"} <= names
 
 
-def test_model_parallel_is_rejected():
-    with pytest.raises(SystemExit):
+def test_indivisible_model_parallel_raises_value_error():
+    # one process, no process group: a world of 1 rank, which 2 does not
+    # divide (the mesh itself is tested in test_torch_sharded_train.py)
+    with pytest.raises(ValueError, match="--model-parallel 2 does not divide"):
         train.main(BASE + ["--steps", "1", "--model-parallel", "2"])
 
 
