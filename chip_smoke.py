@@ -198,6 +198,15 @@ Phases, each of which fails the run (non-zero exit, no final line):
  32. the ported examples on the card: ``examples/quickstart_torch.py`` (8
      steps of the smoke preset) and ``examples/train_e2e_torch.py`` (its
      tiny preset, 300 steps), finite losses that fall;
+ 33. the dry run on a fake process group, each cell in a subprocess:
+     33a dry-runs yi-6b train_4k, prefill_32k and decode_32k and
+     deepseek-moe-16b train_4k on the 16x16 mesh (256 fake ranks, a cuda
+     mesh): per-device memory against 80 GB, FLOPs, wire bytes, roofline,
+     exposed fraction (model outputs for 256 H100s, not measurements);
+     33b dry-runs phase 9's cell on a (1,1) fake mesh and holds it to one
+     step of that cell on the card: FLOPs within 0.1% of ``count_cost``,
+     flash launches by shape equal, argument bytes equal, the predicted
+     peak within [0.8, 1.2] of ``max_memory_allocated``;
  14. print one JSON line with every ported kernel, then the result line.
 
 Serving (phases 5, 13, 15, 20, 22-24) decodes through one captured CUDA
@@ -3311,6 +3320,157 @@ def examples_phase() -> tuple:
     return counts, numbers
 
 
+DRYRUN_CELLS = (("yi-6b", "train_4k"), ("yi-6b", "prefill_32k"),
+                 ("yi-6b", "decode_32k"), ("deepseek-moe-16b", "train_4k"))
+# phase 33b: the dry run's FLOPs against the counted step's (relative), and
+# its predicted peak against torch.cuda.max_memory_allocated (a ratio)
+DRYRUN_FLOPS_TOL = 1e-3
+DRYRUN_PEAK_RANGE = (0.8, 1.2)
+
+
+def dryrun_phase(train_trace: dict) -> tuple:
+    """Phase 33: the dry run on a fake process group
+    (``python -m repro_torch.launch.dryrun``), each cell in a subprocess of
+    its own, so that no fake group meets phase 31's NCCL group, all started
+    together. 33a: the production 16x16 mesh for DRYRUN_CELLS (a cuda mesh
+    over 256 fake ranks): per-device memory against 80 GB, FLOPs, wire
+    bytes, the roofline and the modeled schedule's exposed fraction, all
+    model outputs for 256 H100s. 33b: phase 9's cell (yi-6b, full width, 8
+    layers, B 4, T 1024, bf16 compute) dry-run on a (1,1) fake mesh and,
+    meanwhile, one step of it run for real on the card (int32 tokens, as
+    the specs give them), counted by ``count_cost``: FLOPs within
+    DRYRUN_FLOPS_TOL, flash launches by shape equal, argument bytes equal
+    to the real params, AdamW state and batch, the predicted peak within
+    DRYRUN_PEAK_RANGE of ``max_memory_allocated``; the modeled compute time
+    beside phase 18's traced busy time of the same cell. Returns (the real
+    step's launch counts, the phase's numbers)."""
+    import gc
+
+    import torch
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.core import cost
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import train
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
+    L, B, T = TRAIN_LAYERS, 4, 1024
+    cells = {f"{a} {s}": ["--arch", a, "--shape", s] for a, s in DRYRUN_CELLS}
+    cells["33b"] = ["--arch", "yi-6b", "--shape", "train_4k", "--layers",
+                    str(L), "--batch", str(B), "--seq", str(T), "--mesh",
+                    "1x1"]
+    procs = {tag: subprocess.Popen(
+        [sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun",
+         "--no-save", *argv], cwd=HERE, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for tag, argv in cells.items()}
+    try:
+        # 33b's real step on the card while the dry runs record
+        dev = torch.device("cuda")
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(get_config("yi-6b", "full"), n_layers=L)
+        model = Model(cfg, dev, trainable=True).init_weights(0)
+        params = dict(model.named_parameters())
+        opt_state = adamw.init_state(params)
+        batch = {k: v.to(torch.int32) for k, v in train.to_device(
+            SyntheticTokens(cfg, DataConfig(batch=B, seq_len=T)).batch_at(0),
+            dev).items()}
+        arg_bytes = 4 + sum(t.nbytes for t in (
+            *params.values(), *opt_state["m"].values(),
+            *opt_state["v"].values(), *batch.values()))
+        step = make_train_step(cfg, adamw.AdamWConfig())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        shapes0 = dict(flash_attention.launches_by_shape)
+        ts = time.perf_counter()
+        with cost.count_cost() as tally:
+            loss = float(step(model, opt_state, batch)["loss"])
+        step_ms = (time.perf_counter() - ts) * 1e3
+        peak = torch.cuda.max_memory_allocated(dev)
+        counts = read_counts()
+        by_shape = {k: n - shapes0[k] for k, n in
+                    flash_attention.launches_by_shape.items()
+                    if n != shapes0[k]}
+        del model, params, opt_state, batch, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        outs = {tag: p.communicate(timeout=600)[0] for tag, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    results = {}
+    for tag, out in outs.items():
+        lines = out.strip().splitlines()
+        check(procs[tag].returncode == 0 and lines,
+              f"the dry run of {tag} failed: {out[-3000:]}")
+        results[tag] = json.loads(lines[-1])
+        check(results[tag].get("ok"), f"the dry run of {tag} failed: "
+              f"{results[tag].get('error', '')[-2000:]}")
+        roof = next((ln.strip() for ln in lines if "roofline:" in ln), "")
+        r = results[tag]
+        if tag == "33b":
+            continue
+        m, w, sch = r["memory"], r["walker"], r["schedule"]
+        print(f"[33a] {tag} on {r['mesh']} ({r['n_chips']} fake ranks, "
+              f"{r['device']} mesh, {r['ops']} ops recorded in "
+              f"{r['t_lower_s']} s; model outputs for {r['n_chips']} "
+              f"H100s): {m['per_device_total'] / 1e9:.2f} GB a device, fits "
+              f"80 GB: {m['fits_hbm']} (arguments "
+              f"{m['argument_bytes'] / 1e9:.2f} GB, temp "
+              f"{m['temp_bytes'] / 1e9:.2f} GB); FLOPs {w['flops_per_device']:.4e}"
+              f", wire bytes {w['collective_wire_bytes']:.4e} in "
+              f"{int(w['collective_count'])} collectives; {roof}; exposed "
+              f"fraction {sch['exposed_fraction']:.4f} of "
+              f"{sch['t_collective_total'] * 1e3:.2f} ms of collectives; "
+              f"flash calls {r['flash_launches_by_shape']}", flush=True)
+    d = results["33b"]
+    flops_err = abs(d["walker"]["flops_per_device"] - tally.flops) / tally.flops
+    peak_ratio = d["memory"]["per_device_total"] / peak
+    busy = train_trace["busy_ms"]
+    print(f"[33b] yi-6b {L} layers B={B} T={T} bf16 on a (1,1) fake mesh: "
+          f"FLOPs {d['walker']['flops_per_device']:.6e} predicted, "
+          f"{tally.flops:.6e} counted on the card (rel err {flops_err:.3e}, "
+          f"< {DRYRUN_FLOPS_TOL:g}); flash calls {d['flash_launches_by_shape']}"
+          f" predicted, {by_shape} launched; argument bytes "
+          f"{d['memory']['argument_bytes']} predicted, {arg_bytes} real; peak "
+          f"{d['memory']['per_device_total'] / 1e9:.3f} GB predicted, "
+          f"{peak / 1e9:.3f} GB max_memory_allocated (ratio "
+          f"{peak_ratio:.4f}, in {DRYRUN_PEAK_RANGE}); the real step "
+          f"{step_ms:.1f} ms (first step, loss {loss:.4f}); modeled compute "
+          f"{d['schedule']['t_compute'] * 1e3:.2f} ms beside phase 18's "
+          f"traced busy {busy:.2f} ms of this cell", flush=True)
+    check(flops_err < DRYRUN_FLOPS_TOL, "33b: the dry run's FLOPs miss the "
+          "counted step's")
+    check(d["flash_launches_by_shape"] == by_shape, "33b: the dry run's "
+          "flash calls differ from the real step's launches")
+    check(d["memory"]["argument_bytes"] == arg_bytes, "33b: the dry run's "
+          "argument bytes differ from the real step's")
+    check(DRYRUN_PEAK_RANGE[0] <= peak_ratio <= DRYRUN_PEAK_RANGE[1],
+          "33b: the dry run's peak is outside the range of the real one")
+    phase_s = time.perf_counter() - t0
+    print(f"[33] took {phase_s:.1f} s", flush=True)
+    numbers = {"cells": {tag: {k: r[k] for k in (
+        "mesh", "n_chips", "t_lower_s", "ops", "memory", "walker",
+        "collectives_unscaled", "model_flops", "roofline", "schedule",
+        "flash_launches_by_shape")} for tag, r in results.items()},
+        "real_step": {"flops": tally.flops, "launches_by_shape": by_shape,
+                      "argument_bytes": arg_bytes, "peak_bytes": peak,
+                      "step_ms": step_ms, "loss": loss},
+        "flops_rel_err": flops_err, "peak_ratio": peak_ratio,
+        "traced_busy_ms": busy, "phase_s": phase_s}
+    for r in numbers["cells"].values():
+        r["walker"].pop("top_collectives", None)
+    return counts, numbers
+
+
 def card_info():
     """(device name, device count, the card line of nvidia-smi, SM count,
     top SM clock in Hz)."""
@@ -3722,11 +3882,12 @@ def main() -> None:
     dots_counts, dots = dots_phase(train_stats)
     sharded_counts, resume_counts, sharded = sharded_phases()
     example_counts, examples = examples_phase()
+    dryrun_counts, dryrun = dryrun_phase(train_trace)
     default_counts = default_commands_phase()
     d16 = d16_timing_phase(qkv)
     halo_counts, halo = halo_phase()
 
-    print(f"[14] phases 1-32 took {time.perf_counter() - T0:.1f} s",
+    print(f"[14] phases 1-33 took {time.perf_counter() - T0:.1f} s",
           flush=True)
 
     # 14. result lines; gemma3's training counts go to the D = 256 rows,
@@ -3749,7 +3910,8 @@ def main() -> None:
              "train_vlm": vlm_by_mask["causal"], "train_dots": dots_counts,
              "train_sharded": sharded_counts,
              "train_sharded_resumed": resume_counts,
-             "quickstart_example": example_counts["quickstart"]}
+             "quickstart_example": example_counts["quickstart"],
+             "train_dryrun_check": dryrun_counts}
 
     d16_paths = ("serve_default", "serve_jamba_default", "train_default",
                  "train_jamba_default", "train_sharded_resumed",
@@ -4019,6 +4181,7 @@ def main() -> None:
                       "remat_dots": dots,
                       "train_sharded": sharded,
                       "examples": examples,
+                      "dryrun": dryrun,
                       "scan_backward": {k: v for k, v in scan_bwd.items()
                                         if k != "timing"},
                       "captured_vs_eager_yi6b": yi_decode,

@@ -6,14 +6,14 @@
 # timelines (``cost``, ``device_timeline``, imported by name).
 #
 # The public names of ``repro.core``, with ``annotate_torch`` in place of
-# ``annotate_jax``. ``hlo`` and ``hlo_cost`` are left out: they read XLA's
-# compiled text and are not ported yet (ROADMAP Queue 1, item 8).
+# ``annotate_jax``. ``hlo`` and ``hlo_cost`` read a recorded step (the
+# port's counterpart of XLA's compiled text; the dry run records it).
 #
-# ``regions`` and ``compat`` import torch, and the host packages
-# (``telemetry``, ``faults``, ``workloads``, ``corpus``) import
-# ``core.counters`` without it. So those two modules and the names that
-# come from ``regions`` load at first use (PEP 562 ``__getattr__``); every
-# other module here imports no torch and loads with the package.
+# ``regions``, ``compat``, ``hlo`` and ``hlo_cost`` import torch, and the
+# host packages (``telemetry``, ``faults``, ``workloads``, ``corpus``)
+# import ``core.counters`` without it. So those modules and the names
+# that come from ``regions`` load at first use (PEP 562 ``__getattr__``);
+# every other module here imports no torch and loads with the package.
 from importlib import import_module
 
 from . import analyses, comparison, counters, graphframe, timeline
@@ -28,11 +28,12 @@ from .events import Event
 from .graphframe import GraphFrame
 from .roofline import HW, Roofline
 
+_LAZY = ("regions", "compat", "hlo", "hlo_cost")
 _FROM_REGIONS = ("annotate", "annotate_torch", "configure", "profiled")
 
 __all__ = [
-    "analyses", "comparison", "compat", "counters", "graphframe",
-    "regions", "timeline", "Collector", "global_collector",
+    "analyses", "comparison", "compat", "counters", "graphframe", "hlo",
+    "hlo_cost", "regions", "timeline", "Collector", "global_collector",
     "reset_global_collector", "CounterLane", "CounterRegistry", "CounterStat",
     "counter_stats", "global_registry", "lane_events", "merge_lane_stats",
     "reduce_lanes", "reset_global_registry",
@@ -44,7 +45,7 @@ __all__ = [
 
 
 def __getattr__(name):
-    if name in ("regions", "compat"):
+    if name in _LAZY:
         return import_module(f".{name}", __name__)
     if name in _FROM_REGIONS:
         return getattr(import_module(".regions", __name__), name)

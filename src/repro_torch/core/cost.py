@@ -6,10 +6,14 @@ The JAX package reads these from the compiled HLO of a step. The port runs
 eagerly and has no compiled module, so :func:`count_cost` counts the step
 as it runs:
 
-  * FLOPs of the aten ops from ``torch.utils.flop_counter.FlopCounterMode``;
+  * FLOPs of the aten ops from ``torch.utils.flop_counter``'s registered
+    formulas, over the ops one rank runs (:class:`.hlo.Recorder`: under
+    DTensor the local ops on the rank's shards, not the global ones);
   * FLOPs and bytes of the hand-written CUDA kernels, which are ``ctypes``
     calls that no dispatch mode sees: each kernel wrapper adds its own,
-    from its shapes, once per launch (:func:`add_kernel`, with the
+    from its shapes, once per launch, and once per call of its plain
+    version on the CPU, whose own ops are not counted (:func:`add_kernel`,
+    :func:`stand_in`, with the
     formulas of :func:`attention_work`, :func:`backward_work`,
     :func:`scan_work` and :func:`scan_bwd_work`, which ``chip_smoke.py``
     also uses for its bounds);
@@ -23,8 +27,10 @@ regions (category ``"collective"``, named ``op(axis)``, with ``bytes=``
 one rank's block) with the ring-algorithm wire costs of the reference's
 ``CollectiveOp.wire_bytes``.
 
-HLO-text parsing (``core/hlo.py``, ``core/hlo_cost.py``) has no input in
-the port yet: it comes with a ``dryrun`` counterpart (ROADMAP Queue 1).
+The same recorder reads a dry run's step (:mod:`.hlo`, :mod:`.hlo_cost`,
+:mod:`repro_torch.launch.dryrun`), the port's counterpart of the
+reference's compiled-HLO parsing: a count on the card and a dry run's
+prediction come from one counter.
 """
 from __future__ import annotations
 
@@ -33,15 +39,7 @@ import dataclasses
 import re
 from typing import Any, Dict, Iterable, Iterator, List, Optional, Tuple
 
-import torch
-from torch.utils._pytree import tree_leaves
-from torch.utils._python_dispatch import TorchDispatchMode
-from torch.utils.flop_counter import FlopCounterMode
-
 from .events import Event
-
-aten = torch.ops.aten
-
 
 # ---------------------------------------------------------------------------
 # the hand-written kernels' work, from their shapes
@@ -120,73 +118,101 @@ def scan_bwd_work(B: int, T: int, dI: int, N: int, x_item: int,
 class StepCost:
     """What :func:`count_cost` counted: ``flops`` (aten ops and kernels),
     ``bytes`` (an upper estimate, see the module docstring), the aten
-    FLOPs by op, and each hand-written kernel's launches, FLOPs and
-    bytes."""
+    FLOPs by op, each hand-written kernel's launches, FLOPs and bytes,
+    the kernel calls by shape (``fwd/128/causal``: the keys of
+    ``flash_attention.launches_by_shape``), the collectives by opcode
+    (``count``, ``operand_bytes``, ``wire_bytes``) and the recording the
+    tally was read from (:class:`repro_torch.core.hlo.Recording`)."""
     flops: float = 0.0
     bytes: float = 0.0
     flops_by_op: Dict[str, float] = dataclasses.field(default_factory=dict)
     kernels: Dict[str, Dict[str, float]] = dataclasses.field(
         default_factory=dict)
+    by_shape: Dict[str, int] = dataclasses.field(default_factory=dict)
+    collectives: Dict[str, Dict[str, int]] = dataclasses.field(
+        default_factory=dict)
+    recording: Any = None
 
 
-_ACTIVE: List[StepCost] = []         # the tallies count_cost has open
+_ACTIVE: List[Any] = []      # the open recorders (hlo.Recorder)
 
 
 def counting() -> bool:
-    """Whether a :func:`count_cost` block is open (kernel wrappers compute
-    their work only then)."""
+    """Whether a :func:`count_cost` block (or a dry run's recording) is
+    open: kernel wrappers compute their work only then."""
     return bool(_ACTIVE)
 
 
-def add_kernel(name: str, flops: float, nbytes: float) -> None:
-    """Add one launch of hand-written kernel ``name`` to every open tally."""
-    for cost in _ACTIVE:
-        k = cost.kernels.setdefault(name, {"launches": 0, "flops": 0.0,
-                                           "bytes": 0.0})
-        k["launches"] += 1
-        k["flops"] += flops
-        k["bytes"] += nbytes
-        cost.flops += flops
-        cost.bytes += nbytes
+def add_kernel(name: str, flops: float, nbytes: float,
+               shape: Optional[str] = None) -> None:
+    """Add one launch of hand-written kernel ``name`` (its call ``shape``
+    key, when given) to every open tally."""
+    for rec in _ACTIVE:
+        rec.add_kernel(name, flops, nbytes, shape)
 
 
-# allocations that write nothing
-_NO_BYTES = {aten.empty, aten.empty_strided, aten.empty_like, aten.new_empty,
-             aten.new_empty_strided}
+@contextlib.contextmanager
+def tally(recorder) -> Iterator[None]:
+    """Open ``recorder`` (an :class:`repro_torch.core.hlo.Recorder`) to the
+    kernel wrappers' :func:`add_kernel` inside the block."""
+    _ACTIVE.append(recorder)
+    try:
+        yield
+    finally:
+        _ACTIVE.remove(recorder)
 
 
-class _ByteCounter(TorchDispatchMode):
-    """Adds each op's operand and result bytes to ``cost.bytes``."""
-
-    def __init__(self, cost: StepCost):
-        super().__init__()
-        self.cost = cost
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        out = func(*args, **(kwargs or {}))
-        if not func.is_view and func.overloadpacket not in _NO_BYTES:
-            self.cost.bytes += sum(
-                t.nbytes for t in tree_leaves((args, kwargs, out))
-                if isinstance(t, torch.Tensor))
-        return out
+@contextlib.contextmanager
+def stand_in(work) -> Iterator[None]:
+    """The block runs a kernel's plain version, which stands in for it on
+    the CPU: every open tally skips the block's ops and adds ``work()``
+    instead, a list of :func:`add_kernel` argument tuples (name, flops,
+    bytes, shape), so a count on the CPU is the card's count."""
+    active = list(_ACTIVE)
+    for rec in active:
+        rec.paused += 1
+    try:
+        yield
+    finally:
+        for rec in active:
+            rec.paused -= 1
+        if active:
+            for args in work():
+                for rec in active:
+                    rec.add_kernel(*args)
 
 
 @contextlib.contextmanager
 def count_cost() -> Iterator[StepCost]:
     """Count the FLOPs and bytes of the ops run inside the block (on every
-    thread autograd uses) and of the hand-written kernels launched there.
-    The tally is complete when the block exits."""
+    thread autograd uses), one rank's under DTensor (the local ops and the
+    collectives, :class:`repro_torch.core.hlo.Recorder`), and of the
+    hand-written kernels launched there; on the CPU a kernel's plain
+    version counts as the kernel it stands in for (:func:`stand_in`). The
+    tally is complete when the block exits."""
+    from . import hlo
+
     cost = StepCost()
-    flop_counter = FlopCounterMode(display=False)
-    _ACTIVE.append(cost)
+    rec = hlo.Recorder()
     try:
-        with flop_counter, _ByteCounter(cost):
+        with tally(rec), rec:
             yield cost
     finally:
-        _ACTIVE.remove(cost)
-        for op, n in flop_counter.get_flop_counts().get("Global", {}).items():
-            cost.flops_by_op[str(op)] = cost.flops_by_op.get(str(op), 0) + n
-        cost.flops += flop_counter.get_total_flops()
+        cost.recording = rec.recording
+        for op in rec.recording.ops:
+            cost.flops += op.flops
+            cost.bytes += op.bytes
+            if op.kind == "kernel":
+                k = cost.kernels.setdefault(op.name[len("kernel."):], {
+                    "launches": 0, "flops": 0.0, "bytes": 0.0})
+                k["launches"] += 1
+                k["flops"] += op.flops
+                k["bytes"] += op.bytes
+            elif op.kind == "op" and hlo.counts_flops(op.name):
+                cost.flops_by_op[op.name] = (cost.flops_by_op.get(op.name, 0)
+                                             + op.flops)
+        cost.by_shape = dict(rec.by_shape)
+        cost.collectives = hlo.collective_stats(rec.recording).by_opcode
 
 
 def step_cost(fn, *args: Any, **kwargs: Any) -> Tuple[Any, StepCost]:
@@ -217,7 +243,7 @@ def wire_bytes(opcode: str, operand_bytes: int, group: int) -> int:
         return int(2 * operand_bytes * (g - 1) / g)
     if opcode == "all-gather":
         return int(operand_bytes * g * (g - 1) / g)
-    if opcode in ("reduce-scatter", "all-to-all"):
+    if opcode in ("reduce-scatter", "all-to-all", "ragged-all-to-all"):
         return int(operand_bytes * (g - 1) / g)
     return operand_bytes
 

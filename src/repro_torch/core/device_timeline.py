@@ -24,6 +24,8 @@ apply unchanged (:func:`to_events`, :func:`overlay_match_lane`):
     tid 2  "match engine"       measured PRQ/UMQ search time laid under
                                 the collectives that pay for it
 
+:func:`modeled_schedule` models the segments of a recorded step, where
+no card ran it (the dry run), as the reference models them from HLO.
 :func:`extract_schedule` reads the segments of a trace. Overlap is
 measured, not flagged by opcode: each collective interval is cut at the
 edges of the compute lane's busy intervals, and a piece is ``overlapped``
@@ -394,6 +396,56 @@ def extract_schedule(trace: dict) -> List[Segment]:
         for a, b, under in _cut(g.ts, g.end, busy):
             segments.append(Segment(g.label, "collective", (b - a) * 1e-6,
                                     overlapped=under))
+    flush()
+    return segments
+
+
+def modeled_schedule(recorded, hw: Optional[Dict[str, float]] = None
+                     ) -> List[Segment]:
+    """A recorded step (:class:`repro_torch.core.hlo.Recording`: a dry run
+    on a fake process group, or a real step) linearized into costed
+    segments: the counterpart of the reference's ``extract_schedule`` of
+    compiled HLO, where this module's :func:`extract_schedule` reads a
+    measured trace.
+
+    The ops between two collectives merge into one compute segment of
+    max(FLOPs / ``hw["peak_flops_bf16"]``, bytes / ``hw["hbm_bw"]``); each
+    collective is a segment of its wire bytes / ``hw["link_bw"]``,
+    ``overlapped`` when compute runs between its issue and its
+    ``wait_tensor`` (a synchronous collective never is). ``hw`` defaults
+    to the H100's :data:`repro_torch.core.roofline.HW`."""
+    from .roofline import HW
+
+    hw = hw or HW
+    ops = recorded.ops
+    busy = [op.kind in ("op", "kernel") and (op.flops > 0 or op.bytes > 0)
+            for op in ops]
+    # prefix counts of compute ops: is there any between two indices?
+    before = [0]
+    for b in busy:
+        before.append(before[-1] + b)
+    segments: List[Segment] = []
+    flops = nbytes = 0.0
+
+    def flush():
+        nonlocal flops, nbytes
+        if flops or nbytes:
+            segments.append(Segment("compute", "compute", max(
+                flops / hw["peak_flops_bf16"], nbytes / hw["hbm_bw"])))
+            flops = nbytes = 0.0
+
+    for op in ops:
+        if op.collective is None:
+            if op.kind in ("op", "kernel"):
+                flops += op.flops
+                nbytes += op.bytes
+            continue
+        flush()
+        end = op.done if op.done is not None else len(ops)
+        segments.append(Segment(
+            op.collective.opcode, "collective",
+            op.collective.wire_bytes / hw["link_bw"],
+            overlapped=before[end] > before[op.index + 1]))
     flush()
     return segments
 

@@ -21,12 +21,21 @@ scalar f32 kernels; ``launches_by_shape`` counts them under
 queries against S keys). Inside a
 :func:`repro_torch.core.cost.count_cost` block each launch also adds its
 FLOPs and bytes, from its shapes.
+
+Fake tensors (``FakeTensorMode``: the dry run of
+:mod:`repro_torch.launch.dryrun`, on any device) take a branch of their
+own: it returns empty tensors of the kernels' output shapes and dtypes,
+adds the kernels' work to the open tallies and counts the call by shape
+in ``fake_launches_by_shape``, apart from the real launches, which a dry
+run leaves as it found them. A real CPU tensor takes the plain version,
+which a tally counts as the kernel (``cost.stand_in``).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
 from ...core import cost
 from . import kernel
@@ -64,15 +73,27 @@ def flash_attention(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (out (B, T, H, D), lse (B, H, T) f32)."""
     _check_args(q, k, v, causal, window)
-    if q.is_cuda:
+    key = _shape("fwd", q, causal)
+
+    def work():
+        return [("flash_attention_fwd", *cost.attention_work(
+            *_dims(q, k), causal, window, q.element_size()), key)]
+
+    if is_fake(q):
+        B, T, H, D = q.shape
+        out = (torch.empty((B, T, H, D), dtype=q.dtype, device=q.device),
+               torch.empty((B, H, T), dtype=torch.float32, device=q.device))
+        _count_fake(key)
+    elif q.is_cuda:
         out = kernel.flash_fwd(q, k, v, causal=causal, window=window)
         flash_attention.launches += 1
-        flash_attention.launches_by_shape[_shape("fwd", q, causal)] += 1
-        if cost.counting():
-            cost.add_kernel("flash_attention_fwd", *cost.attention_work(
-                *_dims(q, k), causal, window, q.element_size()))
-        return out
-    return flash_attention_ref(q, k, v, causal=causal, window=window)
+        flash_attention.launches_by_shape[key] += 1
+    else:
+        with cost.stand_in(work):
+            return flash_attention_ref(q, k, v, causal=causal, window=window)
+    if cost.counting():
+        cost.add_kernel(*work()[0])
+    return out
 
 
 flash_attention.launches = 0
@@ -82,6 +103,13 @@ flash_attention.launches_by_variant = kernel.launches_by_variant
 flash_attention.launches_by_shape = {
     f"{name}/{D}/{mask}": 0 for name, dims in kernel.HEAD_DIMS.items()
     for D in dims for mask in ("causal", "non-causal")}
+flash_attention.fake_launches_by_shape = dict.fromkeys(
+    flash_attention.launches_by_shape, 0)
+
+
+def _count_fake(key: str) -> None:
+    fake = flash_attention.fake_launches_by_shape
+    fake[key] = fake.get(key, 0) + 1
 
 
 def _shape(name: str, q: torch.Tensor, causal: bool) -> str:
@@ -98,26 +126,40 @@ def flash_attention_bwd(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (dq (B, T, H, D), dk, dv (B, S, K, D)) in the inputs' dtypes."""
     _check_args(q, k, v, causal, window)
-    if not q.is_cuda:
-        return flash_attention_bwd_ref(q, k, v, out, lse, do, causal=causal,
-                                       window=window)
+    keys = {"dq": _shape("dq", q, causal), "dkv": _shape("dkv", q, causal)}
+
+    def work():
+        w = cost.backward_work(*_dims(q, k), causal, window, q.element_size())
+        return [(f"flash_attention_bwd_{n}", *w[n], keys[n])
+                for n in ("dq", "dkv")]
+
+    fake = is_fake(q)
+    if not q.is_cuda and not fake:
+        with cost.stand_in(work):
+            return flash_attention_bwd_ref(q, k, v, out, lse, do,
+                                           causal=causal, window=window)
     do = do.contiguous()
     # one f32 reduction outside the kernels, as the JAX package's jnp one
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     lse = lse.contiguous()
-    dq = kernel.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal,
-                             window=window)
-    flash_attention.bwd_dq_launches += 1
-    flash_attention.launches_by_shape[_shape("dq", q, causal)] += 1
-    dk, dv = kernel.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal,
-                                  window=window)
-    flash_attention.bwd_dkv_launches += 1
-    flash_attention.launches_by_shape[_shape("dkv", q, causal)] += 1
+    if fake:
+        dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+        dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+        dv = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+        for key in keys.values():
+            _count_fake(key)
+    else:
+        dq = kernel.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal,
+                                 window=window)
+        flash_attention.bwd_dq_launches += 1
+        flash_attention.launches_by_shape[keys["dq"]] += 1
+        dk, dv = kernel.flash_bwd_dkv(q, k, v, do, lse, delta, causal=causal,
+                                      window=window)
+        flash_attention.bwd_dkv_launches += 1
+        flash_attention.launches_by_shape[keys["dkv"]] += 1
     if cost.counting():
-        work = cost.backward_work(*_dims(q, k), causal, window,
-                                  q.element_size())
-        cost.add_kernel("flash_attention_bwd_dq", *work["dq"])
-        cost.add_kernel("flash_attention_bwd_dkv", *work["dkv"])
+        for args in work():
+            cost.add_kernel(*args)
     return dq, dk, dv
 
 

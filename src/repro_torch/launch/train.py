@@ -24,8 +24,9 @@ as DTensors, gives every rank the global batch distributed over
 ``"batch"``, and resumes a checkpoint through ``reshard_state`` on the new
 mesh. One rank with ``--model-parallel 1`` keeps plain tensors. A
 ``--model-parallel`` that does not divide the world raises ``ValueError``;
-so does a family that DTensor does not carry yet (MoE, xLSTM, mamba, the
-vlm and audio models) on a mesh of more than one rank.
+so does a family that DTensor does not carry yet (xLSTM, mamba, the vlm
+and audio models) on a mesh of more than one rank. MoE trains on the mesh
+(``models.moe``: experts split over ``"model"``).
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \
         --model-parallel 2 --steps 4 --batch 4 --seq 64 Weights are random, made from
@@ -50,7 +51,6 @@ from typing import Any, Dict, List, Tuple
 import torch
 import torch.distributed as dist
 from torch import nn
-from torch.distributed.tensor import distribute_tensor
 
 from ..checkpoint.elastic import reshard_state
 from ..checkpoint.manager import CheckpointManager
@@ -93,13 +93,13 @@ def to_device(batch: Dict[str, Any], device: torch.device
 
 def check_shardable(cfg) -> None:
     """Raise ValueError for a model that DTensor does not carry yet on a
-    mesh of more than one rank, naming what stops it."""
+    mesh of more than one rank (frame input, the xLSTM loops, the
+    selective scan, cross-attention), naming what stops it. Dense and MoE
+    models pass."""
     why = []
     if cfg.input_mode == "frames":
         why.append("frame input (audio)")
     for spec in cfg.pattern:
-        if spec.ffn == "moe":
-            why.append("MoE routing's scatters")
         if spec.mixer in ("mlstm", "slstm"):
             why.append("the xLSTM loops")
         if spec.mixer == "mamba":
@@ -121,7 +121,7 @@ def place_model(model: Model, mesh, rules: Dict[str, Any]) -> Model:
         owner, _, leaf = name.rpartition(".")
         module = model.get_submodule(owner) if owner else model
         module.register_parameter(leaf, nn.Parameter(
-            distribute_tensor(p.detach(), mesh, shardings[name]),
+            R.distribute(p.detach(), mesh, shardings[name]),
             requires_grad=p.requires_grad))
     return model
 
@@ -131,7 +131,24 @@ def place_batch(batch: Dict[str, torch.Tensor], mesh, rules: Dict[str, Any]
     """The global ``batch`` (the same on every rank) distributed over the
     batch axes (``batch_shardings``)."""
     sh = R.batch_shardings(batch, mesh, rules)
-    return {k: distribute_tensor(v, mesh, sh[k]) for k, v in batch.items()}
+    return {k: R.distribute(v, mesh, sh[k]) for k, v in batch.items()}
+
+
+def place_caches(caches, cfg, batch: int, seq_len: int, mesh,
+                 rules: Dict[str, Any]):
+    """Each layer's decode cache (``Model.alloc_cache(batch, seq_len)``)
+    distributed by the reference's cache rules (``R.cache_shardings`` of
+    ``init_cache_shapes``, per layer): the KV cache's slots split over
+    ``seq_kv``, its batch over ``batch``."""
+    placements = R.layer_cache_shardings(R.cache_shardings(
+        M.init_cache_shapes(cfg, batch, seq_len), mesh, rules), cfg.n_layers)
+
+    def place(t, pl):
+        if isinstance(t, dict):
+            return {k: place(v, pl[k]) for k, v in t.items()}
+        return R.distribute(t, mesh, pl)
+
+    return [place(c, pl) for c, pl in zip(caches, placements)]
 
 
 def main(argv=None) -> Tuple[List[float], Dict[str, Any]]:

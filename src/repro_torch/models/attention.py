@@ -8,9 +8,14 @@ Decode attends one query against the KV cache in plain torch, as the JAX
 package does in plain jnp, at a position that may stay on the device
 (a 0-d tensor), so that a captured decode step replays at any position.
 Sliding-window layers keep a ring-buffer cache of at most ``window``
-slots. The gated cross-attention sublayer of the vlm family attends from
-the text positions to precomputed encoder embeddings, non-causal and
-without RoPE, through the same kernels.
+slots. On a mesh (DTensor weights and caches, the reference's rules:
+the cache's slots split over ``"model"``) prefill writes each rank's
+block of slots from its copy of the keys and values, and decode attends
+each rank's own slots with a partial softmax that the ranks combine by
+all-reduces (flash-decode style), so no cache is gathered. The gated
+cross-attention sublayer of the vlm family attends from the text
+positions to precomputed encoder embeddings, non-causal and without
+RoPE, through the same kernels.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import LayerSpec, ModelConfig
 from ..kernels.flash_attention.ops import FlashAttention, flash_attention
-from ..sharding.rules import constrain
+from ..sharding.rules import constrain, shard_block
 from .common import ParamSpec, apply_rope, rms_norm
 
 NEG_INF = -2.0e38
@@ -181,6 +186,9 @@ def attn_apply(
         positions = pos_q.reshape(1)
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+        if isinstance(cache["k"], DTensor):
+            out = _sharded_decode(q, k, v, cache, pos_q, window)
+            return merge_heads(out) @ params["wo"]
         S = cache["k"].shape[1]
         slot = (pos_q % S if window is not None
                 else pos_q.clamp(max=S - 1)).reshape(1).long()
@@ -206,6 +214,14 @@ def attn_apply(
         out = flash(q, k, v, True, window, train=True)
         out = constrain(out, ("batch", None, "heads", None))
         return merge_heads(out) @ params["wo"]
+    elif isinstance(cache["k"], DTensor):
+        q = constrain(q, ("batch", None, "heads", None))
+        k = constrain(k, ("batch", None, "kv_heads", None))
+        v = constrain(v, ("batch", None, "kv_heads", None))
+        _sharded_prefill_write(cache, k, v, window)
+        out = constrain(flash(q, k, v, True, window),
+                        ("batch", None, "heads", None))
+        return merge_heads(out) @ params["wo"]
     else:
         S = cache["k"].shape[1]
         if T <= S:
@@ -223,6 +239,112 @@ def attn_apply(
                              f"global layer's cache of {S} slots")
         out, _lse = flash_attention(q, k, v, causal=True, window=window)
     return out.reshape(B, T, H * D) @ params["wo"]
+
+
+# ---------------------------------------------------------------------------
+# serving on a mesh: KV caches whose slots are split over mesh axes
+# ---------------------------------------------------------------------------
+
+def _prefill_sources(T: int, S: int, window: Optional[int]) -> List[int]:
+    """The position each of the S slots takes from a prompt of T (-1:
+    none): position p in slot p, or, when a windowed layer's ring is
+    shorter than the prompt, the last S positions at p % S."""
+    if T <= S:
+        return [s if s < T else -1 for s in range(S)]
+    if window is None:
+        raise ValueError(f"a prompt of {T} positions does not fit a "
+                         f"global layer's cache of {S} slots")
+    return [T - S + (s - (T - S)) % S for s in range(S)]
+
+
+def _sharded_prefill_write(cache: Dict[str, torch.Tensor], k: torch.Tensor,
+                           v: torch.Tensor, window: Optional[int]) -> None:
+    """Prefill's keys and values (B, T, K, D), whole in T, into a cache
+    whose slots are split over mesh axes: each rank writes its own block
+    of slots from its copy of k and v (``local_map``), nothing is sent."""
+    S, T = cache["k"].shape[1], k.shape[1]
+    lo, _n, _dims = shard_block(cache["k"], 1)
+    src = _prefill_sources(T, S, window)
+
+    def local(ck, cv, cpos, k, v):
+        mine = src[lo:lo + ck.shape[1]]
+        slots = [i for i, p in enumerate(mine) if p >= 0]
+        if slots:
+            si = torch.tensor(slots, dtype=torch.long, device=ck.device)
+            pi = torch.tensor([mine[i] for i in slots], dtype=torch.long,
+                              device=ck.device)
+            ck.index_copy_(1, si, k.index_select(1, pi))
+            cv.index_copy_(1, si, v.index_select(1, pi))
+            cpos.index_copy_(0, si, pi.to(cpos.dtype))
+        return ck            # local_map wants an output: nothing reads it
+
+    local_map(local, out_placements=list(cache["k"].placements),
+              in_placements=(cache["k"].placements, cache["v"].placements,
+                             cache["pos"].placements, k.placements,
+                             v.placements),
+              device_mesh=k.device_mesh)(cache["k"], cache["v"], cache["pos"],
+                                         k, v)
+
+
+def _sharded_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    cache: Dict[str, torch.Tensor], pos_q: torch.Tensor,
+                    window: Optional[int]) -> torch.Tensor:
+    """One decode position (q (B, 1, H, D), this step's k and v (B, 1, K,
+    D)) against a cache whose slots are split over mesh axes, as the
+    reference's rules place it (``seq_kv``: flash-decode style). Each rank
+    writes the new key and value if the step's slot is in its block, then
+    attends its own slots: a partial softmax (the block's max, its sum of
+    exponentials and its weighted sum of values, f32), which the ranks
+    combine with an all-reduce of the max and two of the rescaled sums.
+    The cache is never gathered. Returns out (B, 1, H, D) in v's dtype."""
+    import torch.distributed._functional_collectives as funcol
+
+    q = constrain(q, ("batch", None, None, None))
+    k = constrain(k, ("batch", None, None, None))
+    v = constrain(v, ("batch", None, None, None))
+    ck = cache["k"]
+    mesh = ck.device_mesh
+    S = ck.shape[1]
+    lo, _n, dims = shard_block(ck, 1)
+    H, D = q.shape[2], q.shape[3]
+    K = k.shape[2]
+    G = H // K
+    pos_q = pos_q.to(torch.int32)
+
+    def local(q, k, v, ck, cv, cpos):
+        Sl = ck.shape[1]
+        slot = pos_q % S if window is not None else pos_q.clamp(max=S - 1)
+        at = slot - lo
+        inside = (at >= 0) & (at < Sl)
+        at = at.clamp(0, Sl - 1).reshape(1).long()
+        ck.index_copy_(1, at, torch.where(inside, k, ck.index_select(1, at)))
+        cv.index_copy_(1, at, torch.where(inside, v, cv.index_select(1, at)))
+        cpos.index_copy_(0, at, torch.where(
+            inside, pos_q.reshape(1).to(cpos.dtype), cpos.index_select(0, at)))
+        qg = q.reshape(q.shape[0], 1, K, G, D)
+        scores = torch.einsum("btkgd,bskd->bkgts", qg, ck).float() / math.sqrt(D)
+        mask = (cpos >= 0) & (cpos <= pos_q)
+        if window is not None:
+            mask = mask & (cpos > pos_q - window)
+        scores = scores.masked_fill(~mask, NEG_INF)
+        m = scores.amax(-1, keepdim=True)
+        p = torch.exp(scores - m)
+        l = p.sum(-1, keepdim=True)
+        o = torch.einsum("bkgts,bskd->bkgtd", p, cv.float())
+        for d in dims:
+            mm = funcol.all_reduce(m, "max", (mesh, d))
+            scale = torch.exp(m - mm)
+            l = funcol.all_reduce(l * scale, "sum", (mesh, d))
+            o = funcol.all_reduce(o * scale, "sum", (mesh, d))
+            m = mm
+        out = (o / l).to(cv.dtype)                     # (B, K, G, 1, D)
+        return out.permute(0, 3, 1, 2, 4).reshape(q.shape)
+
+    return local_map(local, out_placements=list(q.placements),
+                     in_placements=(q.placements, k.placements, v.placements,
+                                    ck.placements, cache["v"].placements,
+                                    cache["pos"].placements),
+                     device_mesh=mesh)(q, k, v, ck, cache["v"], cache["pos"])
 
 
 def _local_kv_heads(H: int, K: int, Hl: int, r: int) -> List[int]:

@@ -94,6 +94,29 @@ def model_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     return specs
 
 
+def init_cache_shapes(cfg: ModelConfig, batch: int, seq_len: int
+                      ) -> Dict[str, Any]:
+    """The reference's stacked cache tree as ``meta`` tensors (no memory):
+    ``pos{i}`` for each pattern position, its ``mixer`` cache (and a
+    cross-attention layer's ``cross_kv``) with a leading ``n_groups``
+    dimension. Each leaf is the stack of what :meth:`Model.alloc_cache`
+    gives every layer of that position."""
+    meta = torch.device("meta")
+    out: Dict[str, Any] = {}
+    for i, spec in enumerate(cfg.pattern):
+        layer = alloc_cache(cfg, spec, batch, seq_len, meta)
+        cross = layer.pop("cross_kv", None)
+        entry = {"mixer": layer}
+        if cross is not None:
+            entry["cross_kv"] = cross
+        out[f"pos{i}"] = {
+            part: {k: torch.empty((cfg.n_groups,) + tuple(t.shape),
+                                  dtype=t.dtype, device=meta)
+                   for k, t in tree.items()}
+            for part, tree in entry.items()}
+    return out
+
+
 def param_axes(cfg: ModelConfig) -> Dict[str, Tuple[Optional[str], ...]]:
     return {name: spec.axes for name, spec in model_specs(cfg).items()}
 
@@ -207,7 +230,7 @@ class Model(nn.Module):
                                            caches[l], mode=mode, enc=enc)
                 layer_aux = _aux_vector(layer_aux)
             if layer_aux is not None:
-                aux = aux + layer_aux
+                aux = R.replicated_like(aux, layer_aux) + layer_aux
             if (l + 1) % plen == 0:
                 x = R.constrain(x, ("batch", "act_seq", None))
         return rms_norm(x, self.final_norm, cfg.norm_eps), aux
@@ -363,7 +386,31 @@ def mask_pad_logits(logits: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if Vp == cfg.vocab_size:
         return logits
     valid = torch.arange(Vp, device=logits.device) < cfg.vocab_size
+    valid = R.replicated_like(valid, logits)
     return torch.where(valid, logits, torch.full_like(logits, -1e30))
+
+
+def last_position(h: torch.Tensor) -> torch.Tensor:
+    """``h[:, -1]`` of hidden states (B, T, E). A DTensor whose sequence
+    is split over mesh axes gives the last position from the rank that
+    holds it, as a partial sum of one row (the others give zeros), so
+    only that row is summed across the ranks, not the sequence
+    gathered."""
+    if not isinstance(h, DTensor) or Shard(1) not in h.placements:
+        return h[:, -1]
+    T = h.shape[1]
+    lo, n, _dims = R.shard_block(h, 1)
+
+    def local(x):
+        if lo <= T - 1 < lo + n:
+            return x[:, T - 1 - lo]
+        return torch.zeros_like(x[:, 0])
+
+    out = [Partial() if p == Shard(1) else
+           Shard(p.dim - 1) if isinstance(p, Shard) and p.dim > 1 else p
+           for p in h.placements]
+    return local_map(local, out_placements=out, in_placements=(h.placements,),
+                     device_mesh=h.device_mesh)(h)
 
 
 # ---------------------------------------------------------------------------

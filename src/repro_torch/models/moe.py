@@ -2,7 +2,9 @@
 (port of ``repro.models.moe``).
 
 Tokens go in groups of ``token_group`` (the last group padded with zero
-rows, which route and count like the JAX package's). Within a group each
+rows, which route and count like the JAX package's); every group routes
+on its own, in one batch of ops over the groups, and each expert runs
+once on its slots of every group. Within a group each
 (token, choice) takes the next slot of its expert, in the flattened
 (token, choice) order; a choice past the expert's capacity C is dropped.
 Dispatch gathers token rows into (experts, C, d_model) slots and gathers
@@ -20,15 +22,22 @@ Two behaviours of the JAX package are kept on purpose:
   stays. The port writes the kept slots, then sets slot C-1 of every
   expert that dropped a choice to the zero row: the same result, with no
   scatter of duplicate indices, whose order torch leaves undefined.
+
+On a mesh (DTensor x and weights) routing runs on each batch shard and
+the experts on their ranks along ``"model"`` (:func:`_sharded`), with the
+one-process routing.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ModelConfig
+from ..sharding.rules import constrain, shard_block
 from .common import ParamSpec, activation
 
 
@@ -54,10 +63,10 @@ def moe_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 def _route(logits: torch.Tensor, top_k: int
            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(gates, indices) (g, k): the top-k logits, ties to the lower index,
-    and a softmax over the k selected."""
+    """(gates, indices) (..., k): the top-k logits, ties to the lower
+    index, and a softmax over the k selected."""
     vals, idx = torch.sort(logits, dim=-1, descending=True, stable=True)
-    vals, idx = vals[:, :top_k], idx[:, :top_k]
+    vals, idx = vals[..., :top_k], idx[..., :top_k]
     return torch.softmax(vals, dim=-1), idx
 
 
@@ -67,52 +76,93 @@ def _group_capacity(group: int, cfg: ModelConfig) -> int:
     return max(m.top_k, min(group, -(-c // 4) * 4))   # mult of 4, sane bounds
 
 
-def _one_group(params, xt: torch.Tensor, cfg: ModelConfig, C: int
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One token group xt (g, E): returns (y (g, E), [load balance, router
-    z, dropped fraction] f32)."""
+def _groups(x: torch.Tensor, group: int) -> torch.Tensor:
+    """Rows (n, E) as token groups (n_groups, group, E), the last padded
+    with zero rows."""
+    pad = -x.shape[0] % group
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+    return x.view(-1, group, x.shape[-1])
+
+
+def _route_groups(router: torch.Tensor, xg: torch.Tensor, cfg: ModelConfig,
+                  C: int) -> Dict[str, torch.Tensor]:
+    """Routing of token groups xg (n, g, E), each on its own: ``gates``,
+    ``idx``, ``pos`` (each (n, g, k): the softmax over the k chosen, the
+    experts, each choice's slot in its expert), ``keep`` (n, g*k),
+    ``slot_tok`` (n, Ne, C): the token row of every slot (row g is the
+    zero row), and ``stats`` (n, 3): [load balance, router z, dropped
+    fraction] f32 of each group."""
     m = cfg.moe
-    act = activation(cfg.act)
-    g, E = xt.shape
+    n, g, E = xg.shape
     Ne, k, n_real = cfg.padded_n_experts, m.top_k, m.n_experts
-    logits = xt.float() @ params["router"]                       # (g, Ne)
+    logits = xg.float() @ router                              # (n, g, Ne)
     if Ne != n_real:
-        dead = torch.arange(Ne, device=xt.device) >= n_real
+        dead = torch.arange(Ne, device=xg.device) >= n_real
         logits = logits.masked_fill(dead, -1e30)
-    gates, idx = _route(logits, k)                               # (g, k)
+    gates, idx = _route(logits, k)                            # (n, g, k)
     # slot of each (token, choice) inside its expert: exclusive cumsum
-    flat_oh = torch.nn.functional.one_hot(idx.reshape(-1), Ne)   # (g*k, Ne)
-    pos = ((flat_oh.cumsum(0) - flat_oh) * flat_oh).sum(-1)      # (g*k,)
+    flat_oh = torch.nn.functional.one_hot(idx.reshape(n, g * k), Ne)
+    pos = ((flat_oh.cumsum(1) - flat_oh) * flat_oh).sum(-1)   # (n, g*k)
     keep = pos < C
-    e_idx = idx.reshape(-1)
-    tok_id = torch.arange(g, device=xt.device).repeat_interleave(k)
+    e_idx = idx.reshape(n, g * k)
+    tok_id = torch.arange(g, device=xg.device).repeat_interleave(k)
     # slot -> token row; row g is the zero row. Kept choices own distinct
     # slots; dropped ones write to one spare slot past the end (all with
     # the value g), so no slot that is kept gets two writes. Scatters, not
     # boolean indexing: nothing waits for the card.
     spare = Ne * C
-    slot_tok = torch.full((spare + 1,), g, dtype=torch.long, device=xt.device)
-    slot_tok.scatter_(0, torch.where(keep, e_idx * C + pos, spare),
+    slot_tok = torch.full((n, spare + 1), g, dtype=torch.long,
+                          device=xg.device)
+    slot_tok.scatter_(1, torch.where(keep, e_idx * C + pos, spare),
                       torch.where(keep, tok_id, g))
-    slot_tok = slot_tok[:spare].view(Ne, C)
-    dropped_any = torch.zeros(Ne + 1, dtype=torch.bool, device=xt.device)
-    dropped_any.scatter_(0, torch.where(keep, Ne, e_idx),
+    slot_tok = slot_tok[:, :spare].view(n, Ne, C)
+    dropped_any = torch.zeros((n, Ne + 1), dtype=torch.bool, device=xg.device)
+    dropped_any.scatter_(1, torch.where(keep, Ne, e_idx),
                          torch.ones_like(keep))
-    slot_tok[:, C - 1] = torch.where(dropped_any[:Ne], g, slot_tok[:, C - 1])
-    xt_pad = torch.cat([xt, xt.new_zeros((1, E))], dim=0)
-    xe = xt_pad[slot_tok]                                        # (Ne, C, E)
-    h = act(torch.bmm(xe, params["wg"])) * torch.bmm(xe, params["wi"])
-    ye = torch.bmm(h, params["wo"])                              # (Ne, C, E)
-    out_pair = ye[idx, pos.clamp(max=C - 1).view(g, k)]          # (g, k, E)
-    w = (gates * keep.view(g, k)).to(ye.dtype)
-    yt = torch.einsum("gk,gke->ge", w, out_pair)
+    slot_tok[:, :, C - 1] = torch.where(dropped_any[:, :Ne], g,
+                                        slot_tok[:, :, C - 1])
     # aux stats
-    frac_tokens = flat_oh.sum(0).float() / (g * k)
-    probs = torch.softmax(logits, dim=-1).mean(0)
-    lb = (frac_tokens * probs).sum() * n_real
-    z = torch.logsumexp(logits, dim=-1).square().mean()
-    dropped = 1.0 - keep.float().mean()
-    return yt, torch.stack([lb, z, dropped])
+    frac_tokens = flat_oh.sum(1).float() / (g * k)
+    probs = torch.softmax(logits, dim=-1).mean(1)
+    lb = (frac_tokens * probs).sum(-1) * n_real
+    z = torch.logsumexp(logits, dim=-1).square().mean(-1)
+    dropped = 1.0 - keep.float().mean(-1)
+    return {"gates": gates, "idx": idx, "pos": pos.view(n, g, k),
+            "keep": keep, "slot_tok": slot_tok,
+            "stats": torch.stack([lb, z, dropped], dim=-1)}
+
+
+def _experts_groups(params, xg: torch.Tensor, r: Dict[str, torch.Tensor],
+                    cfg: ModelConfig, C: int, experts: Optional[slice] = None
+                    ) -> torch.Tensor:
+    """The expert FFNs of routed groups xg (n, g, E): y (n, g, E). Each
+    expert runs once on its slots of every group. With ``experts`` (a
+    slice of the expert index) only those experts run, on the expert
+    weights' local block (its first expert is the slice's start), and y
+    is their part of the sum over the k choices."""
+    act = activation(cfg.act)
+    n, g, E = xg.shape
+    idx, pos, slot_tok = r["idx"], r["pos"], r["slot_tok"]
+    if experts is not None:
+        slot_tok = slot_tok[:, experts]
+    ne = slot_tok.shape[1]
+    rows = torch.arange(n, device=xg.device)
+    xg_pad = torch.cat([xg, xg.new_zeros((n, 1, E))], dim=1)
+    xe = xg_pad[rows[:, None, None], slot_tok]                # (n, ne, C, E)
+    xe = xe.transpose(0, 1).reshape(ne, n * C, E)
+    h = act(torch.bmm(xe, params["wg"])) * torch.bmm(xe, params["wi"])
+    ye = torch.bmm(h, params["wo"]).view(ne, n, C, E).transpose(0, 1)
+    w = r["gates"] * r["keep"].view(n, g, -1)
+    at = pos.clamp(max=C - 1)
+    if experts is None:
+        out_pair = ye[rows[:, None, None], idx, at]           # (n, g, k, E)
+    else:
+        mine = (idx >= experts.start) & (idx < experts.stop)
+        local = (idx - experts.start).clamp(0, ne - 1)
+        out_pair = ye[rows[:, None, None], local, at]
+        w = w * mine
+    return torch.einsum("ngk,ngke->nge", w.to(ye.dtype), out_pair)
 
 
 def moe_apply(
@@ -128,18 +178,16 @@ def moe_apply(
     act = activation(cfg.act)
     B, T, E = x.shape
     flat = x.reshape(B * T, E)
-    n_tok = flat.shape[0]
-    group = min(token_group, n_tok)
-    pad = -n_tok % group
-    xg = torch.nn.functional.pad(flat, (0, 0, 0, pad)) if pad else flat
-    C = _group_capacity(group, cfg)
-    ys, stats = [], []
-    for xt in xg.split(group):
-        yt, st = _one_group(params, xt, cfg, C)
-        ys.append(yt)
-        stats.append(st)
-    y = torch.cat(ys)[:n_tok].view(B, T, E)
-    lb, z, dropped = torch.stack(stats).mean(0)
+    if isinstance(x, DTensor):
+        y, lb, z, dropped = _sharded(params, x, cfg, token_group)
+    else:
+        group = min(token_group, B * T)
+        C = _group_capacity(group, cfg)
+        xg = _groups(flat, group)
+        r = _route_groups(params["router"], xg, cfg, C)
+        y = _experts_groups(params, xg, r, cfg, C).reshape(-1, E)
+        y = y[:B * T].view(B, T, E)
+        lb, z, dropped = r["stats"].mean(0)
     if m.n_shared:
         hs = act(flat @ params["shared_wg"]) * (flat @ params["shared_wi"])
         y = y + (hs @ params["shared_wo"]).view(B, T, E)
@@ -150,3 +198,101 @@ def moe_apply(
         "moe_aux_loss": m.router_aux_weight * lb + m.router_z_weight * z,
     }
     return y, aux
+
+
+def _sharded(params, x: DTensor, cfg: ModelConfig, token_group: int):
+    """The MoE FFN of DTensor x (B, T, E) on a mesh: (y (B, T, E), load
+    balance, router z, dropped fraction).
+
+    The sequence is gathered first (token groups cut the flattened (B, T)
+    dimension; the reference's SP boundary). Each rank routes its batch
+    shard's groups with the whole router, when the groups fall on batch
+    shards (the rows of a shard fill whole groups); otherwise, as in
+    decode, where a group spans the batch, the batch is gathered too and
+    every rank routes every group. Routing is the one-process routing,
+    capacity and the last-slot quirk included. The experts are split over
+    ``"model"`` (gathered over the FSDP axis first), and, when the batch
+    was gathered, over the batch axes too where they divide the experts:
+    each rank runs its own experts on its tokens (``local_map``), and the
+    outputs combine as a ``Partial`` sum over the expert axes (reduced
+    back onto the batch shards when the batch was gathered). Routing and
+    the experts are two ``local_map`` calls, so that the router's gradient
+    is the gates' (a partial sum over the expert axes) plus the aux
+    losses' (the same on every rank)."""
+    mesh = x.device_mesh
+    B, T, E = x.shape
+    Ne = cfg.padded_n_experts
+    x = constrain(x, ("batch", None, None))
+    group = min(token_group, B * T)
+    _lo, Bl, split = shard_block(x, 0)
+    e_dims = [d for d, p in enumerate(params["wg"].placements)
+              if p == Shard(0)]
+    gathered = []
+    if (Bl * T) % group:
+        # every rank routes every group; the batch axes split the experts
+        # further where they divide them, so no expert runs twice
+        x = x.redistribute(mesh, [Replicate() if p == Shard(0) else p
+                                  for p in x.placements])
+        gathered = list(split)
+        n = math.prod(mesh.size(d) for d in e_dims)
+        for d in gathered:
+            if Ne % (n * mesh.size(d)) == 0:
+                e_dims.append(d)
+                n *= mesh.size(d)
+        e_dims.sort()
+    batch_dims = [d for d, p in enumerate(x.placements) if p == Shard(0)]
+    n_groups = -(-B * T // group)
+    C = _group_capacity(group, cfg)
+    rep = [Replicate()] * mesh.ndim
+    router = params["router"].redistribute(mesh, rep)
+    w_pl = [Shard(0) if d in e_dims else Replicate()
+            for d in range(mesh.ndim)]
+    weights = [params[n].redistribute(mesh, w_pl) for n in ("wg", "wi", "wo")]
+    e_lo, e_n, _ = shard_block(weights[0], 0)
+    experts = slice(e_lo, e_lo + e_n) if e_dims else None
+
+    def by_batch(on_batch, other=Replicate()):
+        return [on_batch if d in batch_dims else other
+                for d in range(mesh.ndim)]
+
+    keys = ("gates", "idx", "pos", "keep", "slot_tok")
+
+    def route(xl, rt):
+        r = _route_groups(rt, _groups(xl.reshape(-1, E), group), cfg, C)
+        return (*(r[k] for k in keys), r["stats"].sum(0))
+
+    routed = local_map(
+        route, out_placements=(*[by_batch(Shard(0))] * len(keys),
+                               by_batch(Partial())),
+        in_placements=(x.placements, rep),
+        in_grad_placements=(x.placements, by_batch(Partial())),
+        device_mesh=mesh)(x, router)
+    *routing, stats = routed
+
+    def run(xl, gates, idx, pos, keep, slot_tok, wg, wi, wo):
+        y = _experts_groups({"wg": wg, "wi": wi, "wo": wo},
+                            _groups(xl.reshape(-1, E), group),
+                            dict(zip(keys, (gates, idx, pos, keep,
+                                            slot_tok))), cfg, C, experts)
+        return y.reshape(-1, E)[:xl.shape[0] * T].view(xl.shape[0], T, E)
+
+    part = [Partial() if d in e_dims else Replicate()
+            for d in range(mesh.ndim)]
+    x_out = [Shard(0) if d in batch_dims else part[d]
+             for d in range(mesh.ndim)]
+    w_grad = [Shard(0) if d in e_dims else
+              Partial() if d in batch_dims else Replicate()
+              for d in range(mesh.ndim)]
+    route_pl = [r.placements for r in routing]
+    y = local_map(
+        run, out_placements=x_out,
+        in_placements=(x.placements, *route_pl, *[w_pl] * 3),
+        in_grad_placements=(x_out, x_out, *route_pl[1:], *[w_grad] * 3),
+        device_mesh=mesh)(x, *routing, *weights)
+    if gathered:
+        # back to the batch shards: a reduce-scatter over the batch axes
+        y = y.redistribute(mesh, [Shard(0) if d in gathered else p
+                                  for d, p in enumerate(y.placements)])
+    stats = stats.redistribute(mesh, rep) / n_groups
+    lb, z, dropped = stats.unbind(0)
+    return y, lb, z, dropped

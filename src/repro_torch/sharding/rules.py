@@ -31,7 +31,8 @@ import functools
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                      distribute_tensor)
 
 from ..configs.base import ShapeConfig
 
@@ -211,6 +212,19 @@ def grad_constrained(x: torch.Tensor, axes: Tuple[Optional[str], ...]):
         x, mesh, pspec(axes, rules, shape=x.shape, mesh=mesh))
 
 
+def distribute(t: torch.Tensor, mesh, placements) -> DTensor:
+    """``distribute_tensor`` whose local block holds a storage of its own:
+    a block that is a view of ``t`` (a split of its leading dimension)
+    would keep all of ``t`` alive on every rank."""
+    d = distribute_tensor(t, mesh, placements)
+    local = d._local_tensor
+    if local.untyped_storage().nbytes() == local.nbytes:
+        return d
+    return DTensor.from_local(local.clone(), mesh, placements,
+                              run_check=False, shape=d.shape,
+                              stride=d.stride())
+
+
 def replicated_like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """A plain tensor ``t`` (a position table, a mask) that meets DTensor
     ``ref`` in an operation, as a DTensor replicated on ``ref``'s mesh: a
@@ -222,6 +236,22 @@ def replicated_like(t: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     mesh = ref.device_mesh
     return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
                               run_check=False)
+
+
+def shard_block(x, dim: int) -> Tuple[int, int, Tuple[int, ...]]:
+    """(first global index, length, the mesh dims that split it) of this
+    rank's block of dimension ``dim`` of DTensor ``x``, split evenly (the
+    rules place only dimensions that divide) major to minor in mesh
+    order. Read from the mesh's coordinate: no tensor is touched."""
+    mesh = x.device_mesh
+    coord = mesh.get_coordinate()
+    lo, n, dims = 0, x.shape[dim], []
+    for d, p in enumerate(x.placements):
+        if p == Shard(dim):
+            n //= mesh.size(d)
+            lo += coord[d] * n
+            dims.append(d)
+    return lo, n, tuple(dims)
 
 
 def unshard(x):
@@ -290,6 +320,28 @@ def cache_axes(cache_shapes) -> Any:
 
 def cache_shardings(cache_shapes, mesh, rules: Dict[str, Any]):
     return tree_shardings(cache_axes(cache_shapes), mesh, rules, cache_shapes)
+
+
+def layer_cache_shardings(stacked, n_layers: int):
+    """The placements of the port's per-layer caches (a list, one dict a
+    layer: the mixer's leaves and a cross-attention layer's ``cross_kv``)
+    from :func:`cache_shardings` of the reference's stacked tree
+    (``pos{i}`` -> ``mixer``, ``cross_kv``; a leading ``layers``
+    dimension, never split): layer ``l`` takes position ``l % len``'s,
+    each ``Shard(d)`` one dimension lower."""
+    def drop(pl):
+        return tuple(Shard(p.dim - 1) if isinstance(p, Shard) else p
+                     for p in pl)
+
+    def layer(entry):
+        out = {k: drop(v) for k, v in entry["mixer"].items()}
+        if "cross_kv" in entry:
+            out["cross_kv"] = {k: drop(v)
+                               for k, v in entry["cross_kv"].items()}
+        return out
+
+    plen = len(stacked)
+    return [layer(stacked[f"pos{l % plen}"]) for l in range(n_layers)]
 
 
 # --- batch sharding ---------------------------------------------------------

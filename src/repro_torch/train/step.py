@@ -25,7 +25,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.regions import profiler_span
-from ..models.model import Cache, Model
+from ..models.model import Cache, Model, last_position
 from ..optim import adamw
 from ..sharding.rules import constrain, unshard
 from .losses import chunked_ce_loss
@@ -115,7 +115,7 @@ def make_prefill_step(cfg: ModelConfig):
         position's logits (B, n_codebooks, Vp) f32."""
         inputs, enc = model_inputs(batch)
         hidden, _aux = model(inputs, caches, mode="prefill", enc=enc)
-        return model.logits(hidden[:, -1])
+        return model.logits(last_position(hidden))
 
     return prefill_step
 
@@ -125,7 +125,10 @@ def make_decode_step(cfg: ModelConfig):
         """Greedy step of ``batch`` (tokens (B, 1) or frames (B, 1, E)):
         returns (logits, next_token (B, n_codebooks) int32)."""
         logits = model.decode_step(model_inputs(batch)[0], pos, caches)
-        return logits, logits.argmax(dim=-1).to(torch.int32)
+        # under a mesh the argmax reads the vocab whole (the identity on
+        # a plain tensor)
+        whole = constrain(logits, ("batch", None, None))
+        return logits, whole.argmax(dim=-1).to(torch.int32)
 
     return decode_step
 

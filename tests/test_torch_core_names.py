@@ -1,11 +1,11 @@
 """``repro_torch.core`` carries the public names of ``repro.core``.
 
 The port's ``__all__`` is the reference's with ``annotate_torch`` in place
-of ``annotate_jax`` and without ``hlo`` and ``hlo_cost`` (they read XLA's
-compiled text; not ported yet). Every name resolves to the object of
-its submodule. ``regions`` imports torch, so it loads at first use:
-importing ``repro_torch.core.counters``, as the host packages do, still
-imports no torch.
+of ``annotate_jax`` (``hlo`` and ``hlo_cost`` read a recorded step where
+the reference reads XLA's compiled text). Every name resolves to the
+object of its submodule. ``regions``, ``hlo`` and ``hlo_cost`` import
+torch, so they load at first use: importing ``repro_torch.core.counters``,
+as the host packages do, still imports no torch.
 """
 import os
 import subprocess
@@ -17,7 +17,7 @@ import repro.core as jax_core
 import repro_torch.core as core
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LEFT_OUT = {"hlo", "hlo_cost", "annotate_jax"}
+LEFT_OUT = {"annotate_jax"}
 
 
 def test_all_is_the_references_with_annotate_torch():
@@ -30,13 +30,13 @@ def test_all_is_the_references_with_annotate_torch():
 @pytest.mark.parametrize("name", sorted(core.__all__))
 def test_every_name_is_its_submodules_object(name):
     from repro_torch.core import (analyses, collector, comparison, compat,
-                                  counters, events, graphframe, regions,
-                                  roofline, timeline)
+                                  counters, events, graphframe, hlo, hlo_cost,
+                                  regions, roofline, timeline)
 
     got = getattr(core, name)
     modules = {m.__name__.rsplit(".", 1)[-1]: m for m in (
-        analyses, comparison, compat, counters, graphframe, regions,
-        timeline)}
+        analyses, comparison, compat, counters, graphframe, hlo, hlo_cost,
+        regions, timeline)}
     if name in modules:
         assert got is modules[name]
         return

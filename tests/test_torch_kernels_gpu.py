@@ -865,3 +865,20 @@ def test_f32_vlm_and_audio_train_step_on_the_card_matches_cpu(arch, changes):
         assert _rel(p.grad.cpu(), cpu_grads[name].grad) < 1e-3, name
         if ".cross.w" in name:
             assert float(p.grad.abs().max()) > 0, name
+
+
+@pytest.mark.gpu
+def test_a_real_cuda_tensor_never_reaches_the_fake_branch():
+    """The wrappers' branch for fake tensors (the dry run's) is taken
+    only for fake tensors: a real CUDA tensor launches the kernels and
+    leaves ``fake_launches_by_shape`` as it found it."""
+    q, k, v, do = _inputs("bfloat16", 128, 256)
+    fake = dict(flash_attention.fake_launches_by_shape)
+    launches = (flash_attention.launches, flash_attention.bwd_dq_launches,
+                flash_attention.bwd_dkv_launches)
+    out, lse = flash_attention(q, k, v)
+    flash_attention_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.bwd_dq_launches,
+            flash_attention.bwd_dkv_launches) == tuple(n + 1 for n in launches)
+    assert flash_attention.fake_launches_by_shape == fake

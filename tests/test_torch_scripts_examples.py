@@ -99,6 +99,7 @@ def test_train_e2e_trains_checkpoints_and_resumes(tmp_path):
     ("matching_tour_torch", ["--device", "cpu"], "mode=linear"),
     ("replay_tour_torch", ["--device", "cpu"], "measured match latency"),
     ("telemetry_tour_torch", [], "umq_flood seen on"),
+    ("timeline_tour_torch", ["--device", "cpu"], "modeled step"),
 ])
 def test_tours_run(tour, args, expect):
     out = run(f"examples/{tour}.py", *args)

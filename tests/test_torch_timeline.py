@@ -270,14 +270,15 @@ def test_device_timeline_needs_a_card():
 
 def test_cost_of_a_cpu_train_step_against_model_flops():
     """The smoke yi-6b train step (f32, full remat) on the CPU, where the
-    attention runs its plain version (batched matmuls that the counter
-    sees) and no kernel launches. Every parameter matmul is an ``mm``:
-    forward (2N), backward (4N), and the remat's second forward, which
-    stops before each layer's last matmul (the MLP's down projection:
-    PyTorch's checkpoint ends the recompute once every saved tensor is
-    back) while the chunked loss recomputes its lm-head product in full.
-    The counted FLOPs exceed the model's by that recompute, plus the
-    masked half of the causal scores that the plain attention computes."""
+    attention runs its plain version, which the tally counts as the
+    kernels it stands in for (forward twice a layer, dq and dk/dv once:
+    their work from their shapes), not by its own matmuls. Every
+    parameter matmul is an ``mm``: forward (2N), backward (4N), and the
+    remat's second forward, which stops before each layer's last matmul
+    (the MLP's down projection: PyTorch's checkpoint ends the recompute
+    once every saved tensor is back) while the chunked loss recomputes its
+    lm-head product in full. The counted FLOPs exceed the model's by that
+    recompute."""
     cfg = dataclasses.replace(archs.get_config("yi-6b", "smoke"),
                               dtype="float32")
     model = Model(cfg, torch.device("cpu"), trainable=True).init_weights(0)
@@ -301,7 +302,11 @@ def test_cost_of_a_cpu_train_step_against_model_flops():
     r = roofline.Roofline(flops=tally.flops, hbm_bytes=tally.bytes,
                           wire_bytes=0, n_chips=1, model_flops=mf)
     assert 0.5 < r.useful_flops_fraction < 1.0
-    assert tally.kernels == {} and tally.bytes > 0
+    L = cfg.n_layers
+    assert {k: v["launches"] for k, v in tally.kernels.items()} == {
+        "flash_attention_fwd": 2 * L, "flash_attention_bwd_dq": L,
+        "flash_attention_bwd_dkv": L}
+    assert tally.bytes > 0
     assert not cost.counting()
 
 

@@ -6,6 +6,7 @@ free of JAX so that a rank starts quickly.
 
     results = run_ranks(fn, 4, arg, store_dir=tmp)   # fn(rank, world, arg)
 """
+import contextlib
 import dataclasses
 import os
 import time
@@ -100,3 +101,119 @@ def compressed_psum_rank(rank, world, grads_by_rank, errors_by_rank):
     red, err = compressed_psum(g, e)
     return ({k: v.numpy() for k, v in red.items()},
             {k: v.numpy() for k, v in err.items()})
+
+
+def serve_runs(rank, world, runs):
+    """Greedy serving of each run of ``runs`` ((name, arch, config changes,
+    --model-parallel, batch, prompt length, new tokens)) in f32 from seed-0
+    weights and a seeded prompt: prefill, then decode. With a process
+    group the weights and caches are DTensors on a (data, model) mesh,
+    prefill under the prefill rules and decode under the decode rules;
+    without one the model runs plain. Returns {name: (tokens (B, gen),
+    [the logits of each step] as numpy)} on rank 0, None elsewhere."""
+    import numpy as np
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.launch.train import place_batch, place_caches, place_model
+    from repro_torch.models.model import Model
+    from repro_torch.sharding import rules as R
+    from repro_torch.train.step import make_decode_step, make_prefill_step
+
+    cpu = torch.device("cpu")
+    out = {}
+    for name, arch, changes, mp, B, P, G in runs:
+        cfg = dataclasses.replace(get_config(arch, "smoke"), dtype="float32",
+                                  **changes)
+        model = Model(cfg, cpu).init_weights(0)
+        caches = model.alloc_cache(B, P + G)
+        prompt = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (B, P)).astype(np.int32))
+        ctx = {}
+        if world > 1:
+            mesh = make_mesh_for(world, mp)
+            pre = R.make_rules(mesh, ShapeConfig("p", P, B, "prefill"))
+            dec = R.make_rules(mesh, ShapeConfig("d", P + G, B, "decode"))
+            place_model(model, mesh, pre)
+            caches = place_caches(caches, cfg, B, P + G, mesh, dec)
+            ctx = {"prefill": (mesh, pre), "decode": (mesh, dec)}
+
+        def under(kind):
+            return (R.sharding_context(*ctx[kind]) if ctx
+                    else contextlib.nullcontext())
+
+        def batch_of(tokens, kind):
+            b = {"tokens": tokens}
+            return place_batch(b, *ctx[kind]) if ctx else b
+
+        with torch.no_grad():
+            with under("prefill"):
+                logits = make_prefill_step(cfg)(
+                    model, batch_of(prompt, "prefill"), caches)
+            step = make_decode_step(cfg)
+            all_logits = [R.unshard(logits).numpy()]
+            tok = R.unshard(logits).argmax(-1).to(torch.int32)   # (B, ncb)
+            toks = [tok]
+            for i in range(G - 1):
+                with under("decode"):
+                    logits, nxt = step(model, caches,
+                                       batch_of(tok[:, :1], "decode"), P + i)
+                all_logits.append(R.unshard(logits).numpy())
+                tok = R.unshard(nxt)
+                toks.append(tok)
+        out[name] = (torch.cat(toks, 1).numpy(), all_logits)
+    return out if rank == 0 else None
+
+
+def counted_train_steps(rank, world, runs):
+    """One f32 train step of each run ((name, arch, --model-parallel,
+    batch, seq)) on a (data, model) mesh from seed-0 weights and the
+    launcher's first batch (int32 tokens and labels, as the dry run's
+    specs), counted by ``count_cost`` and by ``CommDebugMode``. Returns {name: {"flops", "by_shape",
+    "collectives": {opcode: {count, operand_bytes}}, "comm_counts":
+    {opcode: count}}} on rank 0."""
+    from torch.distributed.tensor.debug import CommDebugMode
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.core import cost
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.launch.train import place_batch, place_model
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules as R
+    from repro_torch.train.step import make_train_step
+
+    names = (("all_gather", "all-gather"), ("reduce_scatter",
+             "reduce-scatter"), ("all_reduce", "all-reduce"),
+             ("allreduce", "all-reduce"), ("allgather", "all-gather"),
+             ("all_to_all", "all-to-all"), ("alltoall", "all-to-all"),
+             ("broadcast", "collective-broadcast"))
+    out = {}
+    for name, arch, mp, B, T in runs:
+        cfg = dataclasses.replace(get_config(arch, "smoke"), dtype="float32")
+        mesh = make_mesh_for(world, mp)
+        rules = R.make_rules(mesh)
+        model = place_model(Model(cfg, torch.device("cpu"), trainable=True)
+                            .init_weights(0), mesh, rules)
+        batch = {k: torch.from_numpy(v.astype("int32")) for k, v in
+                 SyntheticTokens(cfg, DataConfig(batch=B, seq_len=T))
+                 .batch_at(0).items()}
+        batch = place_batch(batch, mesh, rules)
+        opt = adamw.init_state(dict(model.named_parameters()))
+        step = make_train_step(cfg, adamw.AdamWConfig())
+        with R.sharding_context(mesh, rules):
+            with cost.count_cost() as c, \
+                    CommDebugMode() as comm:
+                step(model, opt, batch)
+        counts = {}
+        for op, n in comm.get_comm_counts().items():
+            key = next(v for k, v in names if k in str(op))
+            counts[key] = counts.get(key, 0) + n
+        out[name] = {"flops": c.flops, "by_shape": c.by_shape,
+                     "collectives": {k: {"count": d["count"],
+                                         "operand_bytes": d["operand_bytes"]}
+                                     for k, d in c.collectives.items()},
+                     "comm_counts": counts}
+    return out if rank == 0 else None
