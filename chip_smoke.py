@@ -195,18 +195,31 @@ Phases, each of which fails the run (non-zero exit, no final line):
      step, the error buffer the residual); a checkpoint saved by the plain
      launcher (smoke preset, B 8, T 256) resumed through ``reshard_state``
      on the (1,1) mesh, whose losses must continue an unbroken run's;
+31c. jamba on the (1,1) mesh: phase 28's cell (full width, one pattern
+     group, d_expert 1024, B 4, T 1024) trained 3 steps plain, then 3 on
+     DTensors (the mixer's per-channel part and the scan kernels on local
+     shards through ``local_map``; the MoE experts left in place and the
+     tokens moved to them): losses and first-step gradients
+     bit-identical, every kernel's launches equal (14 scan forwards, 7
+     backwards a step); then the cell served, plain and on the mesh, in
+     bf16 and in f32: one prefill and 4 eager decode steps, the prefill
+     logits bit-identical, in f32 the tokens equal;
  32. the ported examples on the card: ``examples/quickstart_torch.py`` (8
      steps of the smoke preset) and ``examples/train_e2e_torch.py`` (its
      tiny preset, 300 steps), finite losses that fall;
  33. the dry run on a fake process group, each cell in a subprocess:
-     33a dry-runs yi-6b train_4k, prefill_32k and decode_32k and
-     deepseek-moe-16b train_4k on the 16x16 mesh (256 fake ranks, a cuda
-     mesh): per-device memory against 80 GB, FLOPs, wire bytes, roofline,
-     exposed fraction (model outputs for 256 H100s, not measurements);
-     33b dry-runs phase 9's cell on a (1,1) fake mesh and holds it to one
-     step of that cell on the card: FLOPs within 0.1% of ``count_cost``,
-     flash launches by shape equal, argument bytes equal, the predicted
-     peak within [0.8, 1.2] of ``max_memory_allocated``;
+     33a dry-runs yi-6b train_4k, prefill_32k and decode_32k,
+     deepseek-moe-16b train_4k and decode_32k, and jamba-v0.1-52b
+     train_4k, prefill_32k and decode_32k on the 16x16 mesh (256 fake
+     ranks, a cuda mesh): per-device memory against 80 GB, FLOPs, wire
+     bytes and collectives by opcode, roofline, exposed fraction (model
+     outputs for 256 H100s, not measurements); 33b dry-runs phase 9's
+     cell on a (1,1) fake mesh and holds it to one step of that cell on
+     the card: FLOPs within 0.1% of ``count_cost``, flash launches by
+     shape equal, argument bytes equal, the predicted peak within [0.8,
+     1.2] of ``max_memory_allocated``; 33c does the same for phase 31c's
+     jamba cell, its scan calls (forward and backward, fake against real)
+     equal too;
  14. print one JSON line with every ported kernel, then the result line.
 
 Serving (phases 5, 13, 15, 20, 22-24) decodes through one captured CUDA
@@ -367,6 +380,10 @@ SHARDED_TOL = 1e-6
 # phase 31b: the plain launcher's run that saves at step 2 and the
 # unbroken run it continues: (batch, seq, steps)
 RESUME_RUN = (8, 256, 4)
+# phase 31c: phase 28's jamba cell (B 4, T 1024, d_expert 1024) trained
+# SHARDED_STEPS steps plain and on DTensors, then served: one prefill of
+# the batch's first T tokens and this many decode steps
+JAMBA_SHARDED_GEN = 4
 T0 = 0.0             # the run's start on the host clock
 CARD = ""            # nvidia-smi's name and power limit, named by each phase
 # the flash kernels' rows: (part, name, the TPU kernel, the source)
@@ -3051,10 +3068,10 @@ def dots_phase(full_stats: dict) -> tuple:
 
 
 def sharded_phases() -> tuple:
-    """Phases 31 and 31b inside one one-rank NCCL process group, made from
-    a ``FileStore`` in a temporary directory and destroyed at the end.
-    Returns (phase 31's sharded launch counts, phase 31b's resumed launch
-    counts, their numbers)."""
+    """Phases 31, 31b and 31c inside one one-rank NCCL process group, made
+    from a ``FileStore`` in a temporary directory and destroyed at the
+    end. Returns ({path: launch counts} of phase 31's sharded run, 31b's
+    resumed run and 31c's jamba runs, their numbers)."""
     import contextlib
     import gc
     import math
@@ -3258,12 +3275,256 @@ def sharded_phases() -> tuple:
         check(resume_counts["flash_attention_fwd"] == 2 * scfg.n_layers
               * (RS - 2), f"resumed launches {resume_counts}")
         del model, params, opt_state, state, host_state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 31c. phase 28's jamba cell on plain tensors, then on DTensors
+        jamba_counts, numbers["jamba"] = jamba_sharded_phase(mesh)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
     numbers["phase_s"] = time.perf_counter() - t0
-    print(f"[31] phases 31-31b took {numbers['phase_s']:.1f} s", flush=True)
-    return runs["sharded"]["launches"], resume_counts, numbers
+    print(f"[31] phases 31-31c took {numbers['phase_s']:.1f} s", flush=True)
+    return {"train_sharded": runs["sharded"]["launches"],
+            "train_sharded_resumed": resume_counts, **jamba_counts}, numbers
+
+
+def jamba_sharded_phase(mesh) -> tuple:
+    """Phase 31c, on phase 31's (1,1) NCCL mesh: phase 28's jamba cell
+    (full width, one pattern group, d_expert JAMBA_TRAIN_D_EXPERT, B 4, T
+    1024, bf16 compute, f32 masters, full remat) trained SHARDED_STEPS
+    steps on plain tensors, then from the same weights and batches on
+    DTensors: the mixer's per-channel part and the scan kernels on local
+    shards through ``local_map``, the MoE experts left where they are
+    stored and the tokens moved to them. Losses and first-step gradients
+    must be bit-identical, and every kernel's launches equal. Then the
+    same cell served with bf16 weights, plain and on the mesh (prefill
+    under the prefill rules, decode under the decode rules, the caches
+    DTensors): one prefill and JAMBA_SHARDED_GEN decode steps, eager, in
+    bf16 and in f32: the prefill logits bit-identical in both; in f32 the
+    tokens equal and every step's logits within 1e-5 of max|ref| (decode
+    attention on a mesh combines partial softmaxes in f32, where the plain
+    step rounds its softmax to the compute dtype, so bf16 decode logits
+    differ by that rounding, reported). Returns ({path: launch counts},
+    the numbers)."""
+    import contextlib
+    import gc
+    import math
+
+    import torch
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import train
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules as R
+    from repro_torch.train.step import (make_decode_step, make_prefill_step,
+                                        make_train_step)
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    full = get_config("jamba-v0.1-52b", "full")
+    cfg = dataclasses.replace(
+        full, n_layers=len(full.pattern),
+        moe=dataclasses.replace(full.moe, d_expert=JAMBA_TRAIN_D_EXPERT))
+    B, T, _ = JAMBA_TRAIN
+    steps, G = SHARDED_STEPS, JAMBA_SHARDED_GEN
+    n_mamba = sum(s.mixer == "mamba" for s in cfg.pattern)
+    n_attn = sum(s.mixer == "attn" for s in cfg.pattern)
+    rules = R.make_rules(mesh)
+    data = SyntheticTokens(cfg, DataConfig(batch=B, seq_len=T))
+    opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=steps)
+
+    def under(ctx):
+        return R.sharding_context(*ctx) if ctx else contextlib.nullcontext()
+
+    runs, plain_grads, differ, worst = {}, {}, [], 0.0
+    for mode in ("plain", "sharded"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = Model(cfg, dev, trainable=True).init_weights(0)
+        ctx = None
+        if mode == "sharded":
+            train.place_model(model, mesh, rules)
+            ctx = (mesh, rules)
+        opt_state = adamw.init_state(dict(model.named_parameters()))
+        step = make_train_step(cfg, opt_cfg)
+        reset_counts()
+        shapes0 = dict(flash_attention.launches_by_shape)
+        losses, step_ms = [], []
+        for i in range(steps):
+            batch = train.to_device(data.batch_at(i), dev)
+            if ctx:
+                batch = train.place_batch(batch, mesh, rules)
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            with under(ctx):
+                losses.append(float(step(model, opt_state, batch)["loss"]))
+            step_ms.append((time.perf_counter() - ts) * 1e3)
+            if i == 0 and not ctx:
+                plain_grads = {n: p.grad.to("cpu") for n, p in
+                               model.named_parameters()}
+            if i == 0 and ctx:
+                for n, p in model.named_parameters():
+                    g, want = R.unshard(p.grad), plain_grads[n].to(dev)
+                    worst = max(worst, rel_err(g, want))
+                    if not torch.equal(g, want):
+                        differ.append(n)
+                    del g, want
+        peak = torch.cuda.max_memory_allocated(dev)
+        mean_ms = sum(step_ms[1:]) / (steps - 1)
+        runs[mode] = {"losses": losses, "step_ms": step_ms,
+                      "mean_step_ms": mean_ms,
+                      "tokens_per_s": B * T / (mean_ms / 1e3),
+                      "peak_memory_bytes": peak, "launches": read_counts(),
+                      "launches_by_shape": {
+                          k: n - shapes0[k] for k, n in
+                          flash_attention.launches_by_shape.items()
+                          if n != shapes0[k]}}
+        print(f"[31c] jamba full width, one pattern group, d_expert "
+              f"{JAMBA_TRAIN_D_EXPERT}, B={B} T={T}, {mode}"
+              f"{' (DTensor on a (1,1) NCCL mesh)' if ctx else ''}: losses "
+              f"{', '.join(f'{x:.6f}' for x in losses)}; step ms "
+              f"{', '.join(f'{x:.1f}' for x in step_ms)}, mean after the "
+              f"first {mean_ms:.1f} ms; peak memory {peak} B; launches "
+              f"{runs[mode]['launches']}, by shape "
+              f"{runs[mode]['launches_by_shape']}; {CARD}", flush=True)
+        check(all(math.isfinite(x) for x in losses),
+              f"phase 31c {mode}: non-finite losses {losses}")
+        del model, opt_state, batch, step
+    plain_grads.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    a, b = runs["plain"], runs["sharded"]
+    per_step = {"flash_attention_fwd": 2 * n_attn,
+                "flash_attention_bwd_dq": n_attn,
+                "flash_attention_bwd_dkv": n_attn,
+                "selective_scan": 2 * n_mamba, "selective_scan_bwd": n_mamba}
+    print(f"[31c] sharded vs plain: losses bit-identical "
+          f"{a['losses'] == b['losses']}, first-step gradients "
+          f"bit-identical {not differ} ({len(differ)} differ: "
+          f"{differ[:6]}; max|err|/max|ref| {worst:.3e}); mean step "
+          f"{b['mean_step_ms']:.1f} ms sharded against "
+          f"{a['mean_step_ms']:.1f} ms plain; {CARD}", flush=True)
+    check(a["losses"] == b["losses"] and not differ,
+          "phase 31c: the sharded jamba step is not the plain one bit for bit")
+    check(a["launches"] == b["launches"]
+          == {k: n * steps for k, n in per_step.items()}
+          and a["launches_by_shape"] == b["launches_by_shape"],
+          f"phase 31c: sharded launches {b['launches']} "
+          f"{b['launches_by_shape']}, plain {a['launches']} "
+          f"{a['launches_by_shape']}, {per_step} a step expected")
+
+    # serving the same cell, plain and on the mesh, in bf16 and in f32
+    prompts = torch.from_numpy(data.batch_at(0)["tokens"]).to(
+        dev, torch.int32)
+    served, serve_counts = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        scfg = dataclasses.replace(cfg, dtype=dtype)
+        for mode in ("plain", "sharded"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            model = Model(scfg, dev).init_weights(0)
+            caches = model.alloc_cache(B, T + G)
+            ctx = {}
+            if mode == "sharded":
+                pre = R.make_rules(mesh, ShapeConfig("p", T, B, "prefill"))
+                dec = R.make_rules(mesh, ShapeConfig("d", T + G, B,
+                                                     "decode"))
+                train.place_model(model, mesh, pre)
+                caches = train.place_caches(caches, scfg, B, T + G, mesh,
+                                            dec)
+                ctx = {"prefill": (mesh, pre), "decode": (mesh, dec)}
+
+            def batch_of(tokens, kind):
+                b = {"tokens": tokens}
+                return train.place_batch(b, *ctx[kind]) if ctx else b
+
+            reset_counts()
+            with torch.no_grad():
+                torch.cuda.synchronize()
+                ts = time.perf_counter()
+                with under(ctx.get("prefill")):
+                    logits = make_prefill_step(scfg)(
+                        model, batch_of(prompts, "prefill"), caches)
+                all_logits = [R.unshard(logits).float()]
+                tok = all_logits[0].argmax(-1).to(torch.int32)
+                torch.cuda.synchronize()
+                prefill_ms = (time.perf_counter() - ts) * 1e3
+                prefill_counts = read_counts()
+                toks, step_ms = [tok], []
+                decode = make_decode_step(scfg)
+                for i in range(G):
+                    ts = time.perf_counter()
+                    with under(ctx.get("decode")):
+                        logits, nxt = decode(
+                            model, caches, batch_of(toks[-1][:, :1],
+                                                    "decode"), T + i)
+                    all_logits.append(R.unshard(logits).float())
+                    toks.append(R.unshard(nxt))
+                    torch.cuda.synchronize()
+                    step_ms.append((time.perf_counter() - ts) * 1e3)
+            serve_counts[dtype, mode] = read_counts()
+            served[dtype, mode] = {
+                "tokens": torch.cat(toks, 1).cpu(), "logits": all_logits,
+                "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
+                "prefill_launches": prefill_counts}
+            print(f"[31c] jamba served {mode}, {dtype}: prefill "
+                  f"{prefill_ms:.1f} ms, decode ms a step (eager) "
+                  f"{', '.join(f'{x:.1f}' for x in step_ms)}; prefill "
+                  f"launches {prefill_counts}, whole run "
+                  f"{serve_counts[dtype, mode]}; {CARD}", flush=True)
+            del model, caches, logits
+    prefill_want = {k: 0 for k in read_counts()}
+    prefill_want.update({"flash_attention_fwd": n_attn,
+                         "selective_scan": n_mamba})
+    serve_numbers = {}
+    for dtype in ("bfloat16", "float32"):
+        p, q = served[dtype, "plain"], served[dtype, "sharded"]
+        errs = [rel_err(x, y) for x, y in zip(q["logits"], p["logits"])]
+        serve_numbers[dtype] = {
+            "prefill_logits_bit_identical": torch.equal(p["logits"][0],
+                                                        q["logits"][0]),
+            "logits_rel_err": errs,
+            "tokens_equal": torch.equal(p["tokens"], q["tokens"]),
+            **{m: {k: v for k, v in r.items() if k not in ("tokens",
+                                                           "logits")}
+               for m, r in (("plain", p), ("sharded", q))}}
+        print(f"[31c] {dtype}: prefill logits bit-identical "
+              f"{serve_numbers[dtype]['prefill_logits_bit_identical']}; "
+              f"logits max|err|/max|ref| a step "
+              f"{', '.join(f'{e:.3e}' for e in errs)}; tokens equal "
+              f"{serve_numbers[dtype]['tokens_equal']} (mesh "
+              f"{q['tokens'].tolist()}, plain {p['tokens'].tolist()})",
+              flush=True)
+        check(serve_numbers[dtype]["prefill_logits_bit_identical"],
+              f"phase 31c: jamba's {dtype} prefill on the mesh is not the "
+              "plain one bit for bit")
+        check(p["prefill_launches"] == q["prefill_launches"]
+              == serve_counts[dtype, "plain"]
+              == serve_counts[dtype, "sharded"] == prefill_want,
+              f"phase 31c: serving launches {serve_counts}, {prefill_want} "
+              "expected (decode launches none)")
+    # decode attention on a mesh combines per-rank partial softmaxes in
+    # f32 where the plain step rounds the softmax to the compute dtype:
+    # in f32 the two agree to round-off, and so do the tokens
+    check(serve_numbers["float32"]["tokens_equal"]
+          and max(serve_numbers["float32"]["logits_rel_err"]) < 1e-5,
+          "phase 31c: jamba's f32 tokens on the mesh differ from the plain "
+          "run's")
+    numbers = {"layers": cfg.n_layers, "batch": B, "seq": T, "steps": steps,
+               "d_expert": JAMBA_TRAIN_D_EXPERT, "plain": a, "sharded": b,
+               "grads_bit_identical": not differ, "grad_rel_err": worst,
+               "serve": serve_numbers,
+               "dtensor_host_ms": b["mean_step_ms"] - a["mean_step_ms"],
+               "phase_s": time.perf_counter() - t0}
+    print(f"[31c] took {numbers['phase_s']:.1f} s", flush=True)
+    return {"train_jamba_sharded": b["launches"],
+            "serve_jamba_sharded": serve_counts["bfloat16", "sharded"]}, numbers
 
 
 def examples_phase() -> tuple:
@@ -3321,11 +3582,70 @@ def examples_phase() -> tuple:
 
 
 DRYRUN_CELLS = (("yi-6b", "train_4k"), ("yi-6b", "prefill_32k"),
-                 ("yi-6b", "decode_32k"), ("deepseek-moe-16b", "train_4k"))
+                 ("yi-6b", "decode_32k"), ("deepseek-moe-16b", "train_4k"),
+                 ("deepseek-moe-16b", "decode_32k"),
+                 ("jamba-v0.1-52b", "train_4k"),
+                 ("jamba-v0.1-52b", "prefill_32k"),
+                 ("jamba-v0.1-52b", "decode_32k"))
 # phase 33b: the dry run's FLOPs against the counted step's (relative), and
 # its predicted peak against torch.cuda.max_memory_allocated (a ratio)
 DRYRUN_FLOPS_TOL = 1e-3
 DRYRUN_PEAK_RANGE = (0.8, 1.2)
+
+
+def real_step(cfg, B: int, T: int) -> dict:
+    """One plain train step of ``cfg`` on the card from seed-0 weights and
+    the launcher's first batch (int32 tokens and labels, as the dry run's
+    specs give them), counted by ``count_cost``: its FLOPs, flash calls by
+    shape, scan calls, argument bytes (params, AdamW state, batch and the
+    int32 step), ``max_memory_allocated`` over the step, step ms, loss and
+    launch counts. The model is freed before it returns."""
+    import gc
+
+    import torch
+
+    from repro_torch.core import cost
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.launch import train
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+
+    dev = torch.device("cuda")
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Model(cfg, dev, trainable=True).init_weights(0)
+    params = dict(model.named_parameters())
+    opt_state = adamw.init_state(params)
+    batch = {k: v.to(torch.int32) for k, v in train.to_device(
+        SyntheticTokens(cfg, DataConfig(batch=B, seq_len=T)).batch_at(0),
+        dev).items()}
+    arg_bytes = 4 + sum(t.nbytes for t in (
+        *params.values(), *opt_state["m"].values(),
+        *opt_state["v"].values(), *batch.values()))
+    step = make_train_step(cfg, adamw.AdamWConfig())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    shapes0 = dict(flash_attention.launches_by_shape)
+    ts = time.perf_counter()
+    with cost.count_cost() as tally:
+        loss = float(step(model, opt_state, batch)["loss"])
+    step_ms = (time.perf_counter() - ts) * 1e3
+    out = {"flops": tally.flops, "argument_bytes": arg_bytes,
+           "peak_bytes": torch.cuda.max_memory_allocated(dev),
+           "step_ms": step_ms, "loss": loss, "counts": read_counts(),
+           "launches_by_shape": {k: n - shapes0[k] for k, n in
+                                 flash_attention.launches_by_shape.items()
+                                 if n != shapes0[k]},
+           "scan": {k: tally.kernels.get(n, {}).get("launches", 0)
+                    for k, n in (("fwd", "selective_scan"),
+                                 ("bwd", "selective_scan_bwd"))}}
+    del model, params, opt_state, batch, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
 
 
 def dryrun_phase(train_trace: dict) -> tuple:
@@ -3344,18 +3664,7 @@ def dryrun_phase(train_trace: dict) -> tuple:
     DRYRUN_PEAK_RANGE of ``max_memory_allocated``; the modeled compute time
     beside phase 18's traced busy time of the same cell. Returns (the real
     step's launch counts, the phase's numbers)."""
-    import gc
-
-    import torch
-
     from repro_torch.configs.archs import get_config
-    from repro_torch.core import cost
-    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
-    from repro_torch.kernels.flash_attention.ops import flash_attention
-    from repro_torch.launch import train
-    from repro_torch.models.model import Model
-    from repro_torch.optim import adamw
-    from repro_torch.train.step import make_train_step
 
     t0 = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
@@ -3364,42 +3673,23 @@ def dryrun_phase(train_trace: dict) -> tuple:
     cells["33b"] = ["--arch", "yi-6b", "--shape", "train_4k", "--layers",
                     str(L), "--batch", str(B), "--seq", str(T), "--mesh",
                     "1x1"]
+    JB, JT, _ = JAMBA_TRAIN
+    cells["33c"] = ["--arch", "jamba-v0.1-52b", "--shape", "train_4k",
+                    "--layers", "8", "--batch", str(JB), "--seq", str(JT),
+                    "--mesh", "1x1", "--d-expert", str(JAMBA_TRAIN_D_EXPERT)]
     procs = {tag: subprocess.Popen(
         [sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun",
          "--no-save", *argv], cwd=HERE, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for tag, argv in cells.items()}
     try:
-        # 33b's real step on the card while the dry runs record
-        dev = torch.device("cuda")
-        gc.collect()
-        torch.cuda.empty_cache()
-        cfg = dataclasses.replace(get_config("yi-6b", "full"), n_layers=L)
-        model = Model(cfg, dev, trainable=True).init_weights(0)
-        params = dict(model.named_parameters())
-        opt_state = adamw.init_state(params)
-        batch = {k: v.to(torch.int32) for k, v in train.to_device(
-            SyntheticTokens(cfg, DataConfig(batch=B, seq_len=T)).batch_at(0),
-            dev).items()}
-        arg_bytes = 4 + sum(t.nbytes for t in (
-            *params.values(), *opt_state["m"].values(),
-            *opt_state["v"].values(), *batch.values()))
-        step = make_train_step(cfg, adamw.AdamWConfig())
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        reset_counts()
-        shapes0 = dict(flash_attention.launches_by_shape)
-        ts = time.perf_counter()
-        with cost.count_cost() as tally:
-            loss = float(step(model, opt_state, batch)["loss"])
-        step_ms = (time.perf_counter() - ts) * 1e3
-        peak = torch.cuda.max_memory_allocated(dev)
-        counts = read_counts()
-        by_shape = {k: n - shapes0[k] for k, n in
-                    flash_attention.launches_by_shape.items()
-                    if n != shapes0[k]}
-        del model, params, opt_state, batch, step
-        gc.collect()
-        torch.cuda.empty_cache()
+        # 33b's and 33c's real steps on the card while the dry runs record
+        yi = real_step(dataclasses.replace(get_config("yi-6b", "full"),
+                                           n_layers=L), B, T)
+        # 33c's real step: phase 31c's jamba cell, plain, on the card
+        jamba = real_step(dataclasses.replace(
+            get_config("jamba-v0.1-52b", "full"), n_layers=8,
+            moe=dataclasses.replace(get_config("jamba-v0.1-52b").moe,
+                                    d_expert=JAMBA_TRAIN_D_EXPERT)), JB, JT)
         outs = {tag: p.communicate(timeout=600)[0] for tag, p in procs.items()}
     finally:
         for p in procs.values():
@@ -3416,7 +3706,7 @@ def dryrun_phase(train_trace: dict) -> tuple:
               f"{results[tag].get('error', '')[-2000:]}")
         roof = next((ln.strip() for ln in lines if "roofline:" in ln), "")
         r = results[tag]
-        if tag == "33b":
+        if tag in ("33b", "33c"):
             continue
         m, w, sch = r["memory"], r["walker"], r["schedule"]
         print(f"[33a] {tag} on {r['mesh']} ({r['n_chips']} fake ranks, "
@@ -3430,45 +3720,82 @@ def dryrun_phase(train_trace: dict) -> tuple:
               f"{int(w['collective_count'])} collectives; {roof}; exposed "
               f"fraction {sch['exposed_fraction']:.4f} of "
               f"{sch['t_collective_total'] * 1e3:.2f} ms of collectives; "
-              f"flash calls {r['flash_launches_by_shape']}", flush=True)
+              f"collectives by opcode {json.dumps(w['collectives_by_opcode'])}"
+              f"; flash calls {r['flash_launches_by_shape']}, scan calls "
+              f"{r['scan_fake_launches']}", flush=True)
     d = results["33b"]
-    flops_err = abs(d["walker"]["flops_per_device"] - tally.flops) / tally.flops
-    peak_ratio = d["memory"]["per_device_total"] / peak
+    flops_err = (abs(d["walker"]["flops_per_device"] - yi["flops"])
+                 / yi["flops"])
+    peak_ratio = d["memory"]["per_device_total"] / yi["peak_bytes"]
     busy = train_trace["busy_ms"]
     print(f"[33b] yi-6b {L} layers B={B} T={T} bf16 on a (1,1) fake mesh: "
           f"FLOPs {d['walker']['flops_per_device']:.6e} predicted, "
-          f"{tally.flops:.6e} counted on the card (rel err {flops_err:.3e}, "
+          f"{yi['flops']:.6e} counted on the card (rel err {flops_err:.3e}, "
           f"< {DRYRUN_FLOPS_TOL:g}); flash calls {d['flash_launches_by_shape']}"
-          f" predicted, {by_shape} launched; argument bytes "
-          f"{d['memory']['argument_bytes']} predicted, {arg_bytes} real; peak "
+          f" predicted, {yi['launches_by_shape']} launched; argument bytes "
+          f"{d['memory']['argument_bytes']} predicted, "
+          f"{yi['argument_bytes']} real; peak "
           f"{d['memory']['per_device_total'] / 1e9:.3f} GB predicted, "
-          f"{peak / 1e9:.3f} GB max_memory_allocated (ratio "
+          f"{yi['peak_bytes'] / 1e9:.3f} GB max_memory_allocated (ratio "
           f"{peak_ratio:.4f}, in {DRYRUN_PEAK_RANGE}); the real step "
-          f"{step_ms:.1f} ms (first step, loss {loss:.4f}); modeled compute "
+          f"{yi['step_ms']:.1f} ms (first step, loss {yi['loss']:.4f}); "
+          f"modeled compute "
           f"{d['schedule']['t_compute'] * 1e3:.2f} ms beside phase 18's "
           f"traced busy {busy:.2f} ms of this cell", flush=True)
     check(flops_err < DRYRUN_FLOPS_TOL, "33b: the dry run's FLOPs miss the "
           "counted step's")
-    check(d["flash_launches_by_shape"] == by_shape, "33b: the dry run's "
+    check(d["flash_launches_by_shape"] == yi["launches_by_shape"], "33b: the dry run's "
           "flash calls differ from the real step's launches")
-    check(d["memory"]["argument_bytes"] == arg_bytes, "33b: the dry run's "
+    check(d["memory"]["argument_bytes"] == yi["argument_bytes"], "33b: the dry run's "
           "argument bytes differ from the real step's")
     check(DRYRUN_PEAK_RANGE[0] <= peak_ratio <= DRYRUN_PEAK_RANGE[1],
           "33b: the dry run's peak is outside the range of the real one")
+    c = results["33c"]
+    c_flops_err = (abs(c["walker"]["flops_per_device"] - jamba["flops"])
+                   / jamba["flops"])
+    c_peak_ratio = c["memory"]["per_device_total"] / jamba["peak_bytes"]
+    print(f"[33c] jamba one pattern group, d_expert {JAMBA_TRAIN_D_EXPERT}, "
+          f"B={JB} T={JT} bf16 on a (1,1) fake mesh: FLOPs "
+          f"{c['walker']['flops_per_device']:.6e} predicted, "
+          f"{jamba['flops']:.6e} counted on the card (rel err "
+          f"{c_flops_err:.3e}, < {DRYRUN_FLOPS_TOL:g}); scan calls "
+          f"{c['scan_fake_launches']} predicted, {jamba['scan']} launched; "
+          f"flash calls {c['flash_launches_by_shape']} predicted, "
+          f"{jamba['launches_by_shape']} launched; argument bytes "
+          f"{c['memory']['argument_bytes']} predicted, "
+          f"{jamba['argument_bytes']} real; peak "
+          f"{c['memory']['per_device_total'] / 1e9:.3f} GB predicted, "
+          f"{jamba['peak_bytes'] / 1e9:.3f} GB max_memory_allocated (ratio "
+          f"{c_peak_ratio:.4f}, in {DRYRUN_PEAK_RANGE}); the real step "
+          f"{jamba['step_ms']:.1f} ms (first step, loss {jamba['loss']:.4f})"
+          f"; {CARD}", flush=True)
+    check(c_flops_err < DRYRUN_FLOPS_TOL, "33c: the dry run's FLOPs miss the "
+          "counted jamba step's")
+    check(c["scan_fake_launches"] == jamba["scan"]
+          and c["flash_launches_by_shape"] == jamba["launches_by_shape"],
+          "33c: the dry run's kernel calls differ from the real step's")
+    check(c["memory"]["argument_bytes"] == jamba["argument_bytes"],
+          "33c: the dry run's argument bytes differ from the real step's")
+    check(DRYRUN_PEAK_RANGE[0] <= c_peak_ratio <= DRYRUN_PEAK_RANGE[1],
+          "33c: the dry run's peak is outside the range of the real one")
     phase_s = time.perf_counter() - t0
     print(f"[33] took {phase_s:.1f} s", flush=True)
     numbers = {"cells": {tag: {k: r[k] for k in (
         "mesh", "n_chips", "t_lower_s", "ops", "memory", "walker",
         "collectives_unscaled", "model_flops", "roofline", "schedule",
-        "flash_launches_by_shape")} for tag, r in results.items()},
-        "real_step": {"flops": tally.flops, "launches_by_shape": by_shape,
-                      "argument_bytes": arg_bytes, "peak_bytes": peak,
-                      "step_ms": step_ms, "loss": loss},
+        "flash_launches_by_shape", "scan_fake_launches")}
+        for tag, r in results.items()},
+        "real_step": {k: v for k, v in yi.items() if k != "counts"},
         "flops_rel_err": flops_err, "peak_ratio": peak_ratio,
-        "traced_busy_ms": busy, "phase_s": phase_s}
+        "traced_busy_ms": busy, "phase_s": phase_s,
+        "jamba_real_step": {k: v for k, v in jamba.items()
+                            if k != "counts"},
+        "jamba_flops_rel_err": c_flops_err, "jamba_peak_ratio": c_peak_ratio}
     for r in numbers["cells"].values():
         r["walker"].pop("top_collectives", None)
-    return counts, numbers
+        r["walker"].pop("collectives_by_size", None)
+    return {"train_dryrun_check": yi["counts"],
+            "train_jamba_dryrun_check": jamba["counts"]}, numbers
 
 
 def card_info():
@@ -3880,7 +4207,7 @@ def main() -> None:
     audio_attention = attention_shape_phase("30", "musicgen's shape",
                                             AUDIO_ATTENTION)
     dots_counts, dots = dots_phase(train_stats)
-    sharded_counts, resume_counts, sharded = sharded_phases()
+    sharded_counts, sharded = sharded_phases()
     example_counts, examples = examples_phase()
     dryrun_counts, dryrun = dryrun_phase(train_trace)
     default_counts = default_commands_phase()
@@ -3908,10 +4235,9 @@ def main() -> None:
              "halo": halo_counts, "serve_telemetry": telemetry_counts,
              "train_jamba": jamba_train_counts, **train_paths,
              "train_vlm": vlm_by_mask["causal"], "train_dots": dots_counts,
-             "train_sharded": sharded_counts,
-             "train_sharded_resumed": resume_counts,
+             **sharded_counts,
              "quickstart_example": example_counts["quickstart"],
-             "train_dryrun_check": dryrun_counts}
+             **dryrun_counts}
 
     d16_paths = ("serve_default", "serve_jamba_default", "train_default",
                  "train_jamba_default", "train_sharded_resumed",

@@ -18,8 +18,9 @@ reference's ``shardings_for``), and the step runs through the same code
 as a real one.
 Nothing is allocated and nothing is sent. A :class:`repro_torch.core.hlo.Recorder`
 records rank 0's local ops and the ``_c10d_functional`` collectives that
-DTensor emits (the flash kernels' wrappers take their fake branch and add
-the kernels' work), from which the cell reports, per device:
+DTensor and the models emit (the flash and scan kernels' wrappers take
+their fake branch and add the kernels' work), from which the cell
+reports, per device:
 
   * ``memory``: argument bytes (the local shards of the params, the AdamW
     state and the batch; the AdamW step counts as the reference's int32
@@ -28,8 +29,17 @@ the kernels' work), from which the cell reports, per device:
     live storage bytes over the step less the arguments and the new
     outputs) and ``per_device_total`` (= the peak), against
     ``HW["hbm_gb"]`` (80 GB);
-  * ``walker``: FLOPs, bytes (an upper estimate) and collectives of
-    ``hlo_cost.module_cost``; ``collectives_unscaled``: ``hlo.collective_stats``;
+  * ``walker``: FLOPs, bytes and collectives of ``hlo_cost.module_cost``;
+    the bytes are every op's operands and results, an upper estimate of
+    the card's HBM traffic (an operand read from L2, or a fused read,
+    counts in full), not a figure to set beside the reference's: on the
+    smoke cells of ``tests/test_torch_dryrun_jax.py`` they read 0.17–0.28
+    of the reference walker's bytes (0.05 on jamba's train cell, whose
+    jnp scan materializes its states), since the reference's walker
+    counts XLA's HLO ops, each fusion's every operand and result;
+    ``collectives_unscaled``: ``hlo.collective_stats``;
+  * ``flash_launches_by_shape`` and ``scan_fake_launches`` (``fwd``,
+    ``bwd``): the kernel calls the step made, through their fake branch;
   * ``roofline`` against ``launch.flops.model_flops``, and ``schedule``:
     the modeled schedule (``device_timeline.modeled_schedule``) and its
     ``serialization_report``;
@@ -44,8 +54,8 @@ item 9) writes ``ok: false`` with its ``ValueError``, as the reference
 records a failed cell. Results go to ``results/dryrun_torch/``.
 ``--device`` is ``cuda`` by default (a ``cuda`` mesh and fake ``cuda``
 tensors); ``--device cpu`` runs anywhere. ``--mesh DxM``, ``--preset``,
-``--layers``, ``--batch`` and ``--seq`` dry-run a smaller cell (the
-tests' and ``chip_smoke.py``'s).
+``--layers``, ``--batch``, ``--seq`` and ``--d-expert`` dry-run a smaller
+cell (the tests' and ``chip_smoke.py``'s).
 """
 from __future__ import annotations
 
@@ -171,6 +181,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from ..kernels.flash_attention.ops import flash_attention
+    from ..kernels.mamba_scan.ops import selective_scan
 
     cfg = cfg or get_config(arch)
     shape = shape or SHAPES[shape_name]
@@ -195,6 +206,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
             step, args, donated = step_and_args(
                 cfg, shape, specs, mesh, rules, dev, microbatches)
             fake_before = dict(flash_attention.fake_launches_by_shape)
+            scan_before = (selective_scan.fake_launches,
+                           selective_scan.fake_bwd_launches)
             recorder = hlo.Recorder(track_memory=True)
             t0 = time.time()
             with R.sharding_context(mesh, rules), cost.tally(recorder):
@@ -207,6 +220,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
             launches = {k: n - fake_before.get(k, 0) for k, n in
                         flash_attention.fake_launches_by_shape.items()
                         if n != fake_before.get(k, 0)}
+            scan_launches = {
+                "fwd": selective_scan.fake_launches - scan_before[0],
+                "bwd": selective_scan.fake_bwd_launches - scan_before[1]}
             arg_bytes = rec.storage_bytes(local_args)
             if shape.kind == "train":
                 arg_bytes += 4                  # the AdamW step (int32)
@@ -257,6 +273,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
             "collective_count": mc.collective_count,
             "collectives_by_opcode": mc.collectives_by_opcode,
             "top_collectives": mc.top_collectives(12),
+            "collectives_by_size": mc.collective_sizes,
             "trip_counts": mc.trip_counts[:32],
         },
         "collectives_unscaled": {
@@ -266,6 +283,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
             "by_opcode": stats.by_opcode,
         },
         "flash_launches_by_shape": launches,
+        "scan_fake_launches": scan_launches,
         "ops": len(rec),
         "model_flops": model_fl,
         "roofline": roof.to_dict(),
@@ -321,6 +339,8 @@ def main(argv=None) -> int:
     ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--batch", type=int, default=None)
     ap.add_argument("--seq", type=int, default=None)
+    ap.add_argument("--d-expert", type=int, default=None,
+                    help="cut the MoE expert width")
     args = ap.parse_args(argv)
 
     if args.all:
@@ -349,6 +369,9 @@ def main(argv=None) -> int:
         plen = len(cfg.pattern)
         cfg = dataclasses.replace(
             cfg, n_layers=max(plen, args.layers // plen * plen))
+    if args.d_expert:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, d_expert=args.d_expert))
     shape = SHAPES[args.shape]
     if args.batch or args.seq:
         shape = dataclasses.replace(

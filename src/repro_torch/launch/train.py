@@ -93,8 +93,8 @@ def to_device(batch: Dict[str, Any], device: torch.device
 
 def check_shardable(cfg) -> None:
     """Raise ValueError for a model that DTensor does not carry yet on a
-    mesh of more than one rank (frame input, the xLSTM loops, the
-    selective scan, cross-attention), naming what stops it. Dense and MoE
+    mesh of more than one rank (frame input, the xLSTM loops,
+    cross-attention), naming what stops it. Dense, MoE and hybrid (mamba)
     models pass."""
     why = []
     if cfg.input_mode == "frames":
@@ -102,8 +102,6 @@ def check_shardable(cfg) -> None:
     for spec in cfg.pattern:
         if spec.mixer in ("mlstm", "slstm"):
             why.append("the xLSTM loops")
-        if spec.mixer == "mamba":
-            why.append("the selective scan's channels")
         if spec.cross_attn:
             why.append("cross-attention (vlm)")
     if why:

@@ -12,7 +12,9 @@ not reach it: its gradient through the scan is the CUDA backward kernel
 on the card (``SelectiveScan``), autograd through the plain version on the
 CPU, where the JAX package differentiates its jnp scan with ``jax.grad``.
 Decode is one recurrence step against the carried (h, conv tail) cache,
-in plain torch, as the JAX package does it in jnp.
+in plain torch, as the JAX package does it in jnp. On a mesh (DTensor
+weights and caches) the per-channel part runs on each rank's ``"inner"``
+channels (:func:`_sharded`), the scan kernel on local shards.
 """
 from __future__ import annotations
 
@@ -20,9 +22,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ModelConfig
 from ..kernels.mamba_scan.ops import selective_scan
+from ..sharding.rules import constrain
 from .common import ParamSpec
 
 
@@ -66,14 +71,51 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out + b.to(x.dtype)
 
 
-def _project(params, xc: torch.Tensor, R: int, N: int
+def _project(params, x_dbl: torch.Tensor, R: int, N: int
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dt, Bc, Cc), all f32; Bc and Cc are views into one (…, R+2N)
-    projection."""
-    x_dbl = (xc @ params["x_proj"]).float()
+    """(dt, Bc, Cc), all f32, from the f32 (…, R+2N) projection ``x_dbl``
+    of the conv output; Bc and Cc are views into it."""
     dt_low, Bc, Cc = x_dbl.split([R, N, N], dim=-1)
     dt = F.softplus(dt_low @ params["dt_w"].float() + params["dt_b"].float())
     return dt, Bc, Cc
+
+
+def _conv(params, xin: torch.Tensor, cache, mode: str) -> torch.Tensor:
+    """SiLU of the causal conv of ``xin`` (B, T, dI); decode reads the
+    cache's conv tail and steps it in place."""
+    if mode != "decode":
+        return F.silu(_causal_conv(xin, params["conv_w"], params["conv_b"]))
+    conv_tail = cache["conv"]                                    # (B, dC-1, dI)
+    xc = F.silu(_causal_conv(xin, params["conv_w"], params["conv_b"],
+                             tail=conv_tail))
+    cache["conv"].copy_(torch.cat([conv_tail[:, 1:], xin], dim=1))
+    return xc
+
+
+def _tail(xin: torch.Tensor, dC: int) -> torch.Tensor:
+    """The last dC-1 raw conv inputs (zero-padded if T < dC-1)."""
+    return F.pad(xin, (0, 0, dC - 1, 0))[:, -(dC - 1):]
+
+
+def _ssm(params, xc: torch.Tensor, z: torch.Tensor, x_dbl: torch.Tensor,
+         cache, mode: str, R: int, N: int, dtype: torch.dtype
+         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(the gated scan output (B, T, dI) in ``dtype``, the final state (B,
+    dI, N) f32, or None in decode): the selective scan of train and
+    prefill, or decode's one recurrence step against the cache's state,
+    stepped in place. Every op is per channel: on a mesh each rank runs
+    it on its own channels."""
+    A = -torch.exp(params["A_log"].float())                      # (dI, N)
+    dt, Bc, Cc = _project(params, x_dbl, R, N)
+    if mode == "decode":
+        dA = torch.exp(dt[:, 0, :, None] * A)                    # (B, dI, N)
+        dBx = (dt[:, 0] * xc[:, 0])[..., None] * Bc[:, 0, None, :]
+        h = dA * cache["h"] + dBx
+        y = (h * Cc[:, 0, None, :]).sum(-1) + params["D"] * xc[:, 0]
+        cache["h"].copy_(h)
+        return (y[:, None] * F.silu(z)).to(dtype), None
+    y, h = selective_scan(xc, dt, A, Bc, Cc, params["D"], return_state=True)
+    return (y * F.silu(z)).to(dtype), h
 
 
 def mamba_apply(
@@ -85,40 +127,148 @@ def mamba_apply(
 ) -> torch.Tensor:
     """Returns the mixer output (B, T, E). Prefill writes the final state
     and the conv tail into ``cache``; decode (T = 1) steps them, in
-    place; train is prefill's computation without a cache."""
+    place; train is prefill's computation without a cache. A DTensor
+    ``x`` runs the per-channel part on each rank's channels
+    (:func:`_sharded`)."""
     B, T, E = x.shape
     dI, N, dC, R = _dims(cfg)
-    A = -torch.exp(params["A_log"].float())                      # (dI, N)
-    xin, z = (x @ params["in_proj"]).chunk(2, dim=-1)
-
-    if mode == "decode":
-        if cache is None or T != 1:
-            raise ValueError("decode takes one token and a cache")
-        conv_tail = cache["conv"]                                # (B, dC-1, dI)
-        xc = F.silu(_causal_conv(xin, params["conv_w"], params["conv_b"],
-                                 tail=conv_tail))
-        dt, Bc, Cc = _project(params, xc, R, N)                  # (B, 1, *)
-        dA = torch.exp(dt[:, 0, :, None] * A)                    # (B, dI, N)
-        dBx = (dt[:, 0] * xc[:, 0])[..., None] * Bc[:, 0, None, :]
-        h = dA * cache["h"] + dBx
-        y = (h * Cc[:, 0, None, :]).sum(-1) + params["D"] * xc[:, 0]
-        y = (y[:, None] * F.silu(z)).to(x.dtype)
-        cache["conv"].copy_(torch.cat([conv_tail[:, 1:], xin], dim=1))
-        cache["h"].copy_(h)
-        return y @ params["out_proj"]
-    if mode not in ("train", "prefill"):
+    if mode == "decode" and (cache is None or T != 1):
+        raise ValueError("decode takes one token and a cache")
+    if mode not in ("train", "prefill", "decode"):
         raise ValueError(
             f"mamba runs train, prefill or decode, got mode={mode!r}")
-
-    xc = F.silu(_causal_conv(xin, params["conv_w"], params["conv_b"]))
-    dt, Bc, Cc = _project(params, xc, R, N)
-    y, h = selective_scan(xc, dt, A, Bc, Cc, params["D"], return_state=True)
-    out = (y * F.silu(z)).to(x.dtype) @ params["out_proj"]
+    xz = x @ params["in_proj"]
+    if isinstance(xz, DTensor):
+        return _sharded(params, xz, cfg, cache, mode, x.dtype)
+    xin, z = xz.chunk(2, dim=-1)
+    xc = _conv(params, xin, cache, mode)
+    y, h = _ssm(params, xc, z, (xc @ params["x_proj"]).float(), cache, mode,
+                R, N, x.dtype)
     if mode == "prefill" and cache is not None:
         cache["h"].copy_(h)
-        # the last dC-1 raw conv inputs (zero-padded if T < dC-1)
-        cache["conv"].copy_(F.pad(xin, (0, 0, dC - 1, 0))[:, -(dC - 1):])
-    return out
+        cache["conv"].copy_(_tail(xin, dC))
+    return y @ params["out_proj"]
+
+
+# ---------------------------------------------------------------------------
+# the mixer on a mesh: each rank's channels
+# ---------------------------------------------------------------------------
+
+def _split_fused(t: torch.Tensor, mesh, d: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(xin, z), each (B, T, dI/M), of this rank's block ``t`` (B, T,
+    2dI/M) of the fused in_proj output split over mesh dimension ``d`` of
+    size M: rank r holds fused columns [2r b, 2r b + 2b) (b = dI/M), and
+    takes channels [r b, r b + b) of xin (fused block r) and of z (block M
+    + r). One all-to-all over ``d`` sends each of the rank's two blocks
+    to the rank that takes it."""
+    import torch.distributed._functional_collectives as funcol
+
+    M = mesh.size(d)
+    if M == 1:
+        return t.chunk(2, dim=-1)
+    r = mesh.get_local_rank(d)
+    b = t.shape[-1] // 2
+    dest = [(2 * r + j) % M for j in (0, 1)]
+    order = sorted((0, 1), key=lambda j: dest[j])
+    blocks = torch.stack([t[..., j * b:(j + 1) * b] for j in order])
+    src = (r // 2, (M + r) // 2)          # the ranks that hold blocks r, M+r
+    out = funcol.all_to_all_single_autograd(
+        blocks, [src.count(q) for q in range(M)],
+        [dest.count(q) for q in range(M)], (mesh, d))
+    return out[0], out[1]
+
+
+def _sharded(params, xz: DTensor, cfg: ModelConfig, cache, mode: str,
+             dtype: torch.dtype) -> torch.Tensor:
+    """The mixer of DTensor ``xz`` (B, T, 2dI), the in_proj output, on a
+    mesh, after the reference: the conv input and the gate are placed on
+    ("batch", None, "inner") with the sequence whole, and the conv, the
+    SiLU, the scan (its kernel on local, contiguous (B_l, T, dI_l)
+    tensors) and the gate run on each rank's own ``"inner"`` channels
+    (``local_map``). x_proj contracts over the channels, so its output
+    (dt's low rank, Bc and Cc) is a partial sum over the channel axes,
+    reduced before the scan; the gradients of the per-channel parameters,
+    and of Bc and Cc, come back ``Partial`` over the axes they were
+    replicated on. Decode steps the caches' shards in place; prefill
+    writes them, the state after the last prompt token."""
+    mesh = xz.device_mesh
+    dI, N, dC, R = _dims(cfg)
+    xz = constrain(xz, ("batch", None, "inner"))
+    inner = [d for d, p in enumerate(params["conv_b"].placements)
+             if p == Shard(0)]
+    if [d for d, p in enumerate(xz.placements) if p == Shard(2)] != inner:
+        raise ValueError(f"mamba's channels split as {xz.placements} and "
+                         f"{params['conv_b'].placements}")
+    if len(inner) > 1:
+        raise ValueError(f"mamba's channels split over {len(inner)} mesh "
+                         "axes; one is supported")
+    batch = [d for d, p in enumerate(xz.placements) if p == Shard(0)]
+
+    def pl(**by_dim):
+        """A placement a mesh dimension: ``inner``, ``batch`` and ``other``
+        name those of the channel axes, the batch axes and the rest."""
+        return [by_dim["inner"] if d in inner else
+                by_dim["batch"] if d in batch else
+                by_dim.get("other", Replicate()) for d in range(mesh.ndim)]
+
+    act = pl(inner=Shard(2), batch=Shard(0))              # (B, T, dI)
+    state = pl(inner=Shard(1), batch=Shard(0))            # (B, dI, N)
+
+    def param_grad(p):
+        """A per-channel parameter's gradient: its own placement on the
+        channel axes, ``Partial`` over the batch axes."""
+        return pl(inner=p.placements[inner[0]] if inner else Replicate(),
+                  batch=Partial())
+
+    conv_in = (xz, params["conv_w"], params["conv_b"])
+    conv_cache = (cache["conv"],) if mode == "decode" else ()
+
+    def conv_local(xz, conv_w, conv_b, *tail):
+        xin, z = (_split_fused(xz, mesh, inner[0]) if inner
+                  else xz.chunk(2, dim=-1))
+        ps = {"conv_w": conv_w, "conv_b": conv_b}
+        xc = _conv(ps, xin, {"conv": tail[0]} if tail else None, mode)
+        # z is a view of a tensor that the block does not return: as a
+        # view, local_map's output would lose its gradient
+        z = z.clone()
+        return (xc, z, _tail(xin, dC)) if mode == "prefill" else (xc, z)
+
+    pls = [t.placements for t in conv_in + conv_cache]
+    xc, z, *tail = local_map(
+        conv_local, out_placements=(act,) * (3 if mode == "prefill" else 2),
+        in_placements=pls,
+        in_grad_placements=(act, *(param_grad(t) for t in conv_in[1:]),
+                            *pls[3:]),
+        device_mesh=mesh)(*conv_in, *conv_cache)
+    x_dbl = (xc @ params["x_proj"]).redistribute(
+        mesh, pl(inner=Replicate(), batch=Shard(0))).float()
+
+    names = ("dt_w", "dt_b", "A_log", "D")
+    ssm_in = (xc, z, x_dbl, *(params[n] for n in names))
+    ssm_cache = (cache["h"],) if mode == "decode" else ()
+
+    def ssm_local(xc, z, x_dbl, *rest):
+        ps = dict(zip(names, rest))
+        y, h = _ssm(ps, xc, z, x_dbl, {"h": rest[4]} if ssm_cache else None,
+                    mode, R, N, dtype)
+        return y if h is None else (y, h)
+
+    pls = [t.placements for t in ssm_in + ssm_cache]
+    out = local_map(
+        ssm_local,
+        out_placements=act if mode == "decode" else (act, state),
+        in_placements=pls,
+        in_grad_placements=(act, act, pl(inner=Partial(), batch=Shard(0)),
+                            *(param_grad(params[n]) for n in names),
+                            *pls[7:]),
+        device_mesh=mesh)(*ssm_in, *ssm_cache)
+    y = out if mode == "decode" else out[0]
+    if mode == "prefill" and cache is not None:
+        cache["h"].copy_(out[1].redistribute(mesh, cache["h"].placements))
+        cache["conv"].copy_(tail[0].redistribute(mesh,
+                                                 cache["conv"].placements))
+    return y @ params["out_proj"]
 
 
 def alloc_cache(cfg: ModelConfig, batch: int, device: torch.device

@@ -23,9 +23,12 @@ Two behaviours of the JAX package are kept on purpose:
   expert that dropped a choice to the zero row: the same result, with no
   scatter of duplicate indices, whose order torch leaves undefined.
 
-On a mesh (DTensor x and weights) routing runs on each batch shard and
-the experts on their ranks along ``"model"`` (:func:`_sharded`), with the
-one-process routing.
+On a mesh (DTensor x and weights) routing is the one-process routing,
+and the experts run on their ranks along ``"model"`` (:func:`_sharded`):
+where a rank's routed tokens are fewer than its experts' weights, as in
+every decode step, the weights stay in their stored placement and the
+tokens move to them (:func:`_sharded_tokens`); otherwise, as at a
+training step's many tokens, the experts are gathered over the FSDP axis.
 """
 from __future__ import annotations
 
@@ -133,26 +136,27 @@ def _route_groups(router: torch.Tensor, xg: torch.Tensor, cfg: ModelConfig,
             "stats": torch.stack([lb, z, dropped], dim=-1)}
 
 
-def _experts_groups(params, xg: torch.Tensor, r: Dict[str, torch.Tensor],
-                    cfg: ModelConfig, C: int, experts: Optional[slice] = None
-                    ) -> torch.Tensor:
-    """The expert FFNs of routed groups xg (n, g, E): y (n, g, E). Each
-    expert runs once on its slots of every group. With ``experts`` (a
-    slice of the expert index) only those experts run, on the expert
-    weights' local block (its first expert is the slice's start), and y
-    is their part of the sum over the k choices."""
-    act = activation(cfg.act)
+def _dispatch(xg: torch.Tensor, slot_tok: torch.Tensor) -> torch.Tensor:
+    """The slots' token rows (ne, n*C, E) of groups xg (n, g, E), from
+    ``slot_tok`` (n, ne, C) (row g: the zero row)."""
     n, g, E = xg.shape
-    idx, pos, slot_tok = r["idx"], r["pos"], r["slot_tok"]
-    if experts is not None:
-        slot_tok = slot_tok[:, experts]
-    ne = slot_tok.shape[1]
+    ne, C = slot_tok.shape[1:]
     rows = torch.arange(n, device=xg.device)
     xg_pad = torch.cat([xg, xg.new_zeros((n, 1, E))], dim=1)
     xe = xg_pad[rows[:, None, None], slot_tok]                # (n, ne, C, E)
-    xe = xe.transpose(0, 1).reshape(ne, n * C, E)
-    h = act(torch.bmm(xe, params["wg"])) * torch.bmm(xe, params["wi"])
-    ye = torch.bmm(h, params["wo"]).view(ne, n, C, E).transpose(0, 1)
+    return xe.transpose(0, 1).reshape(ne, n * C, E)
+
+
+def _combine(ye: torch.Tensor, r: Dict[str, torch.Tensor], C: int,
+             experts: Optional[slice]) -> torch.Tensor:
+    """y (n, g, E) of the expert outputs ``ye`` (ne, n*C, E), each token's
+    choices weighted by their gates; with ``experts`` (the slice of the
+    expert index ``ye`` holds) only those experts' part of the sum."""
+    idx, pos = r["idx"], r["pos"]
+    n, g, _k = idx.shape
+    ne, E = ye.shape[0], ye.shape[-1]
+    ye = ye.view(ne, n, C, E).transpose(0, 1)
+    rows = torch.arange(n, device=ye.device)
     w = r["gates"] * r["keep"].view(n, g, -1)
     at = pos.clamp(max=C - 1)
     if experts is None:
@@ -163,6 +167,23 @@ def _experts_groups(params, xg: torch.Tensor, r: Dict[str, torch.Tensor],
         out_pair = ye[rows[:, None, None], local, at]
         w = w * mine
     return torch.einsum("ngk,ngke->nge", w.to(ye.dtype), out_pair)
+
+
+def _experts_groups(params, xg: torch.Tensor, r: Dict[str, torch.Tensor],
+                    cfg: ModelConfig, C: int, experts: Optional[slice] = None
+                    ) -> torch.Tensor:
+    """The expert FFNs of routed groups xg (n, g, E): y (n, g, E). Each
+    expert runs once on its slots of every group. With ``experts`` (a
+    slice of the expert index) only those experts run, on the expert
+    weights' local block (its first expert is the slice's start), and y
+    is their part of the sum over the k choices."""
+    act = activation(cfg.act)
+    slot_tok = r["slot_tok"]
+    if experts is not None:
+        slot_tok = slot_tok[:, experts]
+    xe = _dispatch(xg, slot_tok)
+    h = act(torch.bmm(xe, params["wg"])) * torch.bmm(xe, params["wi"])
+    return _combine(torch.bmm(h, params["wo"]), r, C, experts)
 
 
 def moe_apply(
@@ -200,30 +221,47 @@ def moe_apply(
     return y, aux
 
 
+def _moves_tokens(n_groups: int, C: int, E: int, F: int) -> bool:
+    """Whether the experts stay where they are stored and the tokens move
+    (:func:`_sharded_tokens`): per expert, moving the tokens reduces its
+    (n_groups·C, 2F) products over the FSDP axis and returns its
+    (n_groups·C, E) outputs, where gathering the expert moves its 3·E·F
+    weights. Fewer routed token elements than weight elements: always in
+    decode; at a training step's many tokens the weights are fewer."""
+    return n_groups * C * (2 * F + E) < 3 * E * F
+
+
 def _sharded(params, x: DTensor, cfg: ModelConfig, token_group: int):
     """The MoE FFN of DTensor x (B, T, E) on a mesh: (y (B, T, E), load
     balance, router z, dropped fraction).
 
     The sequence is gathered first (token groups cut the flattened (B, T)
-    dimension; the reference's SP boundary). Each rank routes its batch
-    shard's groups with the whole router, when the groups fall on batch
-    shards (the rows of a shard fill whole groups); otherwise, as in
-    decode, where a group spans the batch, the batch is gathered too and
-    every rank routes every group. Routing is the one-process routing,
-    capacity and the last-slot quirk included. The experts are split over
-    ``"model"`` (gathered over the FSDP axis first), and, when the batch
-    was gathered, over the batch axes too where they divide the experts:
-    each rank runs its own experts on its tokens (``local_map``), and the
-    outputs combine as a ``Partial`` sum over the expert axes (reduced
-    back onto the batch shards when the batch was gathered). Routing and
-    the experts are two ``local_map`` calls, so that the router's gradient
-    is the gates' (a partial sum over the expert axes) plus the aux
-    losses' (the same on every rank)."""
+    dimension; the reference's SP boundary). Routing is the one-process
+    routing, capacity and the last-slot quirk included. When a rank's
+    routed tokens are fewer than its experts' weights
+    (:func:`_moves_tokens`), the weights stay in their stored placement
+    and the tokens move (:func:`_sharded_tokens`). Otherwise each rank
+    routes its batch shard's groups with the whole router, when the groups
+    fall on batch shards (the rows of a shard fill whole groups); where a
+    group spans the batch, the batch is gathered and every rank routes
+    every group. The experts are then gathered over the FSDP axis and
+    split over ``"model"``, and, when the batch was gathered, over the
+    batch axes too where they divide the experts: each rank runs its own
+    experts on its tokens (``local_map``), and the outputs combine as a
+    ``Partial`` sum over the expert axes (reduced back onto the batch
+    shards when the batch was gathered). Routing and the experts are
+    separate ``local_map`` calls, so that the router's gradient is the
+    gates' (a partial sum over the expert axes) plus the aux losses' (the
+    same on every rank)."""
     mesh = x.device_mesh
     B, T, E = x.shape
     Ne = cfg.padded_n_experts
     x = constrain(x, ("batch", None, None))
     group = min(token_group, B * T)
+    n_groups = -(-B * T // group)
+    C = _group_capacity(group, cfg)
+    if _moves_tokens(n_groups, C, E, cfg.moe.d_expert):
+        return _sharded_tokens(params, x, cfg, group, C, n_groups)
     _lo, Bl, split = shard_block(x, 0)
     e_dims = [d for d, p in enumerate(params["wg"].placements)
               if p == Shard(0)]
@@ -241,39 +279,18 @@ def _sharded(params, x: DTensor, cfg: ModelConfig, token_group: int):
                 n *= mesh.size(d)
         e_dims.sort()
     batch_dims = [d for d, p in enumerate(x.placements) if p == Shard(0)]
-    n_groups = -(-B * T // group)
-    C = _group_capacity(group, cfg)
-    rep = [Replicate()] * mesh.ndim
-    router = params["router"].redistribute(mesh, rep)
+    routing, stats = _route_sharded(params["router"], x, cfg, group, C)
     w_pl = [Shard(0) if d in e_dims else Replicate()
             for d in range(mesh.ndim)]
     weights = [params[n].redistribute(mesh, w_pl) for n in ("wg", "wi", "wo")]
     e_lo, e_n, _ = shard_block(weights[0], 0)
     experts = slice(e_lo, e_lo + e_n) if e_dims else None
 
-    def by_batch(on_batch, other=Replicate()):
-        return [on_batch if d in batch_dims else other
-                for d in range(mesh.ndim)]
-
-    keys = ("gates", "idx", "pos", "keep", "slot_tok")
-
-    def route(xl, rt):
-        r = _route_groups(rt, _groups(xl.reshape(-1, E), group), cfg, C)
-        return (*(r[k] for k in keys), r["stats"].sum(0))
-
-    routed = local_map(
-        route, out_placements=(*[by_batch(Shard(0))] * len(keys),
-                               by_batch(Partial())),
-        in_placements=(x.placements, rep),
-        in_grad_placements=(x.placements, by_batch(Partial())),
-        device_mesh=mesh)(x, router)
-    *routing, stats = routed
-
     def run(xl, gates, idx, pos, keep, slot_tok, wg, wi, wo):
         y = _experts_groups({"wg": wg, "wi": wi, "wo": wo},
                             _groups(xl.reshape(-1, E), group),
-                            dict(zip(keys, (gates, idx, pos, keep,
-                                            slot_tok))), cfg, C, experts)
+                            dict(zip(_KEYS, (gates, idx, pos, keep,
+                                             slot_tok))), cfg, C, experts)
         return y.reshape(-1, E)[:xl.shape[0] * T].view(xl.shape[0], T, E)
 
     part = [Partial() if d in e_dims else Replicate()
@@ -293,6 +310,129 @@ def _sharded(params, x: DTensor, cfg: ModelConfig, token_group: int):
         # back to the batch shards: a reduce-scatter over the batch axes
         y = y.redistribute(mesh, [Shard(0) if d in gathered else p
                                   for d, p in enumerate(y.placements)])
-    stats = stats.redistribute(mesh, rep) / n_groups
-    lb, z, dropped = stats.unbind(0)
-    return y, lb, z, dropped
+    return (y, *_stats(stats, n_groups))
+
+
+_KEYS = ("gates", "idx", "pos", "keep", "slot_tok")
+
+
+def _route_sharded(router: DTensor, x: DTensor, cfg: ModelConfig, group: int,
+                   C: int):
+    """(the routing of :func:`_route_groups` as DTensors (``_KEYS``), the
+    summed stats) of DTensor x (B, T, E), each rank routing the groups of
+    its batch shard (every group when x is replicated) with the whole
+    router."""
+    mesh = x.device_mesh
+    E = x.shape[-1]
+    batch_dims = [d for d, p in enumerate(x.placements) if p == Shard(0)]
+    rep = [Replicate()] * mesh.ndim
+
+    def by_batch(on_batch, other=Replicate()):
+        return [on_batch if d in batch_dims else other
+                for d in range(mesh.ndim)]
+
+    def route(xl, rt):
+        r = _route_groups(rt, _groups(xl.reshape(-1, E), group), cfg, C)
+        return (*(r[k] for k in _KEYS), r["stats"].sum(0))
+
+    *routing, stats = local_map(
+        route, out_placements=(*[by_batch(Shard(0))] * len(_KEYS),
+                               by_batch(Partial())),
+        in_placements=(x.placements, rep),
+        in_grad_placements=(x.placements, by_batch(Partial())),
+        device_mesh=mesh)(x, router.redistribute(mesh, rep))
+    return routing, stats
+
+
+def _stats(stats: DTensor, n_groups: int):
+    """(load balance, router z, dropped fraction): the means over groups."""
+    mesh = stats.device_mesh
+    return (stats.redistribute(mesh, [Replicate()] * mesh.ndim)
+            / n_groups).unbind(0)
+
+
+def _sharded_tokens(params, x: DTensor, cfg: ModelConfig, group: int, C: int,
+                    n_groups: int):
+    """:func:`_sharded`'s path where the tokens move: the expert weights
+    stay in their stored placement, the experts split over ``"model"``
+    and ``embed`` over ``"data"`` (the FSDP axis), and no weight is
+    redistributed. The batch is gathered and every rank routes every group
+    (the one-process routing). Each rank contracts its experts' slots'
+    ``embed`` block with its local ``wg`` and ``wi`` block; the partial
+    (experts_local, n·C, 2F) products are summed over the FSDP axis; ``wo``
+    writes the rank's ``embed`` block of its experts' outputs, weighted
+    and summed over the choices; an all-to-all over the FSDP axis trades
+    those ``embed`` blocks of the whole batch for every column of the
+    rank's batch shard, and the sum over the expert axes (``Partial``)
+    finishes y."""
+    mesh = x.device_mesh
+    B, T, E = x.shape
+    F = cfg.moe.d_expert
+    act = activation(cfg.act)
+    wg, wi, wo = (params[n] for n in ("wg", "wi", "wo"))
+    e_dims = [d for d, p in enumerate(wg.placements) if p == Shard(0)]
+    emb_dims = [d for d, p in enumerate(wg.placements) if p == Shard(1)]
+    if (wi.placements != wg.placements or list(wo.placements) != [
+            Shard(2) if d in emb_dims else p
+            for d, p in enumerate(wg.placements)] or len(emb_dims) > 1):
+        raise ValueError(f"expert weights placed {wg.placements}, "
+                         f"{wi.placements}, {wo.placements}")
+    target = list(x.placements)
+    x = x.redistribute(mesh, [Replicate()] * mesh.ndim)
+    routing, stats = _route_sharded(params["router"], x, cfg, group, C)
+    e_lo, e_n, _ = shard_block(wg, 0)
+    experts = slice(e_lo, e_lo + e_n)
+
+    def pl(e, emb, other=Replicate()):
+        return [e if d in e_dims else emb if d in emb_dims else other
+                for d in range(mesh.ndim)]
+
+    def up(xl, slot_tok, wg, wi):
+        xe = _dispatch(_groups(xl.reshape(-1, xl.shape[-1]), group),
+                       slot_tok[:, experts])
+        return torch.cat([torch.bmm(xe, wg), torch.bmm(xe, wi)], dim=-1)
+
+    x_pl = pl(Replicate(), Shard(2))
+    gi = local_map(
+        up, out_placements=pl(Shard(0), Partial()),
+        in_placements=(x_pl, routing[4].placements, wg.placements,
+                       wi.placements),
+        in_grad_placements=(pl(Partial(), Shard(2)), routing[4].placements,
+                            wg.placements, wi.placements),
+        device_mesh=mesh)(x.redistribute(mesh, x_pl), routing[4], wg, wi)
+    gi = gi.redistribute(mesh, pl(Shard(0), Replicate()))
+
+    to_batch = [d for d in emb_dims if target[d] == Shard(0)]
+
+    def down(gi, gates, idx, pos, keep, wo):
+        g, i = gi.split(F, dim=-1)
+        ye = torch.bmm(act(g) * i, wo)
+        r = dict(zip(_KEYS, (gates, idx, pos, keep)))
+        y = _combine(ye, r, C, experts)
+        y = y.reshape(-1, y.shape[-1])[:B * T].view(B, T, -1)
+        for d in to_batch:
+            y = _embed_to_batch(y, mesh, d)
+        return y
+
+    route_pl = [t.placements for t in routing[:4]]
+    y = local_map(
+        down,
+        out_placements=pl(Partial(), Shard(0) if to_batch else Shard(2)),
+        in_placements=(gi.placements, *route_pl, wo.placements),
+        in_grad_placements=(pl(Shard(0), Partial()), pl(Partial(), Partial()),
+                            *route_pl[1:], wo.placements),
+        device_mesh=mesh)(gi, *routing[:4], wo)
+    return (y.redistribute(mesh, target), *_stats(stats, n_groups))
+
+
+def _embed_to_batch(y: torch.Tensor, mesh, d: int) -> torch.Tensor:
+    """(B/D, T, D·E_l) of this rank's block ``y`` (B, T, E_l) of the
+    columns, over mesh dimension ``d`` of size D: one all-to-all sends
+    each rank its rows of the block."""
+    import torch.distributed._functional_collectives as funcol
+
+    Dn = mesh.size(d)
+    B, T, El = y.shape
+    out = funcol.all_to_all_single_autograd(
+        y.reshape(Dn, B // Dn, T, El).contiguous(), None, None, (mesh, d))
+    return out.permute(1, 2, 0, 3).reshape(B // Dn, T, Dn * El)

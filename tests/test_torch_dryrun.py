@@ -10,19 +10,25 @@ the pieces it reads: ``launch.specs``, ``core.hlo``'s recorder and
   shape on the first, in the same fake mode, and is not counted);
 * (c) ``CollectiveOp.wire_bytes`` is the reference's for every opcode at
   group sizes 2, 4 and 16;
-* (d) the dry run predicts a real run: on 4 gloo ranks at (2,2), yi-6b and
-  deepseek-moe-16b (smoke, f32, B 4, T 64) take one counted train step
-  (``count_cost``, which counts the CPU's plain attention as the kernels
-  it stands in for; ``CommDebugMode``), and the
-  dry run of the same cell on a (2,2) fake mesh gives rank 0's FLOPs, its
-  collectives by opcode (counts and operand bytes) and its flash calls
-  by shape exactly;
+* (d) the dry run predicts a real run: on 4 gloo ranks at (2,2), yi-6b,
+  deepseek-moe-16b and jamba-v0.1-52b (smoke, f32, B 4, T 64) take one
+  counted train step (``count_cost``, which counts the CPU's plain
+  attention and scan as the kernels they stand in for; ``CommDebugMode``),
+  and the dry run of the same cell on a (2,2) fake mesh gives rank 0's
+  FLOPs, its collectives by opcode (counts and operand bytes), its flash
+  calls by shape and its scan calls (forward and backward) exactly; and
+  so does deepseek-moe-16b with its experts widened to 256, whose training
+  moves the tokens to the experts where the others gather the experts;
+* (e) MoE decode at full size moves tokens, not experts: deepseek-moe-16b
+  ``decode_32k`` on the 16x16 mesh (256 fake ranks) gathers no expert
+  tensor and moves at most 0.4 GB a device over the wire (2.013 GB when
+  every step gathered the experts);
 * (h) a real CPU tensor takes the plain version (the fake branch is for
   fake tensors only; a real CUDA tensor's side is
   ``tests/test_torch_kernels_gpu.py::test_a_real_cuda_tensor_never_reaches_the_fake_branch``);
 * the command line: a dense cell completes and prints its report, a
-  family that DTensor does not carry yet records ``ok: false`` naming
-  ROADMAP item 9.
+  family that DTensor does not carry yet (xLSTM) records ``ok: false``
+  naming ROADMAP item 9.
 """
 import dataclasses
 import json
@@ -50,7 +56,22 @@ from torch_rank_workers import counted_train_steps, run_ranks
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CELLS = [(a, s) for a in jax_archs.ARCHS
          for s in shapes_for(jax_archs.get_config(a))]
-ARCHS = ("yi-6b", "deepseek-moe-16b")
+ARCHS = ("yi-6b", "deepseek-moe-16b", "jamba-v0.1-52b")
+# the dry run against a real step: each arch, and deepseek-moe-16b with its
+# experts widened (d_expert 256), whose training moves the tokens to the
+# experts (``moe._sharded_tokens``) where the others gather the experts
+RUNS = {**{a: (a, None) for a in ARCHS},
+        "deepseek-moe-16b-tokens": ("deepseek-moe-16b", 256)}
+
+
+def _cfg(name):
+    arch, d_expert = RUNS[name]
+    cfg = dataclasses.replace(torch_archs.get_config(arch, "smoke"),
+                              dtype="float32")
+    if d_expert is None:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, d_expert=d_expert))
 
 
 def _leaves(tree):
@@ -112,29 +133,27 @@ def test_wire_bytes_are_the_references(opcode, g):
 @pytest.fixture(scope="module")
 def predicted(tmp_path_factory):
     """(rank 0's counts of the real 4-rank step, the dry run of each cell)."""
-    runs = [(a, a, 2, 4, 64) for a in ARCHS]
+    runs = [(n, _cfg(n), 2, 4, 64) for n in RUNS]
     real = run_ranks(counted_train_steps, 4, runs,
                      store_dir=str(tmp_path_factory.mktemp("dry")),
-                     timeout=240)[0]
+                     timeout=300)[0]
     dry = {}
-    for arch in ARCHS:
-        cfg = dataclasses.replace(torch_archs.get_config(arch, "smoke"),
-                                  dtype="float32")
-        dry[arch] = dryrun.run_cell(
-            arch, "train_4k", mesh_shape=(2, 2), device="cpu", cfg=cfg,
-            shape=ShapeConfig("t", 64, 4, "train"), save=False,
-            verbose=False)
+    for name, (arch, _) in RUNS.items():
+        dry[name] = dryrun.run_cell(
+            arch, "train_4k", mesh_shape=(2, 2), device="cpu",
+            cfg=_cfg(name), shape=ShapeConfig("t", 64, 4, "train"),
+            save=False, verbose=False)
     return real, dry
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", list(RUNS))
 def test_dry_run_predicts_the_real_steps_flops(predicted, arch):
     real, dry = predicted
     assert dry[arch]["ok"] and dry[arch]["mesh"] == "2x2"
     assert dry[arch]["walker"]["flops_per_device"] == real[arch]["flops"]
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", list(RUNS))
 def test_dry_run_predicts_the_real_steps_collectives(predicted, arch):
     real, dry = predicted
     got = {k: {"count": d["count"], "operand_bytes": d["operand_bytes"]}
@@ -144,15 +163,51 @@ def test_dry_run_predicts_the_real_steps_collectives(predicted, arch):
     assert got
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+def _layers(arch, mixer):
+    cfg = torch_archs.get_config(arch, "smoke")
+    return sum(cfg.pattern[l % len(cfg.pattern)].mixer == mixer
+               for l in range(cfg.n_layers))
+
+
+@pytest.mark.parametrize("arch", list(RUNS))
 def test_dry_run_predicts_the_real_steps_flash_calls(predicted, arch):
     real, dry = predicted
     assert dry[arch]["flash_launches_by_shape"] == real[arch]["by_shape"]
-    layers = torch_archs.get_config(arch, "smoke").n_layers
+    layers = _layers(RUNS[arch][0], "attn")
     # full remat: the forward twice, each backward kernel once a layer
     assert real[arch]["by_shape"] == {"fwd/16/causal": 2 * layers,
                                       "dq/16/causal": layers,
                                       "dkv/16/causal": layers}
+
+
+@pytest.mark.parametrize("arch", list(RUNS))
+def test_dry_run_predicts_the_real_steps_scan_calls(predicted, arch):
+    real, dry = predicted
+    assert dry[arch]["scan_fake_launches"] == real[arch]["scan"]
+    layers = _layers(RUNS[arch][0], "mamba")
+    # full remat: the forward twice, the backward once a layer
+    assert real[arch]["scan"] == {"fwd": 2 * layers, "bwd": layers}
+
+
+def test_moe_decode_at_full_size_moves_tokens_not_experts():
+    """deepseek-moe-16b ``decode_32k`` at full size on 256 fake ranks: no
+    all-gather of an expert tensor's block (4 experts x 128 of ``embed`` x
+    1408, bf16: 1,441,792 bytes, over the 16 ranks of ``"data"``), one
+    all-to-all a MoE layer, and the wire bytes a device within 0.4 GB."""
+    cfg = torch_archs.get_config("deepseek-moe-16b")
+    r = dryrun.run_cell("deepseek-moe-16b", "decode_32k", device="cpu",
+                        save=False, verbose=False)
+    sizes = r["walker"]["collectives_by_size"]
+    block = (cfg.padded_n_experts // 16) * (cfg.d_model // 16) * \
+        cfg.moe.d_expert * 2
+    assert block == 1441792
+    assert not [k for k in sizes if k.startswith("all-gather@")
+                and k.endswith(f"@{block}B/g16")], sorted(sizes)
+    moe_layers = sum(cfg.pattern[l % len(cfg.pattern)].ffn == "moe"
+                     for l in range(cfg.n_layers))
+    a2a = r["walker"]["collectives_by_opcode"]["all-to-all"]["count"]
+    assert a2a == moe_layers
+    assert r["walker"]["collective_wire_bytes"] <= 0.4e9, r["walker"]
 
 
 def _qkv():
@@ -219,7 +274,7 @@ def test_the_command_line_dry_runs_a_cell():
 
 
 def test_a_family_without_a_sharded_path_records_ok_false():
-    out = _cli("--arch", "jamba-v0.1-52b", "--shape", "train_4k")
+    out = _cli("--arch", "xlstm-125m", "--shape", "train_4k")
     assert out.returncode == 1
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert result["ok"] is False

@@ -882,3 +882,20 @@ def test_a_real_cuda_tensor_never_reaches_the_fake_branch():
     assert (flash_attention.launches, flash_attention.bwd_dq_launches,
             flash_attention.bwd_dkv_launches) == tuple(n + 1 for n in launches)
     assert flash_attention.fake_launches_by_shape == fake
+
+
+@pytest.mark.gpu
+def test_a_real_cuda_tensor_never_takes_the_scans_fake_branch():
+    """The scan's branch for fake tensors is taken only for fake tensors:
+    a real CUDA tensor launches the forward and backward kernels and
+    leaves ``fake_launches`` and ``fake_bwd_launches`` as it found them."""
+    args = [a.requires_grad_(True) for a in
+            _scan_inputs(torch.float32, torch.float32, 2, 64, 256, 16)]
+    counts = lambda: (selective_scan.launches, selective_scan.bwd_launches,
+                      selective_scan.fake_launches,
+                      selective_scan.fake_bwd_launches)
+    before = counts()
+    y, _h = SelectiveScan.apply(*args)
+    y.sum().backward()
+    torch.cuda.synchronize()
+    assert counts() == (before[0] + 1, before[1] + 1, before[2], before[3])

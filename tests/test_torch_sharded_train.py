@@ -16,6 +16,8 @@ are not compared element by element: Adam's first steps move each weight
 by about lr·sign(g), and a gradient near 0 may flip sign under another
 summation order. A checkpoint saved at (2,2) resumes on 2 ranks at (1,2)
 through ``reshard_state`` and continues the unbroken run's losses.
+On one rank, a (1,1) mesh gives jamba's plain step bit for bit, through
+either MoE path.
 """
 import dataclasses
 import os
@@ -32,7 +34,7 @@ from repro_torch.interop import params_from_jax
 from repro_torch.launch import train
 from repro_torch.models.model import Model
 from test_torch_train_gemma3 import jax_loss_and_grads, jax_params_from_port, rel
-from torch_rank_workers import run_ranks, train_runs
+from torch_rank_workers import one_rank_bits, run_ranks, train_runs
 
 CPU = torch.device("cpu")
 ARGV = ["--device", "cpu", "--batch", "4", "--seq", "32"]
@@ -159,8 +161,8 @@ def test_the_checkpoint_holds_unsharded_arrays_written_once(sharded):
     assert not [n for n in os.listdir(sharded["ckpt"]) if ".tmp-" in n]
 
 
-@pytest.mark.parametrize("arch", ["xlstm-125m", "jamba-v0.1-52b",
-                                  "llama-3.2-vision-11b", "musicgen-large"])
+@pytest.mark.parametrize("arch", ["xlstm-125m", "llama-3.2-vision-11b",
+                                  "musicgen-large"])
 def test_families_without_a_sharded_path_raise(arch):
     cfg = torch_archs.get_config(arch, "smoke")
     with pytest.raises(ValueError, match="ROADMAP Queue 1, item 9"):
@@ -176,6 +178,36 @@ def test_dense_families_are_shardable(arch):
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "deepseek-moe-16b"])
 def test_moe_families_are_shardable(arch):
     train.check_shardable(torch_archs.get_config(arch, "smoke"))
+
+
+@pytest.mark.parametrize("preset", ["smoke", "full"])
+def test_the_hybrid_family_is_shardable(preset):
+    train.check_shardable(torch_archs.get_config("jamba-v0.1-52b", preset))
+
+
+@pytest.fixture(scope="module")
+def one_rank(tmp_path_factory):
+    return run_ranks(one_rank_bits, 1, ONE_RANK,
+                     store_dir=str(tmp_path_factory.mktemp("one")),
+                     timeout=300)[0]
+
+
+# jamba (smoke, f32, B 4, T 64) at its expert width (the experts gathered)
+# and at 256 (the tokens moved to the experts)
+ONE_RANK = {"jamba": ("jamba-v0.1-52b", None),
+            "jamba-tokens": ("jamba-v0.1-52b", 256)}
+
+
+@pytest.mark.parametrize("name", list(ONE_RANK))
+def test_a_one_rank_mesh_gives_the_plain_steps_bits(one_rank, name):
+    """On a (1,1) mesh DTensor runs the plain step's local operations:
+    jamba's mixer (the scan on its one rank's channels) and its MoE on
+    either path give the plain step's loss and first gradients bit for
+    bit, as ``chip_smoke.py`` phase 31c requires on the card."""
+    got = one_rank[name]
+    assert got["tokens_moved"] == (ONE_RANK[name][1] is not None)
+    assert got["loss"][0] == got["loss"][1]
+    assert got["differ"] == []
 
 
 def test_a_backward_on_another_thread_recomputes_as_the_forward(tmp_path):

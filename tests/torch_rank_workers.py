@@ -167,15 +167,15 @@ def serve_runs(rank, world, runs):
 
 
 def counted_train_steps(rank, world, runs):
-    """One f32 train step of each run ((name, arch, --model-parallel,
+    """One f32 train step of each run ((name, config, --model-parallel,
     batch, seq)) on a (data, model) mesh from seed-0 weights and the
     launcher's first batch (int32 tokens and labels, as the dry run's
     specs), counted by ``count_cost`` and by ``CommDebugMode``. Returns {name: {"flops", "by_shape",
-    "collectives": {opcode: {count, operand_bytes}}, "comm_counts":
-    {opcode: count}}} on rank 0."""
+    "scan": {"fwd", "bwd": the scan kernels' calls}, "collectives":
+    {opcode: {count, operand_bytes}}, "comm_counts": {opcode: count}}} on
+    rank 0."""
     from torch.distributed.tensor.debug import CommDebugMode
 
-    from repro_torch.configs.archs import get_config
     from repro_torch.core import cost
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens
     from repro_torch.launch.mesh import make_mesh_for
@@ -191,8 +191,7 @@ def counted_train_steps(rank, world, runs):
              ("all_to_all", "all-to-all"), ("alltoall", "all-to-all"),
              ("broadcast", "collective-broadcast"))
     out = {}
-    for name, arch, mp, B, T in runs:
-        cfg = dataclasses.replace(get_config(arch, "smoke"), dtype="float32")
+    for name, cfg, mp, B, T in runs:
         mesh = make_mesh_for(world, mp)
         rules = R.make_rules(mesh)
         model = place_model(Model(cfg, torch.device("cpu"), trainable=True)
@@ -212,8 +211,74 @@ def counted_train_steps(rank, world, runs):
             key = next(v for k, v in names if k in str(op))
             counts[key] = counts.get(key, 0) + n
         out[name] = {"flops": c.flops, "by_shape": c.by_shape,
+                     "scan": {k: c.kernels.get(n, {}).get("launches", 0)
+                              for k, n in (("fwd", "selective_scan"),
+                                           ("bwd", "selective_scan_bwd"))},
                      "collectives": {k: {"count": d["count"],
                                          "operand_bytes": d["operand_bytes"]}
                                      for k, d in c.collectives.items()},
                      "comm_counts": counts}
     return out if rank == 0 else None
+
+
+def one_rank_bits(rank, world, runs):
+    """One f32 train step of each run ({name: (arch, expert width or
+    None)}; B 4, T 64, seed-0 weights, the launcher's first batch) plain,
+    then on DTensors over a (1,1) mesh. Returns {name: {"loss": (plain,
+    sharded), "differ": [the parameters whose gradients differ in any
+    bit], "tokens_moved": whether the MoE took the path where the tokens
+    move}}."""
+    from repro_torch.configs.archs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.sharding import rules as R
+    from repro_torch.train.step import make_train_step
+
+    mesh = make_mesh_for(world, 1)
+    rules = R.make_rules(mesh)
+    calls = []
+    tokens = moe._sharded_tokens
+
+    def counted(*args, **kwargs):
+        calls.append(1)
+        return tokens(*args, **kwargs)
+
+    out = {}
+    moe._sharded_tokens = counted
+    try:
+        for name, (arch, d_expert) in runs.items():
+            cfg = dataclasses.replace(get_config(arch, "smoke"),
+                                      dtype="float32")
+            if d_expert is not None:
+                cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                    cfg.moe, d_expert=d_expert))
+            batch = train.to_device(SyntheticTokens(cfg, DataConfig(
+                batch=4, seq_len=64)).batch_at(0), torch.device("cpu"))
+            losses, grads = [], []
+            calls.clear()
+            for sharded in (False, True):
+                model = Model(cfg, torch.device("cpu"),
+                              trainable=True).init_weights(0)
+                b = batch
+                ctx = contextlib.nullcontext()
+                if sharded:
+                    train.place_model(model, mesh, rules)
+                    b = train.place_batch(batch, mesh, rules)
+                    ctx = R.sharding_context(mesh, rules)
+                opt = adamw.init_state(dict(model.named_parameters()))
+                with ctx:
+                    losses.append(float(make_train_step(
+                        cfg, adamw.AdamWConfig())(model, opt, b)["loss"]))
+                grads.append({n: R.unshard(p.grad).clone()
+                              for n, p in model.named_parameters()})
+            out[name] = {"loss": tuple(losses),
+                         "differ": [n for n in grads[0] if not torch.equal(
+                             grads[0][n], grads[1][n])],
+                         "tokens_moved": bool(calls)}
+    finally:
+        moe._sharded_tokens = tokens
+    return out
