@@ -204,6 +204,23 @@ Phases, each of which fails the run (non-zero exit, no final line):
      backwards a step); then the cell served, plain and on the mesh, in
      bf16 and in f32: one prefill and 4 eager decode steps, the prefill
      logits bit-identical, in f32 the tokens equal;
+31d. the vlm on the (1,1) mesh: phase 29's cell (10 of 40 layers, B 4,
+     T 1024, encoder_len 4096; every gate at 0.5) trained 2 steps plain,
+     then 2 on DTensors (the cross-attention's flash calls through the
+     wrapper's ``local_map``): losses and first-step gradients
+     bit-identical, flash launches by shape equal, non-causal ones
+     included; then served plain and on the mesh in bf16 and f32 (one
+     prefill of 1024 tokens and 4 eager decode steps, the cross cache's
+     slots split over ``"model"`` and attended in place): the prefill
+     logits bit-identical, in f32 the tokens equal, in bf16 the logits'
+     gap reported;
+31e. musicgen-large on the (1,1) mesh at full width on 12 of its 48
+     layers (cut for time; B 4, T 1024, frames): checked as 31d's
+     training;
+31f. xlstm-125m on the (1,1) mesh, all 12 layers, B 4, T 256 (cut from
+     phase 27's 512 for time): trained as 31d (the sLSTM loop and the
+     mLSTM chunk loop in ``local_map`` over the batch axes), then served
+     in f32 (a prompt of 256, 4 eager decode steps): the tokens equal;
  32. the ported examples on the card: ``examples/quickstart_torch.py`` (8
      steps of the smoke preset) and ``examples/train_e2e_torch.py`` (its
      tiny preset, 300 steps), finite losses that fall;
@@ -219,7 +236,12 @@ Phases, each of which fails the run (non-zero exit, no final line):
      shape equal, argument bytes equal, the predicted peak within [0.8,
      1.2] of ``max_memory_allocated``; 33c does the same for phase 31c's
      jamba cell, its scan calls (forward and backward, fake against real)
-     equal too;
+     equal too; 33a also dry-runs the vlm's train_4k,
+     prefill_32k and decode_32k, musicgen-large's train_4k and
+     decode_32k, and xlstm-125m's decode_32k and train_4k (the latter at
+     seq 128: its sLSTM loop records step by step), and 33d holds phase
+     31d's vlm train cell, dry-run at (1,1), to one real step as 33b does
+     (the flash calls by shape, non-causal ones included);
  14. print one JSON line with every ported kernel, then the result line.
 
 Serving (phases 5, 13, 15, 20, 22-24) decodes through one captured CUDA
@@ -383,7 +405,17 @@ RESUME_RUN = (8, 256, 4)
 # phase 31c: phase 28's jamba cell (B 4, T 1024, d_expert 1024) trained
 # SHARDED_STEPS steps plain and on DTensors, then served: one prefill of
 # the batch's first T tokens and this many decode steps
-JAMBA_SHARDED_GEN = 4
+SHARDED_GEN = 4
+# phases 31d-31f: the vlm, the audio model and xLSTM trained FAMILY_STEPS
+# steps plain and on DTensors over the (1,1) mesh; the vlm at phase 29's
+# cell (its layers, batch, seq), musicgen at AUDIO_TRAIN's width on
+# AUDIO_SHARDED_LAYERS of its 48 layers and xlstm-125m on all 12 layers
+# at XLSTM_SHARDED's seq, both cut for time; the vlm and xLSTM then
+# served (one prefill of the batch's first T tokens, SHARDED_GEN
+# eager decode steps)
+FAMILY_STEPS = 2
+AUDIO_SHARDED_LAYERS = 12
+XLSTM_SHARDED = (12, 4, 256)
 T0 = 0.0             # the run's start on the host clock
 CARD = ""            # nvidia-smi's name and power limit, named by each phase
 # the flash kernels' rows: (part, name, the TPU kernel, the source)
@@ -3068,10 +3100,11 @@ def dots_phase(full_stats: dict) -> tuple:
 
 
 def sharded_phases() -> tuple:
-    """Phases 31, 31b and 31c inside one one-rank NCCL process group, made
-    from a ``FileStore`` in a temporary directory and destroyed at the
-    end. Returns ({path: launch counts} of phase 31's sharded run, 31b's
-    resumed run and 31c's jamba runs, their numbers)."""
+    """Phases 31-31f inside one one-rank NCCL process group, made from a
+    ``FileStore`` in a temporary directory and destroyed at the end.
+    Returns ({path: launch counts} of phase 31's sharded run and 31b's
+    resumed run, {path: {"launches", "by_shape"}} of 31c-31f's sharded
+    runs, their numbers)."""
     import contextlib
     import gc
     import math
@@ -3278,42 +3311,70 @@ def sharded_phases() -> tuple:
         gc.collect()
         torch.cuda.empty_cache()
 
-        # 31c. phase 28's jamba cell on plain tensors, then on DTensors
-        jamba_counts, numbers["jamba"] = jamba_sharded_phase(mesh)
+        # 31c-31f. jamba, the vlm, the audio model and xLSTM on plain
+        # tensors, then on DTensors
+        family_counts, numbers["families"] = family_phases(mesh)
     finally:
         dist.destroy_process_group()
         shutil.rmtree(tmp, ignore_errors=True)
     numbers["phase_s"] = time.perf_counter() - t0
-    print(f"[31] phases 31-31c took {numbers['phase_s']:.1f} s", flush=True)
-    return {"train_sharded": runs["sharded"]["launches"],
-            "train_sharded_resumed": resume_counts, **jamba_counts}, numbers
+    print(f"[31] phases 31-31f took {numbers['phase_s']:.1f} s", flush=True)
+    return ({"train_sharded": runs["sharded"]["launches"],
+             "train_sharded_resumed": resume_counts},
+            family_counts, numbers)
 
 
-def jamba_sharded_phase(mesh) -> tuple:
-    """Phase 31c, on phase 31's (1,1) NCCL mesh: phase 28's jamba cell
-    (full width, one pattern group, d_expert JAMBA_TRAIN_D_EXPERT, B 4, T
-    1024, bf16 compute, f32 masters, full remat) trained SHARDED_STEPS
-    steps on plain tensors, then from the same weights and batches on
-    DTensors: the mixer's per-channel part and the scan kernels on local
-    shards through ``local_map``, the MoE experts left where they are
-    stored and the tokens moved to them. Losses and first-step gradients
-    must be bit-identical, and every kernel's launches equal. Then the
-    same cell served with bf16 weights, plain and on the mesh (prefill
-    under the prefill rules, decode under the decode rules, the caches
-    DTensors): one prefill and JAMBA_SHARDED_GEN decode steps, eager, in
-    bf16 and in f32: the prefill logits bit-identical in both; in f32 the
-    tokens equal and every step's logits within 1e-5 of max|ref| (decode
-    attention on a mesh combines partial softmaxes in f32, where the plain
-    step rounds its softmax to the compute dtype, so bf16 decode logits
-    differ by that rounding, reported). Returns ({path: launch counts},
-    the numbers)."""
+def set_gates(model, gate) -> None:
+    """Every cross-attention gate of ``model`` to ``gate``."""
+    import torch
+
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.endswith(".gate"):
+                p.fill_(gate)
+
+
+def expected_shapes(cfg, train: bool) -> dict:
+    """The flash launches by shape of one train step (full remat: the
+    forward twice, each backward kernel once) or one prefill of ``cfg``:
+    its attention layers causal, its cross-attention sublayers
+    non-causal, at its head dim."""
+    n_self = cfg.n_groups * sum(s.mixer == "attn" for s in cfg.pattern)
+    n_cross = cfg.n_groups * sum(s.cross_attn for s in cfg.pattern)
+    parts = {"fwd": 2, "dq": 1, "dkv": 1} if train else {"fwd": 1}
+    out = {}
+    for mask, n in (("causal", n_self), ("non-causal", n_cross)):
+        for part, k in parts.items():
+            if n:
+                out[f"{part}/{cfg.head_dim}/{mask}"] = k * n
+    return out
+
+
+def family_sharded_phase(tag: str, label: str, cfg, B: int, T: int, mesh,
+                         steps: int, serve_dtypes=(), gate=None) -> tuple:
+    """One of phases 31c-31f, on phase 31's (1,1) NCCL mesh: ``cfg``
+    trained ``steps`` steps (B, T; bf16 compute, f32 masters, full remat)
+    on plain tensors, then from the same weights and batches on DTensors
+    placed by the rules (the flash and scan kernels on local shards
+    through ``local_map``), every cross-attention gate at ``gate``:
+    losses and first-step gradients bit-identical, every kernel's
+    launches equal, the flash launches by shape and the scan's as the
+    layers predict. Then, for each of ``serve_dtypes``,
+    served plain and on the mesh (prefill under the prefill rules, decode
+    under the decode rules, the caches DTensors): one prefill of the
+    batch's first T tokens (and its encoder embeddings) and
+    SHARDED_GEN eager decode steps: the prefill logits bit-identical
+    and its launches equal; in f32 the tokens equal and every step's
+    logits within 1e-5 of max|ref|; in bf16 the logits' gap reported (the
+    mesh's decode combines partial softmaxes in f32). Returns ({path:
+    {"launches": by kernel, "by_shape": the flash launches by shape}} of
+    the sharded runs, the numbers)."""
     import contextlib
     import gc
     import math
 
     import torch
 
-    from repro_torch.configs.archs import get_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens
     from repro_torch.kernels.flash_attention.ops import flash_attention
@@ -3326,14 +3387,8 @@ def jamba_sharded_phase(mesh) -> tuple:
 
     t0 = time.perf_counter()
     dev = torch.device("cuda")
-    full = get_config("jamba-v0.1-52b", "full")
-    cfg = dataclasses.replace(
-        full, n_layers=len(full.pattern),
-        moe=dataclasses.replace(full.moe, d_expert=JAMBA_TRAIN_D_EXPERT))
-    B, T, _ = JAMBA_TRAIN
-    steps, G = SHARDED_STEPS, JAMBA_SHARDED_GEN
-    n_mamba = sum(s.mixer == "mamba" for s in cfg.pattern)
-    n_attn = sum(s.mixer == "attn" for s in cfg.pattern)
+    G = SHARDED_GEN
+    n_mamba = cfg.n_groups * sum(s.mixer == "mamba" for s in cfg.pattern)
     rules = R.make_rules(mesh)
     data = SyntheticTokens(cfg, DataConfig(batch=B, seq_len=T))
     opt_cfg = adamw.AdamWConfig(lr=3e-4, warmup_steps=2, total_steps=steps)
@@ -3341,12 +3396,23 @@ def jamba_sharded_phase(mesh) -> tuple:
     def under(ctx):
         return R.sharding_context(*ctx) if ctx else contextlib.nullcontext()
 
+    def shapes_since(before):
+        return {k: n - before.get(k, 0) for k, n in
+                flash_attention.launches_by_shape.items()
+                if n != before.get(k, 0)}
+
+    def built(c, trainable):
+        model = Model(c, dev, trainable=trainable).init_weights(0)
+        if gate is not None:
+            set_gates(model, gate)
+        return model
+
     runs, plain_grads, differ, worst = {}, {}, [], 0.0
     for mode in ("plain", "sharded"):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-        model = Model(cfg, dev, trainable=True).init_weights(0)
+        model = built(cfg, True)
         ctx = None
         if mode == "sharded":
             train.place_model(model, mesh, rules)
@@ -3376,59 +3442,56 @@ def jamba_sharded_phase(mesh) -> tuple:
                         differ.append(n)
                     del g, want
         peak = torch.cuda.max_memory_allocated(dev)
-        mean_ms = sum(step_ms[1:]) / (steps - 1)
         runs[mode] = {"losses": losses, "step_ms": step_ms,
-                      "mean_step_ms": mean_ms,
-                      "tokens_per_s": B * T / (mean_ms / 1e3),
                       "peak_memory_bytes": peak, "launches": read_counts(),
-                      "launches_by_shape": {
-                          k: n - shapes0[k] for k, n in
-                          flash_attention.launches_by_shape.items()
-                          if n != shapes0[k]}}
-        print(f"[31c] jamba full width, one pattern group, d_expert "
-              f"{JAMBA_TRAIN_D_EXPERT}, B={B} T={T}, {mode}"
+                      "launches_by_shape": shapes_since(shapes0)}
+        print(f"[{tag}] {label}, B={B} T={T}, {mode}"
               f"{' (DTensor on a (1,1) NCCL mesh)' if ctx else ''}: losses "
               f"{', '.join(f'{x:.6f}' for x in losses)}; step ms "
-              f"{', '.join(f'{x:.1f}' for x in step_ms)}, mean after the "
-              f"first {mean_ms:.1f} ms; peak memory {peak} B; launches "
-              f"{runs[mode]['launches']}, by shape "
+              f"{', '.join(f'{x:.1f}' for x in step_ms)}; peak memory "
+              f"{peak} B; launches {runs[mode]['launches']}, by shape "
               f"{runs[mode]['launches_by_shape']}; {CARD}", flush=True)
         check(all(math.isfinite(x) for x in losses),
-              f"phase 31c {mode}: non-finite losses {losses}")
+              f"phase {tag} {mode}: non-finite losses {losses}")
         del model, opt_state, batch, step
     plain_grads.clear()
     gc.collect()
     torch.cuda.empty_cache()
     a, b = runs["plain"], runs["sharded"]
-    per_step = {"flash_attention_fwd": 2 * n_attn,
-                "flash_attention_bwd_dq": n_attn,
-                "flash_attention_bwd_dkv": n_attn,
-                "selective_scan": 2 * n_mamba, "selective_scan_bwd": n_mamba}
-    print(f"[31c] sharded vs plain: losses bit-identical "
+    per_step = expected_shapes(cfg, train=True)
+    scans = {"selective_scan": 2 * n_mamba * steps,
+             "selective_scan_bwd": n_mamba * steps}
+    print(f"[{tag}] sharded vs plain: losses bit-identical "
           f"{a['losses'] == b['losses']}, first-step gradients "
           f"bit-identical {not differ} ({len(differ)} differ: "
-          f"{differ[:6]}; max|err|/max|ref| {worst:.3e}); mean step "
-          f"{b['mean_step_ms']:.1f} ms sharded against "
-          f"{a['mean_step_ms']:.1f} ms plain; {CARD}", flush=True)
+          f"{differ[:6]}; max|err|/max|ref| {worst:.3e}); step ms "
+          f"{', '.join(f'{x:.1f}' for x in b['step_ms'])} sharded against "
+          f"{', '.join(f'{x:.1f}' for x in a['step_ms'])} plain; {CARD}",
+          flush=True)
     check(a["losses"] == b["losses"] and not differ,
-          "phase 31c: the sharded jamba step is not the plain one bit for bit")
+          f"phase {tag}: the sharded step is not the plain one bit for bit")
     check(a["launches"] == b["launches"]
-          == {k: n * steps for k, n in per_step.items()}
-          and a["launches_by_shape"] == b["launches_by_shape"],
-          f"phase 31c: sharded launches {b['launches']} "
+          and {k: b["launches"][k] for k in scans} == scans
+          and a["launches_by_shape"] == b["launches_by_shape"]
+          == {k: n * steps for k, n in per_step.items()},
+          f"phase {tag}: sharded launches {b['launches']} "
           f"{b['launches_by_shape']}, plain {a['launches']} "
-          f"{a['launches_by_shape']}, {per_step} a step expected")
+          f"{a['launches_by_shape']}, {per_step} a step and {scans} "
+          "expected")
+    paths = {"train": {"launches": b["launches"],
+                       "by_shape": b["launches_by_shape"]}}
 
-    # serving the same cell, plain and on the mesh, in bf16 and in f32
-    prompts = torch.from_numpy(data.batch_at(0)["tokens"]).to(
-        dev, torch.int32)
-    served, serve_counts = {}, {}
-    for dtype in ("bfloat16", "float32"):
+    served, serve_numbers = {}, {}
+    if serve_dtypes:
+        prompts = train.to_device(data.batch_at(0), dev)
+        prompts.pop("labels")
+        prompts["tokens"] = prompts["tokens"].to(torch.int32)
+    for dtype in serve_dtypes:
         scfg = dataclasses.replace(cfg, dtype=dtype)
         for mode in ("plain", "sharded"):
             gc.collect()
             torch.cuda.empty_cache()
-            model = Model(scfg, dev).init_weights(0)
+            model = built(scfg, False)
             caches = model.alloc_cache(B, T + G)
             ctx = {}
             if mode == "sharded":
@@ -3440,11 +3503,11 @@ def jamba_sharded_phase(mesh) -> tuple:
                                             dec)
                 ctx = {"prefill": (mesh, pre), "decode": (mesh, dec)}
 
-            def batch_of(tokens, kind):
-                b = {"tokens": tokens}
+            def batch_of(b, kind):
                 return train.place_batch(b, *ctx[kind]) if ctx else b
 
             reset_counts()
+            shapes0 = dict(flash_attention.launches_by_shape)
             with torch.no_grad():
                 torch.cuda.synchronize()
                 ts = time.perf_counter()
@@ -3455,6 +3518,7 @@ def jamba_sharded_phase(mesh) -> tuple:
                 tok = all_logits[0].argmax(-1).to(torch.int32)
                 torch.cuda.synchronize()
                 prefill_ms = (time.perf_counter() - ts) * 1e3
+                prefill_shapes = shapes_since(shapes0)
                 prefill_counts = read_counts()
                 toks, step_ms = [tok], []
                 decode = make_decode_step(scfg)
@@ -3462,28 +3526,26 @@ def jamba_sharded_phase(mesh) -> tuple:
                     ts = time.perf_counter()
                     with under(ctx.get("decode")):
                         logits, nxt = decode(
-                            model, caches, batch_of(toks[-1][:, :1],
-                                                    "decode"), T + i)
+                            model, caches,
+                            batch_of({"tokens": toks[-1][:, :1]}, "decode"),
+                            T + i)
                     all_logits.append(R.unshard(logits).float())
                     toks.append(R.unshard(nxt))
                     torch.cuda.synchronize()
                     step_ms.append((time.perf_counter() - ts) * 1e3)
-            serve_counts[dtype, mode] = read_counts()
             served[dtype, mode] = {
                 "tokens": torch.cat(toks, 1).cpu(), "logits": all_logits,
                 "prefill_ms": prefill_ms, "decode_step_ms": step_ms,
-                "prefill_launches": prefill_counts}
-            print(f"[31c] jamba served {mode}, {dtype}: prefill "
+                "prefill_launches_by_shape": prefill_shapes,
+                "launches_by_shape": shapes_since(shapes0),
+                "prefill_launches": prefill_counts,
+                "launches": read_counts()}
+            print(f"[{tag}] {label} served {mode}, {dtype}: prefill "
                   f"{prefill_ms:.1f} ms, decode ms a step (eager) "
-                  f"{', '.join(f'{x:.1f}' for x in step_ms)}; prefill "
-                  f"launches {prefill_counts}, whole run "
-                  f"{serve_counts[dtype, mode]}; {CARD}", flush=True)
+                  f"{', '.join(f'{x:.1f}' for x in step_ms)}; flash "
+                  f"launches by shape {served[dtype, mode]['launches_by_shape']}"
+                  f"; {CARD}", flush=True)
             del model, caches, logits
-    prefill_want = {k: 0 for k in read_counts()}
-    prefill_want.update({"flash_attention_fwd": n_attn,
-                         "selective_scan": n_mamba})
-    serve_numbers = {}
-    for dtype in ("bfloat16", "float32"):
         p, q = served[dtype, "plain"], served[dtype, "sharded"]
         errs = [rel_err(x, y) for x, y in zip(q["logits"], p["logits"])]
         serve_numbers[dtype] = {
@@ -3494,37 +3556,78 @@ def jamba_sharded_phase(mesh) -> tuple:
             **{m: {k: v for k, v in r.items() if k not in ("tokens",
                                                            "logits")}
                for m, r in (("plain", p), ("sharded", q))}}
-        print(f"[31c] {dtype}: prefill logits bit-identical "
+        print(f"[{tag}] {dtype}: prefill logits bit-identical "
               f"{serve_numbers[dtype]['prefill_logits_bit_identical']}; "
               f"logits max|err|/max|ref| a step "
               f"{', '.join(f'{e:.3e}' for e in errs)}; tokens equal "
-              f"{serve_numbers[dtype]['tokens_equal']} (mesh "
-              f"{q['tokens'].tolist()}, plain {p['tokens'].tolist()})",
-              flush=True)
+              f"{serve_numbers[dtype]['tokens_equal']}", flush=True)
+        want = expected_shapes(cfg, train=False)
         check(serve_numbers[dtype]["prefill_logits_bit_identical"],
-              f"phase 31c: jamba's {dtype} prefill on the mesh is not the "
+              f"phase {tag}: the {dtype} prefill on the mesh is not the "
               "plain one bit for bit")
-        check(p["prefill_launches"] == q["prefill_launches"]
-              == serve_counts[dtype, "plain"]
-              == serve_counts[dtype, "sharded"] == prefill_want,
-              f"phase 31c: serving launches {serve_counts}, {prefill_want} "
-              "expected (decode launches none)")
-    # decode attention on a mesh combines per-rank partial softmaxes in
-    # f32 where the plain step rounds the softmax to the compute dtype:
-    # in f32 the two agree to round-off, and so do the tokens
-    check(serve_numbers["float32"]["tokens_equal"]
-          and max(serve_numbers["float32"]["logits_rel_err"]) < 1e-5,
-          "phase 31c: jamba's f32 tokens on the mesh differ from the plain "
-          "run's")
+        check(p["launches_by_shape"] == q["launches_by_shape"]
+              == p["prefill_launches_by_shape"] == want
+              and p["launches"] == q["launches"] == p["prefill_launches"]
+              and q["launches"]["selective_scan"] == n_mamba,
+              f"phase {tag}: serving launches {p['launches']} "
+              f"{p['launches_by_shape']} plain, {q['launches']} "
+              f"{q['launches_by_shape']} on the mesh; {want} and "
+              f"{n_mamba} scans expected (decode launches none)")
+        if dtype == "float32":
+            check(serve_numbers[dtype]["tokens_equal"]
+                  and max(errs) < 1e-5,
+                  f"phase {tag}: the f32 tokens on the mesh differ from the "
+                  "plain run's")
+        if dtype == "bfloat16":
+            paths["serve"] = {"launches": q["launches"],
+                              "by_shape": q["launches_by_shape"]}
     numbers = {"layers": cfg.n_layers, "batch": B, "seq": T, "steps": steps,
-               "d_expert": JAMBA_TRAIN_D_EXPERT, "plain": a, "sharded": b,
-               "grads_bit_identical": not differ, "grad_rel_err": worst,
-               "serve": serve_numbers,
-               "dtensor_host_ms": b["mean_step_ms"] - a["mean_step_ms"],
+               "plain": a, "sharded": b, "grads_bit_identical": not differ,
+               "grad_rel_err": worst, "serve": serve_numbers,
                "phase_s": time.perf_counter() - t0}
-    print(f"[31c] took {numbers['phase_s']:.1f} s", flush=True)
-    return {"train_jamba_sharded": b["launches"],
-            "serve_jamba_sharded": serve_counts["bfloat16", "sharded"]}, numbers
+    print(f"[{tag}] took {numbers['phase_s']:.1f} s", flush=True)
+    return paths, numbers
+
+
+def family_phases(mesh) -> tuple:
+    """Phases 31c-31f on phase 31's (1,1) mesh: phase 28's jamba cell
+    (full width, one pattern group, d_expert JAMBA_TRAIN_D_EXPERT, B 4, T
+    1024), SHARDED_STEPS steps, then served in bf16 and f32; the vlm at
+    phase 29's cell (gates at CROSS_GATE), trained and served in bf16 and
+    f32; musicgen at full width on AUDIO_SHARDED_LAYERS layers, trained;
+    xlstm-125m at full width and depth (XLSTM_SHARDED), trained and served
+    in f32; the last three FAMILY_STEPS steps. Returns ({path:
+    {"launches", "by_shape"}} of the sharded runs, the numbers)."""
+    from repro_torch.configs.archs import get_config
+
+    full = get_config("jamba-v0.1-52b", "full")
+    jamba = dataclasses.replace(
+        full, n_layers=len(full.pattern),
+        moe=dataclasses.replace(full.moe, d_expert=JAMBA_TRAIN_D_EXPERT))
+    JB, JT, _ = JAMBA_TRAIN
+    L, B, T, _ = VLM_TRAIN
+    vlm = dataclasses.replace(get_config(VLM, "full"), n_layers=L)
+    _, AB, AT, _ = AUDIO_TRAIN
+    audio = dataclasses.replace(get_config(AUDIO, "full"),
+                                n_layers=AUDIO_SHARDED_LAYERS)
+    XL, XB, XT = XLSTM_SHARDED
+    xlstm = dataclasses.replace(get_config("xlstm-125m", "full"),
+                                n_layers=XL)
+    both = ("bfloat16", "float32")
+    counts, numbers = {}, {}
+    for tag, name, cfg, b, t, steps, dtypes, gate in (
+            ("31c", "jamba", jamba, JB, JT, SHARDED_STEPS, both, None),
+            ("31d", "vlm", vlm, B, T, FAMILY_STEPS, both, CROSS_GATE),
+            ("31e", "audio", audio, AB, AT, FAMILY_STEPS, (), None),
+            ("31f", "xlstm", xlstm, XB, XT, FAMILY_STEPS, ("float32",),
+             None)):
+        label = (f"{cfg.name} full width, {cfg.n_layers} layers"
+                 + (f", d_expert {cfg.moe.d_expert}" if cfg.moe else "")
+                 + (f", gates {gate}" if gate is not None else ""))
+        paths, numbers[name] = family_sharded_phase(
+            tag, label, cfg, b, t, mesh, steps, dtypes, gate)
+        counts.update({f"{p}_{name}_sharded": c for p, c in paths.items()})
+    return counts, numbers
 
 
 def examples_phase() -> tuple:
@@ -3586,7 +3689,15 @@ DRYRUN_CELLS = (("yi-6b", "train_4k"), ("yi-6b", "prefill_32k"),
                  ("deepseek-moe-16b", "decode_32k"),
                  ("jamba-v0.1-52b", "train_4k"),
                  ("jamba-v0.1-52b", "prefill_32k"),
-                 ("jamba-v0.1-52b", "decode_32k"))
+                 ("jamba-v0.1-52b", "decode_32k"),
+                 (VLM, "train_4k"), (VLM, "prefill_32k"), (VLM, "decode_32k"),
+                 (AUDIO, "train_4k"), (AUDIO, "decode_32k"),
+                 ("xlstm-125m", "decode_32k"), ("xlstm-125m", "train_4k"))
+# xlstm-125m's train_4k cell records its sLSTM loop step by step (the
+# reference's while loop is one body): cut to this seq for time (seq 512
+# records 599,575 ops in 238 s on one CPU core, seq 256 303,731 in 128 s
+# beside the other cells on the card's host)
+XLSTM_DRYRUN_SEQ = 128
 # phase 33b: the dry run's FLOPs against the counted step's (relative), and
 # its predicted peak against torch.cuda.max_memory_allocated (a ratio)
 DRYRUN_FLOPS_TOL = 1e-3
@@ -3595,8 +3706,9 @@ DRYRUN_PEAK_RANGE = (0.8, 1.2)
 
 def real_step(cfg, B: int, T: int) -> dict:
     """One plain train step of ``cfg`` on the card from seed-0 weights and
-    the launcher's first batch (int32 tokens and labels, as the dry run's
-    specs give them), counted by ``count_cost``: its FLOPs, flash calls by
+    the launcher's first batch (int32 tokens and labels, encoder
+    embeddings in the compute dtype, as the dry run's specs give them),
+    counted by ``count_cost``: its FLOPs, flash calls by
     shape, scan calls, argument bytes (params, AdamW state, batch and the
     int32 step), ``max_memory_allocated`` over the step, step ms, loss and
     launch counts. The model is freed before it returns."""
@@ -3618,9 +3730,10 @@ def real_step(cfg, B: int, T: int) -> dict:
     model = Model(cfg, dev, trainable=True).init_weights(0)
     params = dict(model.named_parameters())
     opt_state = adamw.init_state(params)
-    batch = {k: v.to(torch.int32) for k, v in train.to_device(
-        SyntheticTokens(cfg, DataConfig(batch=B, seq_len=T)).batch_at(0),
-        dev).items()}
+    batch = {k: v.to(torch.int32 if not v.is_floating_point()
+                     else getattr(torch, cfg.dtype))
+             for k, v in train.to_device(SyntheticTokens(cfg, DataConfig(
+                 batch=B, seq_len=T)).batch_at(0), dev).items()}
     arg_bytes = 4 + sum(t.nbytes for t in (
         *params.values(), *opt_state["m"].values(),
         *opt_state["v"].values(), *batch.values()))
@@ -3662,14 +3775,23 @@ def dryrun_phase(train_trace: dict) -> tuple:
     DRYRUN_FLOPS_TOL, flash launches by shape equal, argument bytes equal
     to the real params, AdamW state and batch, the predicted peak within
     DRYRUN_PEAK_RANGE of ``max_memory_allocated``; the modeled compute time
-    beside phase 18's traced busy time of the same cell. Returns (the real
-    step's launch counts, the phase's numbers)."""
+    beside phase 18's traced busy time of the same cell. 33c does the
+    same for phase 31c's jamba cell, its scan calls too, and 33d for
+    phase 29's vlm cell (31d's), its non-causal cross-attention calls
+    among the flash calls. Returns (the yi-6b and jamba real steps' launch
+    counts, {path: flash launches by shape} of the vlm's, the phase's
+    numbers)."""
     from repro_torch.configs.archs import get_config
 
     t0 = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=os.path.join(HERE, "src"))
     L, B, T = TRAIN_LAYERS, 4, 1024
     cells = {f"{a} {s}": ["--arch", a, "--shape", s] for a, s in DRYRUN_CELLS}
+    cells["xlstm-125m train_4k"] += ["--seq", str(XLSTM_DRYRUN_SEQ)]
+    VL, VB, VT, _ = VLM_TRAIN
+    cells["33d"] = ["--arch", VLM, "--shape", "train_4k", "--layers",
+                    str(VL), "--batch", str(VB), "--seq", str(VT), "--mesh",
+                    "1x1"]
     cells["33b"] = ["--arch", "yi-6b", "--shape", "train_4k", "--layers",
                     str(L), "--batch", str(B), "--seq", str(T), "--mesh",
                     "1x1"]
@@ -3690,6 +3812,9 @@ def dryrun_phase(train_trace: dict) -> tuple:
             get_config("jamba-v0.1-52b", "full"), n_layers=8,
             moe=dataclasses.replace(get_config("jamba-v0.1-52b").moe,
                                     d_expert=JAMBA_TRAIN_D_EXPERT)), JB, JT)
+        # 33d's real step: phase 29's vlm cell (31d's), plain, on the card
+        vlm = real_step(dataclasses.replace(get_config(VLM, "full"),
+                                            n_layers=VL), VB, VT)
         outs = {tag: p.communicate(timeout=600)[0] for tag, p in procs.items()}
     finally:
         for p in procs.values():
@@ -3706,7 +3831,7 @@ def dryrun_phase(train_trace: dict) -> tuple:
               f"{results[tag].get('error', '')[-2000:]}")
         roof = next((ln.strip() for ln in lines if "roofline:" in ln), "")
         r = results[tag]
-        if tag in ("33b", "33c"):
+        if tag in ("33b", "33c", "33d"):
             continue
         m, w, sch = r["memory"], r["walker"], r["schedule"]
         print(f"[33a] {tag} on {r['mesh']} ({r['n_chips']} fake ranks, "
@@ -3778,6 +3903,33 @@ def dryrun_phase(train_trace: dict) -> tuple:
           "33c: the dry run's argument bytes differ from the real step's")
     check(DRYRUN_PEAK_RANGE[0] <= c_peak_ratio <= DRYRUN_PEAK_RANGE[1],
           "33c: the dry run's peak is outside the range of the real one")
+    v = results["33d"]
+    v_flops_err = (abs(v["walker"]["flops_per_device"] - vlm["flops"])
+                   / vlm["flops"])
+    v_peak_ratio = v["memory"]["per_device_total"] / vlm["peak_bytes"]
+    print(f"[33d] {VLM} {VL} layers B={VB} T={VT} encoder_len 4096 bf16 on "
+          f"a (1,1) fake mesh: FLOPs {v['walker']['flops_per_device']:.6e} "
+          f"predicted, {vlm['flops']:.6e} counted on the card (rel err "
+          f"{v_flops_err:.3e}, < {DRYRUN_FLOPS_TOL:g}); flash calls "
+          f"{v['flash_launches_by_shape']} predicted, "
+          f"{vlm['launches_by_shape']} launched; argument bytes "
+          f"{v['memory']['argument_bytes']} predicted, "
+          f"{vlm['argument_bytes']} real; peak "
+          f"{v['memory']['per_device_total'] / 1e9:.3f} GB predicted, "
+          f"{vlm['peak_bytes'] / 1e9:.3f} GB max_memory_allocated (ratio "
+          f"{v_peak_ratio:.4f}, in {DRYRUN_PEAK_RANGE}); the real step "
+          f"{vlm['step_ms']:.1f} ms (first step, loss {vlm['loss']:.4f}); "
+          f"{CARD}", flush=True)
+    vcfg = dataclasses.replace(get_config(VLM, "full"), n_layers=VL)
+    check(v_flops_err < DRYRUN_FLOPS_TOL, "33d: the dry run's FLOPs miss the "
+          "counted vlm step's")
+    check(v["flash_launches_by_shape"] == vlm["launches_by_shape"]
+          == expected_shapes(vcfg, train=True),
+          "33d: the dry run's flash calls differ from the real step's")
+    check(v["memory"]["argument_bytes"] == vlm["argument_bytes"],
+          "33d: the dry run's argument bytes differ from the real step's")
+    check(DRYRUN_PEAK_RANGE[0] <= v_peak_ratio <= DRYRUN_PEAK_RANGE[1],
+          "33d: the dry run's peak is outside the range of the real one")
     phase_s = time.perf_counter() - t0
     print(f"[33] took {phase_s:.1f} s", flush=True)
     numbers = {"cells": {tag: {k: r[k] for k in (
@@ -3790,12 +3942,15 @@ def dryrun_phase(train_trace: dict) -> tuple:
         "traced_busy_ms": busy, "phase_s": phase_s,
         "jamba_real_step": {k: v for k, v in jamba.items()
                             if k != "counts"},
-        "jamba_flops_rel_err": c_flops_err, "jamba_peak_ratio": c_peak_ratio}
+        "jamba_flops_rel_err": c_flops_err, "jamba_peak_ratio": c_peak_ratio,
+        "vlm_real_step": {k: v for k, v in vlm.items() if k != "counts"},
+        "vlm_flops_rel_err": v_flops_err, "vlm_peak_ratio": v_peak_ratio}
     for r in numbers["cells"].values():
         r["walker"].pop("top_collectives", None)
         r["walker"].pop("collectives_by_size", None)
-    return {"train_dryrun_check": yi["counts"],
-            "train_jamba_dryrun_check": jamba["counts"]}, numbers
+    return ({"train_dryrun_check": yi["counts"],
+             "train_jamba_dryrun_check": jamba["counts"]},
+            {"train_vlm_dryrun_check": vlm["launches_by_shape"]}, numbers)
 
 
 def card_info():
@@ -4207,9 +4362,9 @@ def main() -> None:
     audio_attention = attention_shape_phase("30", "musicgen's shape",
                                             AUDIO_ATTENTION)
     dots_counts, dots = dots_phase(train_stats)
-    sharded_counts, sharded = sharded_phases()
+    sharded_counts, family_counts, sharded = sharded_phases()
     example_counts, examples = examples_phase()
-    dryrun_counts, dryrun = dryrun_phase(train_trace)
+    dryrun_counts, dryrun_shapes, dryrun = dryrun_phase(train_trace)
     default_counts = default_commands_phase()
     d16 = d16_timing_phase(qkv)
     halo_counts, halo = halo_phase()
@@ -4227,15 +4382,41 @@ def main() -> None:
         name: vlm_run.get(f"{part}/128/{mask}", 0)
         for part, name, _, _ in FLASH_PARTS}) for mask in ("causal",
                                                            "non-causal")}
+
+    def row_counts(entry, D, mask, scans=False):
+        """A path's flash launches at head dim D and ``mask`` by kernel
+        name, with its scan launches when ``scans``."""
+        out = dict(NO_SCAN, **{
+            name: entry["by_shape"].get(f"{part}/{D}/{mask}", 0)
+            for part, name, _, _ in FLASH_PARTS})
+        if scans:
+            out.update({k: entry.get("launches", NO_SCAN)[k]
+                        for k in NO_SCAN})
+        return out
+
+    # 31c-31f's sharded runs and 33d's real step, each launch to the row
+    # whose shape timed it: D = 128 causal ones (and the scans) to the D =
+    # 128 rows, the vlm's non-causal ones to the cross rows, musicgen's to
+    # D = 64
+    shaped = dict(family_counts, train_vlm_dryrun_check={
+        "by_shape": dryrun_shapes["train_vlm_dryrun_check"]})
+
+    def rows(D, mask, scans=False):
+        out = {p: row_counts(e, D, mask, scans) for p, e in shaped.items()}
+        return {p: c for p, c in out.items() if any(c.values())}
+
+    cross_paths = {"train_vlm": vlm_by_mask["non-causal"],
+                   **rows(128, "non-causal")}
     d64_paths = {"train_granite": train_paths.pop("train_granite"),
                  "train_audio": audio_counts,
-                 "train_e2e_example": example_counts["train_e2e"]}
+                 "train_e2e_example": example_counts["train_e2e"],
+                 **rows(64, "causal")}
     paths = {"serve": serve_counts, "train": train_counts,
              "serve_jamba": jamba_counts, **default_counts,
              "halo": halo_counts, "serve_telemetry": telemetry_counts,
              "train_jamba": jamba_train_counts, **train_paths,
              "train_vlm": vlm_by_mask["causal"], "train_dots": dots_counts,
-             **sharded_counts,
+             **sharded_counts, **rows(128, "causal", scans=True),
              "quickstart_example": example_counts["quickstart"],
              **dryrun_counts}
 
@@ -4399,8 +4580,7 @@ def main() -> None:
     # the cross-attention's shape, on the vlm training path (its
     # non-causal launches), and head dim 64 on granite's and musicgen's
     for suffix, res, D, row_paths in (
-            ("cross", cross, 128,
-             {"train_vlm": vlm_by_mask["non-causal"]}),
+            ("cross", cross, 128, cross_paths),
             ("D=64", audio_attention, 64, d64_paths)):
         for part, name, replaces, source in FLASH_PARTS:
             t = res["timing"][part]

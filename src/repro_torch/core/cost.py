@@ -151,6 +151,13 @@ def add_kernel(name: str, flops: float, nbytes: float,
         rec.add_kernel(name, flops, nbytes, shape)
 
 
+def note_reads(*tensors) -> None:
+    """A kernel's fake launch read ``tensors``: every open recording marks
+    the step arguments among them as used."""
+    for rec in _ACTIVE:
+        rec.note_reads(tensors)
+
+
 @contextlib.contextmanager
 def tally(recorder) -> Iterator[None]:
     """Open ``recorder`` (an :class:`repro_torch.core.hlo.Recorder`) to the

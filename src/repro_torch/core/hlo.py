@@ -247,6 +247,8 @@ class Recording:
         self.live_bytes = 0
         self.peak_bytes = 0
         self._storages = WeakIdKeyDictionary()
+        self._watched: Dict[int, Any] = {}   # id -> storage, held alive
+        self._read: set = set()
 
     # -- memory -------------------------------------------------------------
     def hold(self, tensors) -> None:
@@ -266,6 +268,30 @@ class Recording:
 
     def _free(self, n: int) -> None:
         self.live_bytes -= n
+
+    def watch(self, tensors) -> None:
+        """Note which of ``tensors`` (a step's arguments) the recorded ops
+        read (:meth:`read_args`)."""
+        for t in tensors:
+            st = t.untyped_storage()
+            self._watched[id(st)] = st
+
+    def note_reads(self, tensors) -> None:
+        """Mark the watched storages behind ``tensors`` as read."""
+        if not self._watched:
+            return
+        for t in tensors:
+            if isinstance(t, torch.Tensor) and not t.is_meta:
+                sid = id(t.untyped_storage())
+                if sid in self._watched:
+                    self._read.add(sid)
+
+    def read_args(self, tensors) -> List[torch.Tensor]:
+        """Those of the watched ``tensors`` that a recorded op, or a
+        kernel's fake launch, read: the reference's compiled step keeps
+        only the arguments it uses (``jax.jit``'s ``keep_unused=False``),
+        and its argument bytes count only those."""
+        return [t for t in tensors if id(t.untyped_storage()) in self._read]
 
     def storage_bytes(self, tensors) -> int:
         """Bytes of the distinct storages behind ``tensors``."""
@@ -308,6 +334,12 @@ class Recorder(TorchDispatchMode):
         if shape is not None:
             self.by_shape[shape] += 1
 
+    def note_reads(self, tensors) -> None:
+        """A kernel's fake launch read ``tensors``
+        (:meth:`Recording.note_reads`)."""
+        if not self.paused:
+            self.recording.note_reads(tensors)
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         if any(issubclass(t, DTensor) for t in types):
@@ -332,6 +364,7 @@ class Recorder(TorchDispatchMode):
         ins = [t for t in tree_leaves((args, kwargs))
                if isinstance(t, torch.Tensor)]
         outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
+        rec.note_reads(ins)
         if self.track_memory:
             rec.hold(outs)
         index = len(rec.ops)

@@ -84,6 +84,7 @@ def flash_attention(
         out = (torch.empty((B, T, H, D), dtype=q.dtype, device=q.device),
                torch.empty((B, H, T), dtype=torch.float32, device=q.device))
         _count_fake(key)
+        cost.note_reads(q, k, v)
     elif q.is_cuda:
         out = kernel.flash_fwd(q, k, v, causal=causal, window=window)
         flash_attention.launches += 1
@@ -148,6 +149,7 @@ def flash_attention_bwd(
         dv = torch.empty(k.shape, dtype=k.dtype, device=q.device)
         for key in keys.values():
             _count_fake(key)
+        cost.note_reads(q, k, v, do, lse, delta)
     else:
         dq = kernel.flash_bwd_dq(q, k, v, do, lse, delta, causal=causal,
                                  window=window)

@@ -72,6 +72,7 @@ def _forward(x, dt, A, Bc, Cc, D, return_state: bool, train: bool
         chunks = (torch.empty((B, saved, dI, N), dtype=torch.float32,
                               device=x.device) if train else None)
         selective_scan.fake_launches += 1
+        cost.note_reads(x, dt, A, Bc, Cc, D)
     elif x.is_cuda:
         y, h, chunks = kernel.selective_scan(
             x, dt, A, Bc, Cc, D, return_state=return_state, save_chunks=train)
@@ -110,6 +111,8 @@ class SelectiveScan(torch.autograd.Function):
             grads = tuple(torch.empty(t.shape, dtype=t.dtype, device=t.device)
                           for t in (x, dt, A, Bc, Cc, D))
             selective_scan.fake_bwd_launches += 1
+            cost.note_reads(x, dt, A, Bc, Cc, D, dy, *(
+                () if chunks is None else (chunks,)))
         elif x.is_cuda:
             grads = kernel.selective_scan_bwd(x, dt, A, Bc, Cc, D, dy, chunks)
             selective_scan.bwd_launches += 1

@@ -23,12 +23,14 @@ their fake branch and add the kernels' work), from which the cell
 reports, per device:
 
   * ``memory``: argument bytes (the local shards of the params, the AdamW
-    state and the batch; the AdamW step counts as the reference's int32
-    scalar), output, alias (what the step updates in place: params and
-    AdamW state in training, the caches in decode), temp (the peak of
-    live storage bytes over the step less the arguments and the new
-    outputs) and ``per_device_total`` (= the peak), against
-    ``HW["hbm_gb"]`` (80 GB);
+    state and the batch that the step reads, a kernel's fake launch
+    included, as the reference's compiled step keeps only the arguments
+    it uses: a vlm's decode reads no cross-attention ``wk``/``wv``, an
+    xLSTM decode no position; the AdamW step counts as the reference's
+    int32 scalar), output, alias (what the step updates in place: params
+    and AdamW state in training, the caches in decode), temp (the peak of
+    live storage bytes over the step less every argument and the new
+    outputs) and ``per_device_total``, against ``HW["hbm_gb"]`` (80 GB);
   * ``walker``: FLOPs, bytes and collectives of ``hlo_cost.module_cost``;
     the bytes are every op's operands and results, an upper estimate of
     the card's HBM traffic (an operand read from L2, or a fused read,
@@ -49,9 +51,9 @@ These are model outputs for 256 or 512 H100s, not measurements. A
 training cell runs one full step: forward, the full-remat recompute,
 backward and AdamW. Left out: ``xla_cost_analysis`` (there is no XLA),
 and ``--fused-accounting``: the hand-written kernels are always costed at
-their boundary. A family that DTensor does not carry yet (ROADMAP Queue 1,
-item 9) writes ``ok: false`` with its ``ValueError``, as the reference
-records a failed cell. Results go to ``results/dryrun_torch/``.
+their boundary. Every family runs (xLSTM records plain ops only: no
+kernel lies on its path); a cell that raises writes ``ok: false`` with
+its error, as the reference records a failed cell. Results go to ``results/dryrun_torch/``.
 ``--device`` is ``cuda`` by default (a ``cuda`` mesh and fake ``cuda``
 tensors); ``--device cpu`` runs anywhere. ``--mesh DxM``, ``--preset``,
 ``--layers``, ``--batch``, ``--seq`` and ``--d-expert`` dry-run a smaller
@@ -87,7 +89,7 @@ from ..train.step import make_decode_step, make_prefill_step, make_train_step
 from . import flops as F
 from .mesh import make_production_mesh, production_mesh_shape
 from .specs import input_specs
-from .train import check_shardable, place_batch, place_caches, place_model
+from .train import place_batch, place_caches, place_model
 
 RESULTS_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                            "results", "dryrun_torch")
@@ -138,9 +140,15 @@ def step_and_args(cfg, shape: ShapeConfig, specs, mesh, rules, device,
                 donated + list(batch.values()), donated)
 
     B, S = shape.global_batch, shape.seq_len
+    plen = len(cfg.pattern)
 
     def caches():
-        return place_caches(model.alloc_cache(B, S), cfg, B, S, mesh, rules)
+        # one layer's cache made and placed before the next: no rank holds
+        # more than one layer's whole cache at a time
+        return place_caches((M.alloc_cache(cfg, cfg.pattern[l % plen], B, S,
+                                           device)
+                             for l in range(cfg.n_layers)),
+                            cfg, B, S, mesh, rules)
 
     if shape.kind == "prefill":
         prefill = make_prefill_step(cfg)
@@ -185,7 +193,6 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
 
     cfg = cfg or get_config(arch)
     shape = shape or SHAPES[shape_name]
-    check_shardable(cfg)
     if mesh_shape is None:
         mesh_shape, axes = production_mesh_shape(multi_pod=multi_pod)
     else:
@@ -215,6 +222,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
                 rec = recorder.recording
                 with recorder:
                     rec.hold(local_args)
+                    rec.watch(local_args)
                     outputs = step()
             t_lower = time.time() - t0
             launches = {k: n - fake_before.get(k, 0) for k, n in
@@ -223,7 +231,8 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
             scan_launches = {
                 "fwd": selective_scan.fake_launches - scan_before[0],
                 "bwd": selective_scan.fake_bwd_launches - scan_before[1]}
-            arg_bytes = rec.storage_bytes(local_args)
+            held = rec.storage_bytes(local_args)
+            arg_bytes = rec.storage_bytes(rec.read_args(local_args))
             if shape.kind == "train":
                 arg_bytes += 4                  # the AdamW step (int32)
             out_local = [_local(t) for t in _leaves(outputs)]
@@ -247,7 +256,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool = False,
         "n_overlapped": ser.n_overlapped,
     }
     out_bytes = new_out + alias
-    temp = max(0, peak - arg_bytes - new_out)
+    temp = max(0, peak - held - new_out)
     per_dev = arg_bytes + temp + out_bytes - alias
     result = {
         "arch": cfg.name, "shape": shape.name,
@@ -364,23 +373,23 @@ def main(argv=None) -> int:
         print(f"dryrun --all finished; {len(failures)} failures: {failures}")
         return 1 if failures else 0
 
-    cfg = get_config(args.arch, args.preset)
-    if args.layers:
-        plen = len(cfg.pattern)
-        cfg = dataclasses.replace(
-            cfg, n_layers=max(plen, args.layers // plen * plen))
-    if args.d_expert:
-        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
-            cfg.moe, d_expert=args.d_expert))
-    shape = SHAPES[args.shape]
-    if args.batch or args.seq:
-        shape = dataclasses.replace(
-            shape, global_batch=args.batch or shape.global_batch,
-            seq_len=args.seq or shape.seq_len)
     mesh_shape = _parse_mesh(args.mesh)
     mesh = (args.mesh or mesh_name(dict(zip(*reversed(
         production_mesh_shape(multi_pod=args.multi_pod))))))
     try:
+        cfg = get_config(args.arch, args.preset)
+        if args.layers:
+            plen = len(cfg.pattern)
+            cfg = dataclasses.replace(
+                cfg, n_layers=max(plen, args.layers // plen * plen))
+        if args.d_expert:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, d_expert=args.d_expert))
+        shape = SHAPES[args.shape]
+        if args.batch or args.seq:
+            shape = dataclasses.replace(
+                shape, global_batch=args.batch or shape.global_batch,
+                seq_len=args.seq or shape.seq_len)
         result = run_cell(args.arch, args.shape, args.multi_pod,
                           save=not args.no_save,
                           microbatches=args.microbatches, tag=args.tag,

@@ -23,10 +23,12 @@ count, and the launcher builds the (data, model) ``DeviceMesh`` of
 as DTensors, gives every rank the global batch distributed over
 ``"batch"``, and resumes a checkpoint through ``reshard_state`` on the new
 mesh. One rank with ``--model-parallel 1`` keeps plain tensors. A
-``--model-parallel`` that does not divide the world raises ``ValueError``;
-so does a family that DTensor does not carry yet (xLSTM, mamba, the vlm
-and audio models) on a mesh of more than one rank. MoE trains on the mesh
-(``models.moe``: experts split over ``"model"``).
+``--model-parallel`` that does not divide the world raises ``ValueError``.
+Every family trains on the mesh: MoE with its experts split over
+``"model"`` (``models.moe``), jamba's mixer on each rank's ``"inner"``
+channels (``models.mamba``), the vlm's cross-attention through the flash
+kernels on local shards, the audio model's frames over ``"batch"``, and
+xLSTM's loops over the batch axes (``models.xlstm``).
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --device cpu \
         --model-parallel 2 --steps 4 --batch 4 --seq 64 Weights are random, made from
@@ -70,8 +72,6 @@ from ..sharding import rules as R
 from ..train.step import make_train_step
 from .mesh import make_mesh_for, mesh_for_shape
 
-_UNSHARDED = "ROADMAP Queue 1, item 9: the families DTensor does not carry yet"
-
 
 def _launch_counts() -> Dict[str, int]:
     return {"flash_attention_fwd": flash_attention.launches,
@@ -89,24 +89,6 @@ def to_device(batch: Dict[str, Any], device: torch.device
     return {k: torch.from_numpy(v).to(
         device, torch.long if v.dtype.kind in "iu" else torch.float32)
         for k, v in batch.items()}
-
-
-def check_shardable(cfg) -> None:
-    """Raise ValueError for a model that DTensor does not carry yet on a
-    mesh of more than one rank (frame input, the xLSTM loops,
-    cross-attention), naming what stops it. Dense, MoE and hybrid (mamba)
-    models pass."""
-    why = []
-    if cfg.input_mode == "frames":
-        why.append("frame input (audio)")
-    for spec in cfg.pattern:
-        if spec.mixer in ("mlstm", "slstm"):
-            why.append("the xLSTM loops")
-        if spec.cross_attn:
-            why.append("cross-attention (vlm)")
-    if why:
-        raise ValueError(f"{cfg.name} does not train on a mesh yet "
-                         f"({', '.join(sorted(set(why)))}): {_UNSHARDED}")
 
 
 def place_model(model: Model, mesh, rules: Dict[str, Any]) -> Model:
@@ -197,7 +179,6 @@ def main(argv=None) -> Tuple[List[float], Dict[str, Any]]:
 
     mesh = rules = None
     if world > 1:
-        check_shardable(cfg)
         mesh = make_mesh_for(world, args.model_parallel, device.type)
         rules = R.make_rules(mesh)
     if device.type == "cuda":

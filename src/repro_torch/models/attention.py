@@ -15,7 +15,8 @@ each rank's own slots with a partial softmax that the ranks combine by
 all-reduces (flash-decode style), so no cache is gathered. The gated
 cross-attention sublayer of the vlm family attends from the text
 positions to precomputed encoder embeddings, non-causal and without
-RoPE, through the same kernels.
+RoPE, through the same kernels, on a mesh as self-attention does (its
+cache of N encoder slots split over ``"model"``, attended in place).
 """
 from __future__ import annotations
 
@@ -90,16 +91,16 @@ def decode_attention(
                            causal=True, window=window)
 
 
-def _whole_heads(x: torch.Tensor, n: int) -> torch.Tensor:
-    """``x`` (B, T, n*D), with its fused dimension gathered where a DTensor
-    splits it inside a head (mesh axes that divide n*D but not n): DTensor
-    unflattens a sharded dimension only at shard boundaries."""
+def _whole_heads(x: torch.Tensor, n: int, dim: int = 2) -> torch.Tensor:
+    """``x`` (B, T, n*D), with its fused dimension (``dim``) gathered where a
+    DTensor splits it inside a head (mesh axes that divide n*D but not n):
+    DTensor unflattens a sharded dimension only at shard boundaries."""
     if isinstance(x, DTensor):
         mesh, pl = x.device_mesh, x.placements
         parts = math.prod(mesh.size(d) for d, p in enumerate(pl)
-                          if p == Shard(2))
+                          if p == Shard(dim))
         if n % parts:
-            x = x.redistribute(mesh, [Replicate() if p == Shard(2) else p
+            x = x.redistribute(mesh, [Replicate() if p == Shard(dim) else p
                                       for p in pl])
     return x
 
@@ -261,12 +262,16 @@ def _sharded_prefill_write(cache: Dict[str, torch.Tensor], k: torch.Tensor,
                            v: torch.Tensor, window: Optional[int]) -> None:
     """Prefill's keys and values (B, T, K, D), whole in T, into a cache
     whose slots are split over mesh axes: each rank writes its own block
-    of slots from its copy of k and v (``local_map``), nothing is sent."""
+    of slots from its copy of k and v (``local_map``), nothing is sent.
+    A cache without ``"pos"`` (the cross-attention's, every slot valid)
+    takes k and v slot for slot."""
     S, T = cache["k"].shape[1], k.shape[1]
     lo, _n, _dims = shard_block(cache["k"], 1)
     src = _prefill_sources(T, S, window)
+    names = [n for n in ("k", "v", "pos") if n in cache]
 
-    def local(ck, cv, cpos, k, v):
+    def local(*ts):
+        ck, cv, k, v = ts[0], ts[1], ts[-2], ts[-1]
         mine = src[lo:lo + ck.shape[1]]
         slots = [i for i, p in enumerate(mine) if p >= 0]
         if slots:
@@ -275,20 +280,19 @@ def _sharded_prefill_write(cache: Dict[str, torch.Tensor], k: torch.Tensor,
                               device=ck.device)
             ck.index_copy_(1, si, k.index_select(1, pi))
             cv.index_copy_(1, si, v.index_select(1, pi))
-            cpos.index_copy_(0, si, pi.to(cpos.dtype))
+            if len(ts) == 5:
+                ts[2].index_copy_(0, si, pi.to(ts[2].dtype))
         return ck            # local_map wants an output: nothing reads it
 
     local_map(local, out_placements=list(cache["k"].placements),
-              in_placements=(cache["k"].placements, cache["v"].placements,
-                             cache["pos"].placements, k.placements,
-                             v.placements),
-              device_mesh=k.device_mesh)(cache["k"], cache["v"], cache["pos"],
-                                         k, v)
+              in_placements=tuple(cache[n].placements for n in names)
+              + (k.placements, v.placements),
+              device_mesh=k.device_mesh)(*(cache[n] for n in names), k, v)
 
 
-def _sharded_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    cache: Dict[str, torch.Tensor], pos_q: torch.Tensor,
-                    window: Optional[int]) -> torch.Tensor:
+def _sharded_decode(q: torch.Tensor, k: Optional[torch.Tensor],
+                    v: Optional[torch.Tensor], cache: Dict[str, torch.Tensor],
+                    pos_q: torch.Tensor, window: Optional[int]) -> torch.Tensor:
     """One decode position (q (B, 1, H, D), this step's k and v (B, 1, K,
     D)) against a cache whose slots are split over mesh axes, as the
     reference's rules place it (``seq_kv``: flash-decode style). Each rank
@@ -296,37 +300,50 @@ def _sharded_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     attends its own slots: a partial softmax (the block's max, its sum of
     exponentials and its weighted sum of values, f32), which the ranks
     combine with an all-reduce of the max and two of the rescaled sums.
-    The cache is never gathered. Returns out (B, 1, H, D) in v's dtype."""
+    The cache is never gathered. With ``k`` and ``v`` None nothing is
+    written and a cache without ``"pos"`` (the cross-attention's) has
+    every slot valid. Returns out (B, 1, H, D) in the cache's dtype."""
     import torch.distributed._functional_collectives as funcol
 
     q = constrain(q, ("batch", None, None, None))
-    k = constrain(k, ("batch", None, None, None))
-    v = constrain(v, ("batch", None, None, None))
     ck = cache["k"]
     mesh = ck.device_mesh
     S = ck.shape[1]
     lo, _n, dims = shard_block(ck, 1)
     H, D = q.shape[2], q.shape[3]
-    K = k.shape[2]
+    K = ck.shape[2]
     G = H // K
     pos_q = pos_q.to(torch.int32)
+    step = []
+    if k is not None:
+        step = [constrain(k, ("batch", None, None, None)),
+                constrain(v, ("batch", None, None, None))]
+    names = [n for n in ("k", "v", "pos") if n in cache]
 
-    def local(q, k, v, ck, cv, cpos):
-        Sl = ck.shape[1]
-        slot = pos_q % S if window is not None else pos_q.clamp(max=S - 1)
-        at = slot - lo
-        inside = (at >= 0) & (at < Sl)
-        at = at.clamp(0, Sl - 1).reshape(1).long()
-        ck.index_copy_(1, at, torch.where(inside, k, ck.index_select(1, at)))
-        cv.index_copy_(1, at, torch.where(inside, v, cv.index_select(1, at)))
-        cpos.index_copy_(0, at, torch.where(
-            inside, pos_q.reshape(1).to(cpos.dtype), cpos.index_select(0, at)))
+    def local(q, *rest):
+        k, v = rest[:len(step)] or (None, None)
+        ck, cv, *cpos = rest[len(step):]
+        cpos = cpos[0] if cpos else None
+        if k is not None:
+            Sl = ck.shape[1]
+            slot = pos_q % S if window is not None else pos_q.clamp(max=S - 1)
+            at = slot - lo
+            inside = (at >= 0) & (at < Sl)
+            at = at.clamp(0, Sl - 1).reshape(1).long()
+            ck.index_copy_(1, at, torch.where(inside, k,
+                                              ck.index_select(1, at)))
+            cv.index_copy_(1, at, torch.where(inside, v,
+                                              cv.index_select(1, at)))
+            cpos.index_copy_(0, at, torch.where(
+                inside, pos_q.reshape(1).to(cpos.dtype),
+                cpos.index_select(0, at)))
         qg = q.reshape(q.shape[0], 1, K, G, D)
         scores = torch.einsum("btkgd,bskd->bkgts", qg, ck).float() / math.sqrt(D)
-        mask = (cpos >= 0) & (cpos <= pos_q)
-        if window is not None:
-            mask = mask & (cpos > pos_q - window)
-        scores = scores.masked_fill(~mask, NEG_INF)
+        if cpos is not None:
+            mask = (cpos >= 0) & (cpos <= pos_q)
+            if window is not None:
+                mask = mask & (cpos > pos_q - window)
+            scores = scores.masked_fill(~mask, NEG_INF)
         m = scores.amax(-1, keepdim=True)
         p = torch.exp(scores - m)
         l = p.sum(-1, keepdim=True)
@@ -340,11 +357,10 @@ def _sharded_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out = (o / l).to(cv.dtype)                     # (B, K, G, 1, D)
         return out.permute(0, 3, 1, 2, 4).reshape(q.shape)
 
+    ins = (q, *step, *(cache[n] for n in names))
     return local_map(local, out_placements=list(q.placements),
-                     in_placements=(q.placements, k.placements, v.placements,
-                                    ck.placements, cache["v"].placements,
-                                    cache["pos"].placements),
-                     device_mesh=mesh)(q, k, v, ck, cache["v"], cache["pos"])
+                     in_placements=tuple(t.placements for t in ins),
+                     device_mesh=mesh)(*ins)
 
 
 def _local_kv_heads(H: int, K: int, Hl: int, r: int) -> List[int]:
@@ -442,28 +458,25 @@ def build_cross_kv(params, enc: torch.Tensor, cfg: ModelConfig
                    ) -> Dict[str, torch.Tensor]:
     """Keys and values (B, N, K, D) of the encoder embeddings ``enc`` (B,
     N, E): no RoPE, the keys qk-normed when the config has it."""
-    B, N, _ = enc.shape
     K, D = cfg.n_kv_heads, cfg.head_dim
-    k = (enc @ params["wk"]).view(B, N, K, D)
-    v = (enc @ params["wv"]).view(B, N, K, D)
+    k = split_heads(enc @ params["wk"], K, D)
+    v = split_heads(enc @ params["wv"], K, D)
     if cfg.qk_norm:
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
     return {"k": k, "v": v}
 
 
 def _cross_q(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    B, T, _ = x.shape
-    q = (x @ params["wq"]).view(B, T, cfg.n_heads, cfg.head_dim)
+    q = split_heads(x @ params["wq"], cfg.n_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
     return q
 
 
 def _gated_out(params, out: torch.Tensor) -> torch.Tensor:
-    """``tanh(gate) * (out @ wo)``, the gate (an f32 scalar) cast to the
-    output's dtype as the JAX package casts it."""
-    B, T = out.shape[:2]
-    out = out.reshape(B, T, -1) @ params["wo"]
+    """``tanh(gate) * (out @ wo)`` of out (B, T, H, D), the gate (an f32
+    scalar) cast to the output's dtype as the JAX package casts it."""
+    out = merge_heads(out) @ params["wo"]
     return torch.tanh(params["gate"]).to(out.dtype) * out
 
 
@@ -476,36 +489,51 @@ def cross_attn_apply(params, x: torch.Tensor, enc: Optional[torch.Tensor],
     position. Train and prefill run the flash kernels non-causal (T
     queries against N keys); prefill also writes the encoder's keys and
     values into ``cache`` ({"k", "v": (B, N, K, D)}, :func:`alloc_cross_kv`),
-    which decode reads instead of ``enc`` (:func:`cross_from_cache`)."""
+    which decode reads instead of ``enc`` (:func:`cross_from_cache`).
+
+    On a mesh, as self-attention: q goes to the heads' axes and k and v to
+    the kv heads', the batch split over ``"batch"``, and the kernels run
+    on local shards (:func:`flash`); prefill writes each rank's block of
+    the N cached slots from its copy of k and v, and decode attends them
+    with a partial softmax combined across ranks, never gathering the
+    cache."""
     if mode == "decode":
         return cross_from_cache(params, x, cache, cfg)
     if mode not in ("train", "prefill"):
         raise ValueError(f"unknown mode {mode!r}")
-    q = _cross_q(params, x, cfg)
+    q = constrain(_cross_q(params, x, cfg), ("batch", None, "heads", None))
     kv = build_cross_kv(params, enc, cfg)
-    if mode == "train":
-        out, _lse = FlashAttention.apply(q, kv["k"], kv["v"], False, None)
-    else:
-        cache["k"].copy_(kv["k"])
-        cache["v"].copy_(kv["v"])
-        out, _lse = flash_attention(q, kv["k"], kv["v"], causal=False)
-    return _gated_out(params, out)
+    k = constrain(kv["k"], ("batch", None, "kv_heads", None))
+    v = constrain(kv["v"], ("batch", None, "kv_heads", None))
+    if mode == "prefill":
+        if isinstance(cache["k"], DTensor):
+            _sharded_prefill_write(cache, k, v, None)
+        else:
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
+    out = flash(q, k, v, False, None, train=mode == "train")
+    return _gated_out(params, constrain(out, ("batch", None, "heads", None)))
 
 
 def cross_from_cache(params, x: torch.Tensor, kv: Dict[str, torch.Tensor],
                      cfg: ModelConfig) -> torch.Tensor:
     """One decode position (B, 1, E) against the cached encoder keys and
     values, every one of the N slots valid: the query's position is 2**30,
-    as in the JAX package, a 0-d tensor filled in on the device."""
+    as in the JAX package, a 0-d tensor filled in on the device. A cache
+    whose slots are split over mesh axes is attended in place
+    (:func:`_sharded_decode`, nothing written)."""
     B, T, _ = x.shape
     K = cfg.n_kv_heads
     q = _cross_q(params, x, cfg)
+    if isinstance(kv["k"], DTensor):
+        return _gated_out(params, _sharded_decode(
+            q, None, None, kv, device_pos(2 ** 30, x.device), None))
     q = q.view(B, T, K, cfg.n_heads // K, cfg.head_dim)
     N = kv["k"].shape[1]
     pos_k = torch.arange(N, dtype=torch.int32, device=x.device)
     out = decode_attention(q, kv["k"], kv["v"], pos_k,
                            device_pos(2 ** 30, x.device))
-    return _gated_out(params, out)
+    return _gated_out(params, out.reshape(B, T, cfg.n_heads, cfg.head_dim))
 
 
 def alloc_cross_kv(cfg: ModelConfig, batch: int, device: torch.device

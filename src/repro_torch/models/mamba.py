@@ -18,7 +18,7 @@ channels (:func:`_sharded`), the scan kernel on local shards.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -179,29 +179,27 @@ def _split_fused(t: torch.Tensor, mesh, d: int
     return out[0], out[1]
 
 
-def _sharded(params, xz: DTensor, cfg: ModelConfig, cache, mode: str,
-             dtype: torch.dtype) -> torch.Tensor:
-    """The mixer of DTensor ``xz`` (B, T, 2dI), the in_proj output, on a
-    mesh, after the reference: the conv input and the gate are placed on
-    ("batch", None, "inner") with the sequence whole, and the conv, the
-    SiLU, the scan (its kernel on local, contiguous (B_l, T, dI_l)
-    tensors) and the gate run on each rank's own ``"inner"`` channels
-    (``local_map``). x_proj contracts over the channels, so its output
-    (dt's low rank, Bc and Cc) is a partial sum over the channel axes,
-    reduced before the scan; the gradients of the per-channel parameters,
-    and of Bc and Cc, come back ``Partial`` over the axes they were
-    replicated on. Decode steps the caches' shards in place; prefill
-    writes them, the state after the last prompt token."""
+def sharded_conv(params, xz: DTensor, cache, mode: str, dC: int,
+                 keep_input: bool = False) -> Tuple[list, Callable]:
+    """The conv block of a fused (B, T, 2dI) projection ``xz`` (conv input,
+    then gate) on a mesh, after the reference: ``xz`` is placed on
+    ("batch", None, "inner") with the sequence whole, and each rank splits
+    its block into its own channels of both halves (:func:`_split_fused`)
+    and runs the causal conv and its SiLU on them (``local_map``); decode
+    steps the cache's conv tail shard in place. Returns ([xc, z, the conv
+    input if ``keep_input``, the conv tail if prefill], each on ("batch",
+    None, "inner"); ``pl``), where ``pl(inner=, batch=, other=)`` names a
+    placement a mesh dimension by the kind of axis it is. The gradients of
+    the conv's parameters come back ``Partial`` over the batch axes."""
     mesh = xz.device_mesh
-    dI, N, dC, R = _dims(cfg)
     xz = constrain(xz, ("batch", None, "inner"))
     inner = [d for d, p in enumerate(params["conv_b"].placements)
              if p == Shard(0)]
     if [d for d, p in enumerate(xz.placements) if p == Shard(2)] != inner:
-        raise ValueError(f"mamba's channels split as {xz.placements} and "
+        raise ValueError(f"the channels split as {xz.placements} and "
                          f"{params['conv_b'].placements}")
     if len(inner) > 1:
-        raise ValueError(f"mamba's channels split over {len(inner)} mesh "
+        raise ValueError(f"the channels split over {len(inner)} mesh "
                          "axes; one is supported")
     batch = [d for d, p in enumerate(xz.placements) if p == Shard(0)]
 
@@ -213,14 +211,6 @@ def _sharded(params, xz: DTensor, cfg: ModelConfig, cache, mode: str,
                 by_dim.get("other", Replicate()) for d in range(mesh.ndim)]
 
     act = pl(inner=Shard(2), batch=Shard(0))              # (B, T, dI)
-    state = pl(inner=Shard(1), batch=Shard(0))            # (B, dI, N)
-
-    def param_grad(p):
-        """A per-channel parameter's gradient: its own placement on the
-        channel axes, ``Partial`` over the batch axes."""
-        return pl(inner=p.placements[inner[0]] if inner else Replicate(),
-                  batch=Partial())
-
     conv_in = (xz, params["conv_w"], params["conv_b"])
     conv_cache = (cache["conv"],) if mode == "decode" else ()
 
@@ -229,18 +219,50 @@ def _sharded(params, xz: DTensor, cfg: ModelConfig, cache, mode: str,
                   else xz.chunk(2, dim=-1))
         ps = {"conv_w": conv_w, "conv_b": conv_b}
         xc = _conv(ps, xin, {"conv": tail[0]} if tail else None, mode)
-        # z is a view of a tensor that the block does not return: as a
-        # view, local_map's output would lose its gradient
-        z = z.clone()
-        return (xc, z, _tail(xin, dC)) if mode == "prefill" else (xc, z)
+        # z (and xin) are views of a tensor that the block does not
+        # return: as views, local_map's outputs would lose their gradient
+        out = [xc, z.clone()]
+        if keep_input:
+            out.append(xin.clone())
+        if mode == "prefill":
+            out.append(_tail(xin, dC))
+        return tuple(out)
 
+    n_out = 2 + keep_input + (mode == "prefill")
     pls = [t.placements for t in conv_in + conv_cache]
-    xc, z, *tail = local_map(
-        conv_local, out_placements=(act,) * (3 if mode == "prefill" else 2),
-        in_placements=pls,
-        in_grad_placements=(act, *(param_grad(t) for t in conv_in[1:]),
-                            *pls[3:]),
+    out = local_map(
+        conv_local, out_placements=(act,) * n_out, in_placements=pls,
+        in_grad_placements=(act, *(_param_grad(pl, inner, t)
+                                   for t in conv_in[1:]), *pls[3:]),
         device_mesh=mesh)(*conv_in, *conv_cache)
+    return list(out), pl
+
+
+def _param_grad(pl: Callable, inner, p: DTensor):
+    """A per-channel parameter's gradient: its own placement on the
+    channel axes, ``Partial`` over the batch axes."""
+    return pl(inner=p.placements[inner[0]] if inner else Replicate(),
+              batch=Partial())
+
+
+def _sharded(params, xz: DTensor, cfg: ModelConfig, cache, mode: str,
+             dtype: torch.dtype) -> torch.Tensor:
+    """The mixer of DTensor ``xz`` (B, T, 2dI), the in_proj output, on a
+    mesh, after the reference: the conv block on each rank's channels
+    (:func:`sharded_conv`), then the scan (its kernel on local, contiguous
+    (B_l, T, dI_l) tensors) and the gate on them too (``local_map``).
+    x_proj contracts over the channels, so its output (dt's low rank, Bc
+    and Cc) is a partial sum over the channel axes, reduced before the
+    scan; the gradients of the per-channel parameters, and of Bc and Cc,
+    come back ``Partial`` over the axes they were replicated on. Decode
+    steps the caches' shards in place; prefill writes them, the state
+    after the last prompt token."""
+    mesh = xz.device_mesh
+    dI, N, dC, R = _dims(cfg)
+    (xc, z, *tail), pl = sharded_conv(params, xz, cache, mode, dC)
+    inner = [d for d, p in enumerate(xc.placements) if p == Shard(2)]
+    act = pl(inner=Shard(2), batch=Shard(0))              # (B, T, dI)
+    state = pl(inner=Shard(1), batch=Shard(0))            # (B, dI, N)
     x_dbl = (xc @ params["x_proj"]).redistribute(
         mesh, pl(inner=Replicate(), batch=Shard(0))).float()
 
@@ -260,7 +282,8 @@ def _sharded(params, xz: DTensor, cfg: ModelConfig, cache, mode: str,
         out_placements=act if mode == "decode" else (act, state),
         in_placements=pls,
         in_grad_placements=(act, act, pl(inner=Partial(), batch=Shard(0)),
-                            *(param_grad(params[n]) for n in names),
+                            *(_param_grad(pl, inner, params[n])
+                              for n in names),
                             *pls[7:]),
         device_mesh=mesh)(*ssm_in, *ssm_cache)
     y = out if mode == "decode" else out[0]

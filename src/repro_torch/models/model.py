@@ -275,8 +275,11 @@ class Model(nn.Module):
         raise ValueError(f"unknown remat policy {cfg.remat!r}")
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
-        """(B, E) hidden -> (B, n_codebooks, Vp) f32 logits, pad masked."""
-        logits = (h @ self.lm_head).float()
+        """(B, E) hidden -> (B, n_codebooks, Vp) f32 logits, pad masked.
+        On a mesh whose model axis splits the codebooks' columns inside a
+        codebook (more ranks than codebooks), they are gathered first."""
+        logits = attention._whole_heads((h @ self.lm_head).float(),
+                                        self.cfg.n_codebooks, dim=1)
         B = logits.shape[0]
         logits = logits.view(B, self.cfg.n_codebooks, self.cfg.padded_vocab_size)
         return mask_pad_logits(logits, self.cfg)

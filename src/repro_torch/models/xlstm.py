@@ -8,10 +8,21 @@ normalizer; m: the log stabilizer); decode is one step of the same
 recurrence. sLSTM is a true recurrence over time with exponential gating,
 per-head block-diagonal recurrent weights and the (h, c, n, m) stabilized
 state: its prefill is a loop of T steps, as the JAX package's
-``lax.scan``. The JAX package runs that scan inside a ``shard_map`` over
-the data axes when a mesh is set and marks the sequence boundaries with
-sharding constraints; on one device both are the plain scan, which is
-what the port runs.
+``lax.scan``.
+
+On a mesh (DTensor weights and caches) the port follows the reference's
+design: the sLSTM loop runs inside one ``local_map`` over the batch axes
+(the reference's ``shard_map``), its recurrent weights' gradient summed
+once at the boundary; the mLSTM's causal conv runs on each rank's
+``"inner"`` channels (``mamba.sharded_conv``), its ``wq``/``wk``/``wv``
+and gate projections are row-parallel over ``"inner"`` (the partial sums
+all-reduced), and its log-space gates and chunk loop run in one
+``local_map`` over the batch axes on replicated heads. Decode steps the
+states over ``"batch"`` and, where the heads' axes divide the heads, over
+``"heads"`` (each cell is per head; the reference's partitioner splits
+the step so), and the conv tail over ``"inner"``, in place. On a (1,1)
+mesh each path runs the plain path's helpers, so its bits are the plain
+path's.
 
 No Pallas kernel exists for either mixer (the JAX package leaves them to
 XLA in jnp), so the port runs them in plain PyTorch. Mixed-dtype products
@@ -30,9 +41,13 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import DTensor, Partial, Shard
+from torch.distributed.tensor.experimental import local_map
+
 from ..configs.base import ModelConfig
+from ..sharding.rules import constrain
 from .common import ParamSpec, activation, rms_norm
-from .mamba import _causal_conv
+from .mamba import _conv, _tail, sharded_conv
 
 State = Tuple[torch.Tensor, ...]
 
@@ -108,38 +123,17 @@ def _mlstm_chunk(q, k, v, ilog, flog, state: State
     return h, (C_next, n_next, m_next)
 
 
-def mlstm_apply(
-    params,
-    x: torch.Tensor,                                 # (B, T, E)
-    cfg: ModelConfig,
-    cache: Optional[Dict[str, torch.Tensor]],
-    mode: str = "prefill",                           # train | prefill | decode
-) -> torch.Tensor:
-    """Returns the mixer output (B, T, E). Prefill writes the state after
-    the last prompt token and the conv tail into ``cache``; decode (T = 1)
-    steps them, in place."""
-    B, T, E = x.shape
-    dI, H, Dh = _mlstm_dims(cfg)
-    dC = cfg.xlstm.conv_kernel
-    xm, z = (x @ params["up_proj"]).chunk(2, dim=-1)
-    if mode == "decode":
-        if cache is None or T != 1:
-            raise ValueError("decode takes one token and a cache")
-        conv_tail = cache["conv"]
-        xc = _causal_conv(xm, params["conv_w"], params["conv_b"],
-                          tail=conv_tail)
-    elif mode in ("train", "prefill"):
-        xc = _causal_conv(xm, params["conv_w"], params["conv_b"])
-    else:
-        raise ValueError(f"unknown mode {mode!r}")
-    xc = F.silu(xc)
-    q = (xc @ params["wq"]).view(B, T, H, Dh)
-    k = (xc @ params["wk"]).view(B, T, H, Dh)
-    v = (xm @ params["wv"]).view(B, T, H, Dh)
-    gates = xc.float() @ params["w_if"] + params["b_if"]
+def _mlstm_mix(q, k, v, gates, cache, mode: str, chunk: int
+               ) -> Tuple[torch.Tensor, Optional[State]]:
+    """(h (B, T, H, D) f32, the state after the last token, or None in
+    decode) of q, k, v (B, T, H, D) and the gates' (B, T, 2H) f32
+    preactivations: the log-space gates, then decode's one step of the
+    recurrence against the cache's (C, n, m), stepped in place, or the
+    chunk loop of train and prefill. Every op is per batch row: on a mesh
+    each rank runs it on its own rows."""
+    B, T, H, Dh = q.shape
     ilog, fpre = gates.view(B, T, 2, H).unbind(dim=2)   # (B, T, H) each
     flog = F.logsigmoid(fpre)
-
     if mode == "decode":
         C, n, m = cache["C"], cache["n"], cache["m"]
         m_next = torch.maximum(flog[:, 0] + m, ilog[:, 0])
@@ -153,40 +147,137 @@ def mlstm_apply(
         num = torch.einsum("bhd,bhde->bhe", qf, C_next)
         denom = torch.maximum(torch.einsum("bhd,bhd->bh", qf, n_next).abs(),
                               torch.exp(-m_next))
-        h = (num / denom[..., None])[:, None]        # (B, 1, H, Dh)
-        cache["conv"].copy_(torch.cat([conv_tail[:, 1:], xm], dim=1))
         cache["C"].copy_(C_next)
         cache["n"].copy_(n_next)
         cache["m"].copy_(m_next)
-    else:
-        chunk = min(cfg.xlstm.chunk, T)
-        pad = -T % chunk
-        # pad steps add nothing (input gate -1e30) and forget nothing
-        # (log forget gate 0), so the state after them is the last token's
-        qp, kp, vp = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (q, k, v))
-        ip = F.pad(ilog, (0, 0, 0, pad), value=-1e30)
-        fp = F.pad(flog, (0, 0, 0, pad))
-        state = (torch.zeros((B, H, Dh, Dh), dtype=torch.float32,
-                             device=x.device),
-                 torch.zeros((B, H, Dh), dtype=torch.float32, device=x.device),
-                 torch.full((B, H), -1e30, dtype=torch.float32,
-                            device=x.device))
-        hs = []
-        for c0 in range(0, T + pad, chunk):
-            sl = slice(c0, c0 + chunk)
-            h_c, state = _mlstm_chunk(qp[:, sl], kp[:, sl], vp[:, sl],
-                                      ip[:, sl], fp[:, sl], state)
-            hs.append(h_c)
-        h = torch.cat(hs, dim=1)[:, :T]
-        if mode == "prefill" and cache is not None:
-            for name, st in zip(("C", "n", "m"), state):
-                cache[name].copy_(st)
-            cache["conv"].copy_(F.pad(xm, (0, 0, dC - 1, 0))[:, -(dC - 1):])
+        return (num / denom[..., None])[:, None], None   # (B, 1, H, Dh)
+    chunk = min(chunk, T)
+    pad = -T % chunk
+    # pad steps add nothing (input gate -1e30) and forget nothing (log
+    # forget gate 0), so the state after them is the last token's
+    qp, kp, vp = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (q, k, v))
+    ip = F.pad(ilog, (0, 0, 0, pad), value=-1e30)
+    fp = F.pad(flog, (0, 0, 0, pad))
+    f32 = dict(dtype=torch.float32, device=q.device)
+    state = (torch.zeros((B, H, Dh, Dh), **f32),
+             torch.zeros((B, H, Dh), **f32),
+             torch.full((B, H), -1e30, **f32))
+    hs = []
+    for c0 in range(0, T + pad, chunk):
+        sl = slice(c0, c0 + chunk)
+        h_c, state = _mlstm_chunk(qp[:, sl], kp[:, sl], vp[:, sl],
+                                  ip[:, sl], fp[:, sl], state)
+        hs.append(h_c)
+    return torch.cat(hs, dim=1)[:, :T], state
 
-    hflat = h.to(x.dtype).reshape(B, T, dI)
-    hflat = rms_norm(hflat, params["out_norm"], cfg.norm_eps)
+
+def _mlstm_out(params, h: torch.Tensor, xc: torch.Tensor, z: torch.Tensor,
+               cfg: ModelConfig, dtype: torch.dtype) -> torch.Tensor:
+    """The mixer output (B, T, E) of the cell's h (B, T, H, D): normed, the
+    skip of the conv output added, gated by SiLU(z), projected down. On a
+    mesh the normed h goes to the channels' axes (a local slice of the
+    replicated heads), so that the rest runs on each rank's channels and
+    the down projection contracts them."""
+    B, T = h.shape[:2]
+    hflat = rms_norm(h.to(dtype).reshape(B, T, -1), params["out_norm"],
+                     cfg.norm_eps)
+    hflat = constrain(hflat, ("batch", None, "inner"))
     y = hflat + params["skip"].to(xc.dtype) * xc
     return (y * F.silu(z)) @ params["down_proj"]
+
+
+def mlstm_apply(
+    params,
+    x: torch.Tensor,                                 # (B, T, E)
+    cfg: ModelConfig,
+    cache: Optional[Dict[str, torch.Tensor]],
+    mode: str = "prefill",                           # train | prefill | decode
+) -> torch.Tensor:
+    """Returns the mixer output (B, T, E). Prefill writes the state after
+    the last prompt token and the conv tail into ``cache``; decode (T = 1)
+    steps them, in place. A DTensor ``x`` runs on the mesh
+    (:func:`_mlstm_sharded`)."""
+    B, T, E = x.shape
+    dI, H, Dh = _mlstm_dims(cfg)
+    if mode == "decode" and (cache is None or T != 1):
+        raise ValueError("decode takes one token and a cache")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
+    up = x @ params["up_proj"]
+    if isinstance(up, DTensor):
+        return _mlstm_sharded(params, up, cfg, cache, mode, x.dtype)
+    xm, z = up.chunk(2, dim=-1)
+    xc = _conv(params, xm, cache, mode)             # decode steps the tail
+    q = (xc @ params["wq"]).view(B, T, H, Dh)
+    k = (xc @ params["wk"]).view(B, T, H, Dh)
+    v = (xm @ params["wv"]).view(B, T, H, Dh)
+    gates = xc.float() @ params["w_if"] + params["b_if"]
+    h, state = _mlstm_mix(q, k, v, gates, cache, mode, cfg.xlstm.chunk)
+    if mode == "prefill" and cache is not None:
+        for name, st in zip(("C", "n", "m"), state):
+            cache[name].copy_(st)
+        cache["conv"].copy_(_tail(xm, cfg.xlstm.conv_kernel))
+    return _mlstm_out(params, h, xc, z, cfg, x.dtype)
+
+
+def _mlstm_sharded(params, up: DTensor, cfg: ModelConfig, cache, mode: str,
+                   dtype: torch.dtype) -> torch.Tensor:
+    """The mLSTM of DTensor ``up`` (B, T, 2dI), the up projection, on a
+    mesh, the reference's design: the causal conv on each rank's
+    ``"inner"`` channels (``mamba.sharded_conv``); ``wq``, ``wk``, ``wv``
+    and ``w_if`` row-parallel over ``"inner"``, their partial sums
+    all-reduced, so that q, k, v and the gates are whole in the heads and
+    split over ``"batch"`` alone; the log-space gates and the chunk loop
+    in one ``local_map`` over the batch axes, on each rank's rows. Decode
+    steps the cache's C, n and m on each rank's heads as well (``"heads"``,
+    where its axes divide them: a slice of the replicated q, k, v and
+    state, the new state gathered back), as the reference's partitioner
+    splits the step."""
+    mesh = up.device_mesh
+    B, T, _ = up.shape
+    dI, H, Dh = _mlstm_dims(cfg)
+    (xc, z, xm, *tail), _pl = sharded_conv(params, up, cache, mode,
+                                           cfg.xlstm.conv_kernel,
+                                           keep_input=True)
+    heads = "heads" if mode == "decode" else None
+
+    def rows(a, w):
+        return constrain(a @ w, ("batch", None, None))
+
+    q, k, v = (constrain(rows(a, params[w]).view(B, T, H, Dh),
+                         ("batch", None, heads, None))
+               for a, w in ((xc, "wq"), (xc, "wk"), (xm, "wv")))
+    gates = constrain((rows(xc.float(), params["w_if"]) + params["b_if"]
+                       ).view(B, T, 2, H), ("batch", None, None, heads))
+    names = ("C", "n", "m")
+    state = {}
+    if mode == "decode":
+        state = {n: constrain(cache[n], ("batch", heads) + (None,) * (
+            cache[n].dim() - 2)) for n in names}
+    out_pl = list(q.placements)
+
+    def cell(q, k, v, gates, *st):
+        h, new = _mlstm_mix(q, k, v, gates, dict(zip(names, st)), mode,
+                            cfg.xlstm.chunk)
+        return h if new is None or mode == "train" else (h, *new)
+
+    ins = (q, k, v, gates, *state.values())
+    n_out = 4 if mode == "prefill" else 1
+    out = local_map(cell, out_placements=(out_pl,) * n_out if n_out > 1
+                    else out_pl,
+                    in_placements=tuple(t.placements for t in ins),
+                    device_mesh=mesh)(*ins)
+    h = out[0] if n_out > 1 else out
+    if mode == "decode":
+        for name in names:
+            cache[name].copy_(state[name].redistribute(
+                mesh, cache[name].placements))
+    if mode == "prefill" and cache is not None:
+        for name, st in zip(names, out[1:]):
+            cache[name].copy_(st.redistribute(mesh, cache[name].placements))
+        cache["conv"].copy_(tail[0].redistribute(mesh,
+                                                 cache["conv"].placements))
+    return _mlstm_out(params, h, xc, z, cfg, dtype)
 
 
 def mlstm_alloc_cache(cfg: ModelConfig, batch: int, device: torch.device
@@ -245,6 +336,18 @@ def _slstm_cell(state: State, wx: torch.Tensor, r_gates: torch.Tensor,
     return ot * c_new / n_new, c_new, n_new, m_new
 
 
+def _slstm_loop(wx: torch.Tensor, r_gates: torch.Tensor, state: State,
+                H: int, Dh: int) -> Tuple[torch.Tensor, State]:
+    """(hs (B, T, H, Dh), the state after the last step): the cell stepped
+    over the T positions of ``wx`` (B, T, 4E) from ``state``, one step a
+    position, as the JAX package's ``lax.scan``."""
+    steps = []
+    for t in range(wx.shape[1]):
+        state = _slstm_cell(state, wx[:, t], r_gates, H, Dh)
+        steps.append(state[0])
+    return torch.stack(steps, dim=1), state
+
+
 def slstm_apply(
     params,
     x: torch.Tensor,                                 # (B, T, E)
@@ -255,39 +358,88 @@ def slstm_apply(
     """The sLSTM block (the cell, a group norm and its own MLP, with the
     MLP's residual); returns (B, T, E). Prefill steps the cell over the
     prompt, one step a position, and writes the final state into
-    ``cache``; decode (T = 1) steps it once, in place."""
+    ``cache``; decode (T = 1) steps it once from the cache's state, in
+    place. On a mesh the loop runs in one ``local_map`` over the batch
+    axes (:func:`_slstm_sharded`)."""
     B, T, E = x.shape
     H = cfg.n_heads
     Dh = E // H
     act = activation(cfg.act)
+    if mode == "decode" and (cache is None or T != 1):
+        raise ValueError("decode takes one token and a cache")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown mode {mode!r}")
     wx = (x @ params["w_gates"] + params["b_gates"].to(x.dtype)).float()
     r_gates = params["r_gates"].float()
-    if mode == "decode":
-        if cache is None or T != 1:
-            raise ValueError("decode takes one token and a cache")
-        state = _slstm_cell((cache["h"], cache["c"], cache["n"], cache["m"]),
-                            wx[:, 0], r_gates, H, Dh)
-        hs = state[0][:, None]                       # (B, 1, H, Dh)
-        for name, st in zip(("h", "c", "n", "m"), state):
-            cache[name].copy_(st)
-    elif mode in ("train", "prefill"):
-        zero = torch.zeros((B, H, Dh), dtype=torch.float32, device=x.device)
-        state = (zero, zero, torch.ones_like(zero), zero)
-        steps = []
-        for t in range(T):
-            state = _slstm_cell(state, wx[:, t], r_gates, H, Dh)
-            steps.append(state[0])
-        hs = torch.stack(steps, dim=1)               # (B, T, H, Dh)
-        if mode == "prefill" and cache is not None:
-            for name, st in zip(("h", "c", "n", "m"), state):
-                cache[name].copy_(st)
+    names = ("h", "c", "n", "m")
+    if isinstance(wx, DTensor):
+        hs, state = _slstm_sharded(wx, r_gates, cache, mode, H, Dh)
     else:
-        raise ValueError(f"unknown mode {mode!r}")
+        if mode == "decode":
+            state = tuple(cache[n] for n in names)
+        else:
+            zero = torch.zeros((B, H, Dh), dtype=torch.float32,
+                               device=x.device)
+            state = (zero, zero, torch.ones_like(zero), zero)
+        hs, state = _slstm_loop(wx, r_gates, state, H, Dh)
+    if mode != "train" and cache is not None:
+        for name, st in zip(names, state):
+            cache[name].copy_(st)
 
     y = hs.reshape(B, T, E).to(x.dtype)
     y = rms_norm(y, params["group_norm"], cfg.norm_eps)
     hmlp = act(y @ params["mlp_wg"]) * (y @ params["mlp_wi"])
     return y + hmlp @ params["mlp_wo"]
+
+
+def _slstm_sharded(wx: DTensor, r_gates: DTensor, cache, mode: str,
+                   H: int, Dh: int) -> Tuple[torch.Tensor, Optional[State]]:
+    """The sLSTM loop of DTensor ``wx`` (B, T, 4E) on a mesh, the
+    reference's ``shard_map`` over the batch axes: ``wx`` goes to
+    ("batch", None, None), and the whole loop runs in one ``local_map`` on
+    each rank's rows. ``r_gates`` enters replicated, its gradient
+    ``Partial`` over the batch axes: each rank accumulates its cotangent
+    over all T steps and one all-reduce sums them at the boundary (the
+    reference's ``pvary``), never one a step. Decode steps the cache's
+    state on each rank's heads as well (``"heads"``, where its axes divide
+    them, as the cache's ``h`` is placed and as the reference's
+    partitioner splits the step: the cell is per head). Returns (hs (B, T,
+    H, Dh), the state after the last step on the cache's placements, or
+    None in train)."""
+    mesh = wx.device_mesh
+    B, T, _ = wx.shape
+    heads = "heads" if mode == "decode" else None
+    wx = constrain(constrain(wx, ("batch", None, None)).view(B, T, H, 4 * Dh),
+                   ("batch", None, heads, None))
+    r_gates = constrain(r_gates, (heads, None, None))
+    grad_r = [Partial() if p == Shard(0) else q
+              for p, q in zip(wx.placements, r_gates.placements)]
+    names = ("h", "c", "n", "m")
+    state = (tuple(constrain(cache[n], ("batch", heads, None)) for n in names)
+             if mode == "decode" else ())
+    st_pl = [Shard(1) if p == Shard(2) else p for p in wx.placements]
+
+    def loop(wx, r_gates, *st):
+        Bl, Hl = wx.shape[0], r_gates.shape[0]
+        if not st:
+            zero = torch.zeros((Bl, Hl, Dh), dtype=torch.float32,
+                               device=wx.device)
+            st = (zero, zero, torch.ones_like(zero), zero)
+        hs, st = _slstm_loop(wx.reshape(Bl, T, -1), r_gates, st, Hl, Dh)
+        return hs if mode == "train" else (hs, *st)
+
+    n_out = 1 if mode == "train" else 5
+    ins = (wx, r_gates, *state)
+    hs_pl = list(wx.placements)
+    out = local_map(
+        loop, out_placements=hs_pl if n_out == 1 else (hs_pl,) + (st_pl,) * 4,
+        in_placements=tuple(t.placements for t in ins),
+        in_grad_placements=(hs_pl, grad_r, *(st_pl,) * len(state)),
+        device_mesh=mesh)(*ins)
+    if n_out == 1:
+        return out, None
+    return out[0], tuple(st.redistribute(mesh, cache[n].placements)
+                         for n, st in zip(names, out[1:]))
 
 
 def slstm_alloc_cache(cfg: ModelConfig, batch: int, device: torch.device

@@ -17,7 +17,8 @@ by about lr·sign(g), and a gradient near 0 may flip sign under another
 summation order. A checkpoint saved at (2,2) resumes on 2 ranks at (1,2)
 through ``reshard_state`` and continues the unbroken run's losses.
 On one rank, a (1,1) mesh gives jamba's plain step bit for bit, through
-either MoE path.
+either MoE path, and so it does the vlm's, the audio model's and
+xLSTM's.
 """
 import dataclasses
 import os
@@ -161,30 +162,6 @@ def test_the_checkpoint_holds_unsharded_arrays_written_once(sharded):
     assert not [n for n in os.listdir(sharded["ckpt"]) if ".tmp-" in n]
 
 
-@pytest.mark.parametrize("arch", ["xlstm-125m", "llama-3.2-vision-11b",
-                                  "musicgen-large"])
-def test_families_without_a_sharded_path_raise(arch):
-    cfg = torch_archs.get_config(arch, "smoke")
-    with pytest.raises(ValueError, match="ROADMAP Queue 1, item 9"):
-        train.check_shardable(cfg)
-
-
-@pytest.mark.parametrize("arch", ["yi-6b", "qwen3-32b", "minicpm-2b",
-                                  "gemma3-12b"])
-def test_dense_families_are_shardable(arch):
-    train.check_shardable(torch_archs.get_config(arch, "smoke"))
-
-
-@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "deepseek-moe-16b"])
-def test_moe_families_are_shardable(arch):
-    train.check_shardable(torch_archs.get_config(arch, "smoke"))
-
-
-@pytest.mark.parametrize("preset", ["smoke", "full"])
-def test_the_hybrid_family_is_shardable(preset):
-    train.check_shardable(torch_archs.get_config("jamba-v0.1-52b", preset))
-
-
 @pytest.fixture(scope="module")
 def one_rank(tmp_path_factory):
     return run_ranks(one_rank_bits, 1, ONE_RANK,
@@ -193,17 +170,24 @@ def one_rank(tmp_path_factory):
 
 
 # jamba (smoke, f32, B 4, T 64) at its expert width (the experts gathered)
-# and at 256 (the tokens moved to the experts)
+# and at 256 (the tokens moved to the experts); the vlm (every gate at 0.5),
+# the audio model and xLSTM
 ONE_RANK = {"jamba": ("jamba-v0.1-52b", None),
-            "jamba-tokens": ("jamba-v0.1-52b", 256)}
+            "jamba-tokens": ("jamba-v0.1-52b", 256),
+            "vlm": ("llama-3.2-vision-11b", None, 0.5),
+            "audio": ("musicgen-large", None),
+            "xlstm": ("xlstm-125m", None)}
 
 
 @pytest.mark.parametrize("name", list(ONE_RANK))
 def test_a_one_rank_mesh_gives_the_plain_steps_bits(one_rank, name):
     """On a (1,1) mesh DTensor runs the plain step's local operations:
     jamba's mixer (the scan on its one rank's channels) and its MoE on
-    either path give the plain step's loss and first gradients bit for
-    bit, as ``chip_smoke.py`` phase 31c requires on the card."""
+    either path, the vlm's cross-attention through the flash wrapper's
+    ``local_map``, the audio model's frames and xLSTM's loops in their
+    ``local_map`` blocks give the plain step's loss and first gradients
+    bit for bit, as ``chip_smoke.py`` phases 31c-31f require on the
+    card."""
     got = one_rank[name]
     assert got["tokens_moved"] == (ONE_RANK[name][1] is not None)
     assert got["loss"][0] == got["loss"][1]

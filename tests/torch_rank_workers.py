@@ -59,20 +59,47 @@ def run_ranks(fn: Callable, world: int, *args: Any, store_dir: str,
 
 
 
+def set_gates(model, gate):
+    """Every cross-attention gate of ``model`` to ``gate`` (None leaves
+    them at their init of 0, where tanh(0) = 0 zeroes the sublayer);
+    returns the model."""
+    if gate is not None:
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                if n.endswith(".gate"):
+                    p.fill_(gate)
+    return model
+
+
+def split_gate(changes):
+    """(the ``"cross_gate"`` of config ``changes``, the other changes)."""
+    changes = dict(changes)
+    return changes.pop("cross_gate", None), changes
+
+
 def train_runs(rank, world, runs):
     """Each run of ``runs`` ((name, config changes, argv)) through
     ``launch.train.main`` in f32, with the first step's gradients
-    gathered (``full_tensor``) as the optimizer receives them. Returns
-    {name: (losses, grads)} on rank 0 and None elsewhere. Works with no
-    process group too (one process)."""
+    gathered (``full_tensor``) as the optimizer receives them; a
+    ``"cross_gate"`` among the changes sets every cross-attention gate of
+    the seed-0 weights. Returns {name: (losses, grads)} on rank 0 and None
+    elsewhere. Works with no process group too (one process)."""
     from repro_torch.launch import train
     from repro_torch.optim import adamw
     from repro_torch.sharding.rules import unshard
 
     get_config, apply_updates = train.get_config, adamw.apply_updates
+    model_cls = train.Model
     out = {}
     try:
         for name, changes, argv in runs:
+            gate, changes = split_gate(changes)
+
+            class Gated(model_cls):
+                def init_weights(self, seed):
+                    return set_gates(super().init_weights(seed), gate)
+
+            train.Model = Gated
             grads = {}
 
             def recording(params, g, state, cfg):
@@ -88,6 +115,7 @@ def train_runs(rank, world, runs):
             out[name] = (losses, grads)
     finally:
         train.get_config, adamw.apply_updates = get_config, apply_updates
+        train.Model = model_cls
     return out if rank == 0 else None
 
 
@@ -106,11 +134,16 @@ def compressed_psum_rank(rank, world, grads_by_rank, errors_by_rank):
 def serve_runs(rank, world, runs):
     """Greedy serving of each run of ``runs`` ((name, arch, config changes,
     --model-parallel, batch, prompt length, new tokens)) in f32 from seed-0
-    weights and a seeded prompt: prefill, then decode. With a process
-    group the weights and caches are DTensors on a (data, model) mesh,
-    prefill under the prefill rules and decode under the decode rules;
-    without one the model runs plain. Returns {name: (tokens (B, gen),
-    [the logits of each step] as numpy)} on rank 0, None elsewhere."""
+    weights and a seeded prompt: prefill, then decode. A ``frames`` model
+    takes seeded frames (the prompt's, then one a decode step) where the
+    others take tokens; a vlm model's prefill takes seeded encoder
+    embeddings beside its prompt (a ``"cross_gate"`` among the changes
+    sets its gates). With a process group the weights and caches are
+    DTensors on a (data, model) mesh, prefill under the prefill rules and
+    decode under the decode rules; without one the model runs plain.
+    Returns {name: (tokens (B, gen), [the logits of each step] as numpy,
+    the placements of the first cross-attention cache's keys as text, or
+    None)} on rank 0, None elsewhere."""
     import numpy as np
 
     from repro_torch.configs.archs import get_config
@@ -124,12 +157,23 @@ def serve_runs(rank, world, runs):
     cpu = torch.device("cpu")
     out = {}
     for name, arch, changes, mp, B, P, G in runs:
+        gate, changes = split_gate(changes)
         cfg = dataclasses.replace(get_config(arch, "smoke"), dtype="float32",
                                   **changes)
-        model = Model(cfg, cpu).init_weights(0)
+        model = set_gates(Model(cfg, cpu).init_weights(0), gate)
         caches = model.alloc_cache(B, P + G)
-        prompt = torch.from_numpy(np.random.default_rng(1).integers(
-            0, cfg.vocab_size, (B, P)).astype(np.int32))
+        rng = np.random.default_rng(1)
+        frames = cfg.input_mode == "frames"
+        if frames:
+            prompt = torch.from_numpy(rng.standard_normal(
+                (B, P + G, cfg.d_model)).astype(np.float32))
+        else:
+            prompt = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (B, P)).astype(np.int32))
+        extra = {}
+        if cfg.encoder_len:
+            extra["encoder_embeddings"] = torch.from_numpy(rng.standard_normal(
+                (B, cfg.encoder_len, cfg.d_model)).astype(np.float32))
         ctx = {}
         if world > 1:
             mesh = make_mesh_for(world, mp)
@@ -143,32 +187,39 @@ def serve_runs(rank, world, runs):
             return (R.sharding_context(*ctx[kind]) if ctx
                     else contextlib.nullcontext())
 
-        def batch_of(tokens, kind):
-            b = {"tokens": tokens}
+        def batch_of(inputs, kind, **more):
+            b = {"frames" if frames else "tokens": inputs, **more}
             return place_batch(b, *ctx[kind]) if ctx else b
 
         with torch.no_grad():
             with under("prefill"):
                 logits = make_prefill_step(cfg)(
-                    model, batch_of(prompt, "prefill"), caches)
+                    model, batch_of(prompt[:, :P], "prefill", **extra),
+                    caches)
             step = make_decode_step(cfg)
             all_logits = [R.unshard(logits).numpy()]
             tok = R.unshard(logits).argmax(-1).to(torch.int32)   # (B, ncb)
             toks = [tok]
             for i in range(G - 1):
+                nxt_in = prompt[:, P + i:P + i + 1] if frames else tok[:, :1]
                 with under("decode"):
                     logits, nxt = step(model, caches,
-                                       batch_of(tok[:, :1], "decode"), P + i)
+                                       batch_of(nxt_in, "decode"), P + i)
                 all_logits.append(R.unshard(logits).numpy())
                 tok = R.unshard(nxt)
                 toks.append(tok)
-        out[name] = (torch.cat(toks, 1).numpy(), all_logits)
+        cross = next((c["cross_kv"]["k"] for c in caches if "cross_kv" in c),
+                     None)
+        placed = getattr(cross, "placements", None)
+        out[name] = (torch.cat(toks, 1).numpy(), all_logits,
+                     None if placed is None else str(placed))
     return out if rank == 0 else None
 
 
 def counted_train_steps(rank, world, runs):
     """One f32 train step of each run ((name, config, --model-parallel,
-    batch, seq)) on a (data, model) mesh from seed-0 weights and the
+    batch, seq[, cross-attention gate])) on a (data, model) mesh from
+    seed-0 weights and the
     launcher's first batch (int32 tokens and labels, as the dry run's
     specs), counted by ``count_cost`` and by ``CommDebugMode``. Returns {name: {"flops", "by_shape",
     "scan": {"fwd", "bwd": the scan kernels' calls}, "collectives":
@@ -191,12 +242,14 @@ def counted_train_steps(rank, world, runs):
              ("all_to_all", "all-to-all"), ("alltoall", "all-to-all"),
              ("broadcast", "collective-broadcast"))
     out = {}
-    for name, cfg, mp, B, T in runs:
+    for name, cfg, mp, B, T, *gate in runs:
         mesh = make_mesh_for(world, mp)
         rules = R.make_rules(mesh)
-        model = place_model(Model(cfg, torch.device("cpu"), trainable=True)
-                            .init_weights(0), mesh, rules)
-        batch = {k: torch.from_numpy(v.astype("int32")) for k, v in
+        model = place_model(set_gates(Model(
+            cfg, torch.device("cpu"), trainable=True).init_weights(0),
+            *gate or (None,)), mesh, rules)
+        batch = {k: torch.from_numpy(v.astype(
+            "int32" if v.dtype.kind in "iu" else "float32")) for k, v in
                  SyntheticTokens(cfg, DataConfig(batch=B, seq_len=T))
                  .batch_at(0).items()}
         batch = place_batch(batch, mesh, rules)
@@ -223,7 +276,8 @@ def counted_train_steps(rank, world, runs):
 
 def one_rank_bits(rank, world, runs):
     """One f32 train step of each run ({name: (arch, expert width or
-    None)}; B 4, T 64, seed-0 weights, the launcher's first batch) plain,
+    None[, cross-attention gate])}; B 4, T 64, seed-0 weights, the
+    launcher's first batch) plain,
     then on DTensors over a (1,1) mesh. Returns {name: {"loss": (plain,
     sharded), "differ": [the parameters whose gradients differ in any
     bit], "tokens_moved": whether the MoE took the path where the tokens
@@ -250,7 +304,7 @@ def one_rank_bits(rank, world, runs):
     out = {}
     moe._sharded_tokens = counted
     try:
-        for name, (arch, d_expert) in runs.items():
+        for name, (arch, d_expert, *gate) in runs.items():
             cfg = dataclasses.replace(get_config(arch, "smoke"),
                                       dtype="float32")
             if d_expert is not None:
@@ -261,8 +315,9 @@ def one_rank_bits(rank, world, runs):
             losses, grads = [], []
             calls.clear()
             for sharded in (False, True):
-                model = Model(cfg, torch.device("cpu"),
-                              trainable=True).init_weights(0)
+                model = set_gates(Model(cfg, torch.device("cpu"),
+                                        trainable=True).init_weights(0),
+                                  *gate or (None,))
                 b = batch
                 ctx = contextlib.nullcontext()
                 if sharded:
@@ -282,3 +337,10 @@ def one_rank_bits(rank, world, runs):
     finally:
         moe._sharded_tokens = tokens
     return out
+
+
+def family_runs(rank, world, trained, served, counted):
+    """:func:`train_runs` of ``trained``, :func:`serve_runs` of ``served``
+    and :func:`counted_train_steps` of ``counted``, in one spawn."""
+    return (train_runs(rank, world, trained), serve_runs(rank, world, served),
+            counted_train_steps(rank, world, counted))
