@@ -1,0 +1,116 @@
+"""The references against the port at smoke size on the CPU: serving
+logits, the experts' capacity and drops, the selective scan, and a
+training step's loss and gradients."""
+from __future__ import annotations
+
+import dataclasses
+
+import pytest
+import torch
+
+from chipbench import cells, traffic, weights
+from chipbench.reference import adamw as ref_adamw
+from chipbench.reference import dense, hybrid
+
+CONFIGS = {"yi-6b": "yi-6b.json", "jamba": "jamba-v0.1-52b.l16.json"}
+
+
+def _dims(name: str, **over) -> dict:
+    cfg = cells.load_json(cells.HERE / "configs" / CONFIGS[name])
+    return dict(cells.dims(cfg, smoke=True), **over)
+
+
+def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.parametrize("name,ref", [("yi-6b", dense), ("jamba", hybrid)])
+def test_serving_logits_match_the_reference(name, ref):
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import Model
+
+    d = _dims(name)
+    cfg = cells.port_config(d, smoke=True)
+    model = Model(cfg, torch.device("cpu"))
+    weights.fill(model, d, seed=11)
+    B, P, G = 2, 12, 4
+    prompts = traffic.prompts(11, 0, B, P, d["vocab_size"], torch.device("cpu"))
+    out, stats = generate(model, prompts, G)
+    w = weights.Weights(d, 11, torch.device("cpu"), torch.bfloat16)
+    seq = torch.cat([prompts, out[:, :-1].long()], dim=1)
+    with torch.no_grad():
+        lg = ref.serve_logits(d, w, seq, P - 1, P)
+    V = d["vocab_size"]
+    # bf16 activations against f32: a few parts in a hundred of the range
+    assert _rel(stats["prefill_logits"][:, 0, :V], lg[:, 0]) < 0.03
+    assert _rel(stats["decode_logits"][:, 0, :V], lg[:, -1]) < 0.03
+
+
+def test_experts_drop_past_capacity_as_the_port_does():
+    from repro_torch.models import moe
+
+    d = _dims("jamba", token_group=16)
+    cfg = dataclasses.replace(cells.port_config(_dims("jamba"), smoke=True),
+                              dtype="float32")
+    E, Ne, F = d["d_model"], d["padded_experts"], d["d_expert"]
+    g = torch.Generator().manual_seed(0)
+    router = torch.randn(E, Ne, generator=g) * 0.02
+    router[:, 0] += 0.5          # most tokens want expert 0: it drops some
+    params = {"router": router,
+              "wg": torch.randn(Ne, E, F, generator=g) * 0.1,
+              "wi": torch.randn(Ne, E, F, generator=g) * 0.1,
+              "wo": torch.randn(Ne, F, E, generator=g) * 0.1}
+    x = torch.randn(2, 20, E, generator=g)
+    x[..., :8] += 1.0
+    want, aux = moe.moe_apply(params, x, cfg, token_group=16)
+    assert float(aux["moe_dropped_frac"]) > 0
+    names = {"layers.0.ffn." + k: v for k, v in params.items()}
+    got = hybrid.moe_layer(d, names.__getitem__, "layers.0.", x, 20)
+    assert torch.allclose(got, want, atol=1e-5, rtol=1e-4)
+
+
+def test_scan_matches_the_plain_scan():
+    from repro_torch.kernels.mamba_scan.ref import selective_scan_ref
+
+    g = torch.Generator().manual_seed(1)
+    B, T, dI, N = 2, 37, 6, 4
+    x = torch.randn(B, T, dI, generator=g)
+    dt = torch.rand(B, T, dI, generator=g) * 0.2
+    A = -torch.rand(dI, N, generator=g) * 3
+    Bc, Cc = torch.randn(B, T, N, generator=g), torch.randn(B, T, N, generator=g)
+    D = torch.randn(dI, generator=g)
+    want, _ = selective_scan_ref(x, dt, A, Bc, Cc, D)
+    assert torch.allclose(hybrid.scan(x, dt, A, Bc, Cc, D), want,
+                          atol=1e-5, rtol=1e-4)
+
+
+def test_a_training_step_matches_the_reference():
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train.step import make_train_step
+
+    d = _dims("yi-6b")
+    cfg = dataclasses.replace(cells.port_config(d, smoke=True),
+                              dtype="float32")
+    model = Model(cfg, torch.device("cpu"), trainable=True)
+    weights.fill(model, dict(d, dtype="float32"), seed=5)
+    opt = {"lr": 1e-3, "b1": 0.9, "b2": 0.95, "eps": 1e-8,
+           "weight_decay": 0.1, "clip_norm": 1.0, "warmup_steps": 1}
+    state = adamw.init_state(dict(model.named_parameters()))
+    step = make_train_step(cfg, adamw.AdamWConfig(
+        lr=opt["lr"], schedule="constant", warmup_steps=1))
+    data = traffic.SyntheticTokens(d["vocab_size"], 5, 2, 16)
+    b = {k: torch.from_numpy(v).long() for k, v in data.batch_at(0).items()}
+    loss = float(step(model, state, b)["loss"])
+
+    params = {n: weights.make(n, s, 5, torch.device("cpu"), torch.float32)
+              .requires_grad_(True) for n, s in weights.specs(d).items()}
+    ref_loss = dense.train_loss(d, params, b["tokens"], b["labels"])
+    ref_loss.backward()
+    ref_adamw.step(params, {"m": {}, "v": {}, "step": 0}, opt)
+    assert loss == pytest.approx(float(ref_loss.detach()), rel=1e-5)
+    # Adam's first step is lr·g/(|g| + eps): an element whose gradient is
+    # near eps moves by a share of lr on round-off; 1% of lr is the bar
+    for n, p in model.named_parameters():
+        assert torch.allclose(p.detach(), params[n].detach(),
+                              atol=0.01 * opt["lr"]), n
