@@ -12,7 +12,11 @@ inputs are refused, as the reference refuses them). Prefill attention
 runs the CUDA flash-attention kernel (windowed on gemma3's local
 layers), and a mamba layer's prefill the CUDA selective-scan kernel. On
 the card each decode step replays one captured CUDA graph, the
-counterpart of the reference's jitted decode over donated caches.
+counterpart of the reference's jitted decode over donated caches. A call
+is named stretch by stretch in regions: ``serve/alloc_cache``,
+``serve/capture`` (on the card), ``serve/prefill``,
+``serve/prefill_readback``, ``serve/decode_step`` and ``serve/finish``
+(``generate``).
 
 ``--telemetry`` serves live telemetry over HTTP/SSE while prefill and
 decode run: a :class:`~repro_torch.telemetry.TelemetryBridge` polls the
@@ -68,8 +72,21 @@ def generate(model: Model, prompts: torch.Tensor, gen: int,
     positions. On the card decode is one captured CUDA graph replayed at
     every position (:class:`~repro_torch.train.step.CapturedDecode`,
     captured before the prefill), unless ``captured=False`` asks for eager
-    decode; on the CPU decode runs eagerly. Prefill runs eagerly. Records
-    ``serve/prefill`` and ``serve/decode_step`` regions.
+    decode; on the CPU decode runs eagerly. Prefill runs eagerly.
+
+    Every stretch of a call is a region (:func:`repro_torch.core.regions.
+    annotate`: a collector event, and a ``record_function`` span while a
+    ``torch.profiler`` runs), in order: ``serve/alloc_cache`` (the
+    caches), ``serve/capture`` (building the captured decode step, on the
+    card only; its stretches are spans of their own, see
+    :class:`~repro_torch.train.step.CapturedDecode`), ``serve/prefill``,
+    ``serve/prefill_readback`` (the finiteness check, the logits copied
+    to the host, the launch counts, the first token),
+    ``serve/decode_step`` at every position (the step, its token and its
+    finiteness check) and ``serve/finish`` (the last synchronize, the
+    last logits copied to the host, the stats, and the captured graph's
+    release). A region reads the host's clock and adds no wait for the
+    card of its own.
 
     ``stats``: ``prefill_kernel_launches`` counts each kernel's launches in
     the prefill, by name, and ``prefill_launches_by_variant`` the
@@ -83,10 +100,12 @@ def generate(model: Model, prompts: torch.Tensor, gen: int,
     cfg, device = model.cfg, model.device
     B, P = prompts.shape
     on_card = device.type == "cuda"
-    caches = model.alloc_cache(B, P + gen)
+    with regions.annotate("serve/alloc_cache", category="api"):
+        caches = model.alloc_cache(B, P + gen)
     prefill = make_prefill_step(cfg)
     if captured and on_card:
-        decode = CapturedDecode(model, caches, B)
+        with regions.annotate("serve/capture", category="api"):
+            decode = CapturedDecode(model, caches, B)
     else:
         eager = make_decode_step(cfg)
 
@@ -99,14 +118,15 @@ def generate(model: Model, prompts: torch.Tensor, gen: int,
             logits = prefill(model, {"tokens": prompts}, caches)
             box["out"] = logits
             _sync(device)
-        finite = torch.isfinite(logits).all()
-        prefill_logits = logits.float().cpu()
-        prefill_launches = {name: n - launches0[name]
-                            for name, n in _launches().items()}
-        prefill_variants = {
-            k: n - variants0[k]
-            for k, n in flash_attention.launches_by_variant.items()}
-        token = logits[:, 0].argmax(dim=-1).to(torch.int32)[:, None]
+        with regions.annotate("serve/prefill_readback", category="api"):
+            finite = torch.isfinite(logits).all()
+            prefill_logits = logits.float().cpu()
+            prefill_launches = {name: n - launches0[name]
+                                for name, n in _launches().items()}
+            prefill_variants = {
+                k: n - variants0[k]
+                for k, n in flash_attention.launches_by_variant.items()}
+            token = logits[:, 0].argmax(dim=-1).to(torch.int32)[:, None]
         out_tokens = [token]
         marks = []
         t0 = time.perf_counter()
@@ -120,30 +140,37 @@ def generate(model: Model, prompts: torch.Tensor, gen: int,
                 out_tokens.append(token)
                 marks.append(_mark(device))
                 box["out"] = token
-            finite &= torch.isfinite(logits).all()
-        _sync(device)
-        dt = time.perf_counter() - t0
-        decode_logits = logits.float().cpu() if gen else None
-    step_ms = [_elapsed_ms(a, b) for a, b in zip(marks[::2], marks[1::2])]
-    prefill_ev = [e for e in global_collector().drain()
-                  if e.name == "serve/prefill"][-1]
-    stats = {
-        "device": str(device),
-        "prefill_ms": prefill_ev.duration / 1e6,
-        "decode_s": dt,
-        "decode_tok_s": B * gen / dt if gen else float("nan"),
-        "decode_step_ms": ({"min": min(step_ms), "mean": sum(step_ms) / gen,
-                            "max": max(step_ms)} if gen else None),
-        "decode_captured": captured and on_card,
-        "prefill_kernel_launches": prefill_launches,
-        "prefill_launches_by_variant": prefill_variants,
-        "logits_finite": bool(finite),
-        "prefill_logits": prefill_logits,
-        "decode_logits": decode_logits,
-        "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
-                              if on_card else None),
-    }
-    return torch.cat(out_tokens, dim=1), stats
+                finite &= torch.isfinite(logits).all()
+        with regions.annotate("serve/finish", category="api"):
+            _sync(device)
+            dt = time.perf_counter() - t0
+            decode_logits = logits.float().cpu() if gen else None
+            step_ms = [_elapsed_ms(a, b)
+                       for a, b in zip(marks[::2], marks[1::2])]
+            prefill_ev = [e for e in global_collector().drain()
+                          if e.name == "serve/prefill"][-1]
+            stats = {
+                "device": str(device),
+                "prefill_ms": prefill_ev.duration / 1e6,
+                "decode_s": dt,
+                "decode_tok_s": B * gen / dt if gen else float("nan"),
+                "decode_step_ms": ({"min": min(step_ms),
+                                    "mean": sum(step_ms) / gen,
+                                    "max": max(step_ms)} if gen else None),
+                "decode_captured": captured and on_card,
+                "prefill_kernel_launches": prefill_launches,
+                "prefill_launches_by_variant": prefill_variants,
+                "logits_finite": bool(finite),
+                "prefill_logits": prefill_logits,
+                "decode_logits": decode_logits,
+                "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
+                                      if on_card else None),
+            }
+            tokens = torch.cat(out_tokens, dim=1)
+            # release the captured graph inside this region: destroying
+            # it takes milliseconds
+            del decode
+    return tokens, stats
 
 
 def _mark(device: torch.device):

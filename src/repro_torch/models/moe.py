@@ -40,6 +40,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import ModelConfig
+from ..core.regions import profiler_span
 from ..sharding.rules import constrain, shard_block
 from .common import ParamSpec, activation
 
@@ -177,13 +178,18 @@ def _experts_groups(params, xg: torch.Tensor, r: Dict[str, torch.Tensor],
     slice of the expert index) only those experts run, on the expert
     weights' local block (its first expert is the slice's start), and y
     is their part of the sum over the k choices."""
-    act = activation(cfg.act)
     slot_tok = r["slot_tok"]
     if experts is not None:
         slot_tok = slot_tok[:, experts]
-    xe = _dispatch(xg, slot_tok)
+    ye = _expert_ffn(params, _dispatch(xg, slot_tok), cfg)
+    return _combine(ye, r, C, experts)
+
+
+def _expert_ffn(params, xe: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Every expert's gated FFN on its slots xe (ne, slots, E)."""
+    act = activation(cfg.act)
     h = act(torch.bmm(xe, params["wg"])) * torch.bmm(xe, params["wi"])
-    return _combine(torch.bmm(h, params["wo"]), r, C, experts)
+    return torch.bmm(h, params["wo"])
 
 
 def moe_apply(
@@ -194,7 +200,13 @@ def moe_apply(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Returns (y (B, T, E), aux): ``moe_load_balance``, ``moe_router_z``
     and ``moe_dropped_frac`` (each the mean over groups) and
-    ``moe_aux_loss``."""
+    ``moe_aux_loss``.
+
+    While a ``torch.profiler`` runs, the one-process path's phases are
+    ``record_function`` spans: ``moe/route``, ``moe/dispatch``,
+    ``moe/experts`` (the three expert GEMMs and the activation),
+    ``moe/combine``, and ``moe/shared`` where the layer has shared
+    experts."""
     m = cfg.moe
     act = activation(cfg.act)
     B, T, E = x.shape
@@ -205,13 +217,20 @@ def moe_apply(
         group = min(token_group, B * T)
         C = _group_capacity(group, cfg)
         xg = _groups(flat, group)
-        r = _route_groups(params["router"], xg, cfg, C)
-        y = _experts_groups(params, xg, r, cfg, C).reshape(-1, E)
+        with profiler_span("moe/route"):
+            r = _route_groups(params["router"], xg, cfg, C)
+        with profiler_span("moe/dispatch"):
+            xe = _dispatch(xg, r["slot_tok"])
+        with profiler_span("moe/experts"):
+            ye = _expert_ffn(params, xe, cfg)
+        with profiler_span("moe/combine"):
+            y = _combine(ye, r, C, None).reshape(-1, E)
         y = y[:B * T].view(B, T, E)
         lb, z, dropped = r["stats"].mean(0)
     if m.n_shared:
-        hs = act(flat @ params["shared_wg"]) * (flat @ params["shared_wi"])
-        y = y + (hs @ params["shared_wo"]).view(B, T, E)
+        with profiler_span("moe/shared"):
+            hs = act(flat @ params["shared_wg"]) * (flat @ params["shared_wi"])
+            y = y + (hs @ params["shared_wo"]).view(B, T, E)
     aux = {
         "moe_load_balance": lb,
         "moe_router_z": z,

@@ -19,6 +19,7 @@ place, then replayed at every position.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -153,7 +154,13 @@ class CapturedDecode:
 
     The warm-up steps before the capture write slot 0 of every attention
     cache and step every recurrent state, so capture before the prefill,
-    which overwrites what they wrote. A model on the CPU raises: there
+    which overwrites what they wrote. While a ``torch.profiler`` runs, the
+    construction's stretches are ``record_function`` spans:
+    ``serve/capture/warmup`` (the eager steps on a side stream),
+    ``serve/capture/begin`` (``torch.cuda.graph``'s entry: a synchronize,
+    the allocator's cache emptied), ``serve/capture/record`` (the step
+    under capture) and ``serve/capture/end`` (the capture's end and the
+    graph's instantiation). A model on the CPU raises: there
     decode runs eagerly (:func:`make_decode_step`). A failed capture
     raises; nothing falls back to eager decode.
     """
@@ -172,21 +179,28 @@ class CapturedDecode:
             logits = model.decode_step(self.tokens, self.pos, caches)
             return logits, logits.argmax(dim=-1).to(torch.int32)
 
-        with torch.no_grad():
+        with torch.no_grad(), contextlib.ExitStack() as capturing:
             # warm-up on a side stream (lazy initialization, cuBLAS
             # workspaces), as graph capture requires
-            side = torch.cuda.Stream(device)
-            side.wait_stream(torch.cuda.current_stream(device))
-            with torch.cuda.stream(side):
-                for _ in range(_WARMUP_STEPS):
-                    step()
-            torch.cuda.current_stream(device).wait_stream(side)
+            with profiler_span("serve/capture/warmup"):
+                side = torch.cuda.Stream(device)
+                side.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(side):
+                    for _ in range(_WARMUP_STEPS):
+                        step()
+                torch.cuda.current_stream(device).wait_stream(side)
             self.graph = torch.cuda.CUDAGraph()
-            # thread_local: threads that touch no CUDA state (a telemetry
-            # poller, its HTTP server) may run during the capture
-            with torch.cuda.graph(self.graph,
-                                  capture_error_mode="thread_local"):
+            # the capture's entry (a synchronize, the allocator's cache
+            # emptied) and its exit (the graph instantiated) each get a
+            # span; thread_local: threads that touch no CUDA state (a
+            # telemetry poller, its HTTP server) may run during the capture
+            with profiler_span("serve/capture/begin"):
+                capturing.enter_context(torch.cuda.graph(
+                    self.graph, capture_error_mode="thread_local"))
+            with profiler_span("serve/capture/record"):
                 self.logits, self.next_token = step()
+            with profiler_span("serve/capture/end"):
+                capturing.close()
 
     def __call__(self, tokens: torch.Tensor, pos
                  ) -> Tuple[torch.Tensor, torch.Tensor]:

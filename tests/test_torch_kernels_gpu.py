@@ -21,7 +21,8 @@ is held to torch.matmul on its own (``kernel.wgmma_probe``). Head dim 256
 train step of gemma3 (head dim 256), the MoE, the xLSTM and the jamba
 smoke presets in f32 matches the CPU. A captured decode step gives the
 eager step's tokens and logits on the smoke presets of the four served
-families. The selective scan's backward kernel matches the plain backward
+families, and a traced captured call names the capture's four stretches
+and changes no token or logit. The selective scan's backward kernel matches the plain backward
 (autograd through the plain scan) per gradient, to the bound of the
 gradient's dtype, and gives the same bits from launch to launch; the
 training forward saves the plain scan's state every 16 steps.
@@ -663,6 +664,51 @@ def test_captured_decode_gives_the_eager_tokens(arch):
     assert torch.equal(graph, eager)
     assert torch.equal(graph_stats["decode_logits"],
                        eager_stats["decode_logits"])
+
+
+@pytest.mark.gpu
+def test_a_traced_captured_call_names_the_capture_stretches():
+    """One captured ``generate`` call of the jamba smoke preset under the
+    profiler: ``serve/capture`` holds warm-up, begin, record and end in
+    order, one ``serve/prefill`` span, the MoE phases as spans, and the
+    untraced call's tokens and logits, bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.archs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+
+    cfg = get_config("jamba-v0.1-52b", "smoke")
+    model = Model(cfg, torch.device("cuda")).init_weights(0)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 12),
+                            generator=torch.Generator().manual_seed(1)).cuda()
+    plain, plain_stats = serve.generate(model, prompts, 4)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced, stats = serve.generate(model, prompts, 4)
+    # the host's spans (the card's copies of them are left out)
+    spans = sorted((e for e in prof.events()
+                    if e.device_type == DeviceType.CPU
+                    and e.name.startswith(("serve/", "moe/"))),
+                   key=lambda e: e.time_range.start)
+    names = [e.name for e in spans]
+    capture = [e for e in spans if e.name == "serve/capture"]
+    assert len(capture) == 1 and names.count("serve/prefill") == 1
+    parts = [e for e in spans if e.name.startswith("serve/capture/")]
+    assert [e.name for e in parts] == [
+        "serve/capture/warmup", "serve/capture/begin",
+        "serve/capture/record", "serve/capture/end"]
+    lo, hi = capture[0].time_range.start, capture[0].time_range.end
+    assert all(lo <= e.time_range.start and e.time_range.end <= hi
+               for e in parts)
+    assert {"moe/route", "moe/dispatch", "moe/experts",
+            "moe/combine"} <= set(names)
+    assert torch.equal(traced, plain)
+    for key in ("prefill_logits", "decode_logits"):
+        assert torch.equal(stats[key], plain_stats[key])
 
 
 # the selective scan's backward: each gradient against the plain backward

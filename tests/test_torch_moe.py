@@ -105,3 +105,26 @@ def test_specs_and_capacity_match_jax(arch):
     for group in (1, 4, 37, 128, 4096):
         assert moe._group_capacity(group, tcfg) == jax_moe._group_capacity(
             group, jcfg)
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "deepseek-moe-16b"])
+def test_moe_phases_are_profiler_spans_that_change_nothing(arch):
+    # route, dispatch, experts and combine (and shared, where the layer
+    # has shared experts) once each under a profiler; the same output
+    # and aux, bit for bit, with the profiler off
+    jcfg, tcfg = configs(arch)
+    params = {k: torch.from_numpy(v) for k, v in ffn_params(jcfg).items()}
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 40, jcfg.d_model)).astype(np.float32))
+    y, aux = moe.moe_apply(params, x, tcfg)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        traced, traced_aux = moe.moe_apply(params, x, tcfg)
+    names = [e.name for e in sorted(prof.events(),
+                                    key=lambda e: e.time_range.start)
+             if e.name.startswith("moe/")]
+    assert names == ["moe/route", "moe/dispatch", "moe/experts",
+                     "moe/combine"] + ["moe/shared"] * bool(tcfg.moe.n_shared)
+    assert torch.equal(traced, y)
+    for name in AUX:
+        assert torch.equal(traced_aux[name], aux[name]), name

@@ -369,3 +369,32 @@ def test_greedy_tokens_match_jax_on_every_served_arch(arch):
         got.numpy(), np.asarray(jnp.concatenate(want, axis=1)))
     assert float(np.abs(stats["prefill_logits"].numpy()
                         - want_logits).max()) < 1e-4
+
+
+def _spans(prof, prefix):
+    """Names of the profiler's spans that start with ``prefix``, in the
+    order they opened."""
+    return [e.name for e in sorted(prof.events(),
+                                   key=lambda e: e.time_range.start)
+            if e.name.startswith(prefix)]
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "jamba-v0.1-52b"])
+def test_generate_names_every_stretch_and_tracing_changes_nothing(arch):
+    # the regions of a call, in order, as collector events and as
+    # profiler spans; no capture on the CPU. A traced call gives the
+    # untraced call's tokens and logits, bit for bit
+    _, model = _served_smoke(arch)
+    toks = torch.from_numpy(prompts(2, 8, 256, seed=3)).long()
+    want = ["serve/alloc_cache", "serve/prefill", "serve/prefill_readback",
+            *["serve/decode_step"] * 3, "serve/finish"]
+    collector = reset_global_collector()
+    plain, plain_stats = serve.generate(model, toks, 3)
+    assert [e.name for e in collector.drain()] == want
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        traced, stats = serve.generate(model, toks, 3)
+    assert _spans(prof, "serve/") == want
+    assert torch.equal(traced, plain)
+    for key in ("prefill_logits", "decode_logits"):
+        assert torch.equal(stats[key], plain_stats[key])
