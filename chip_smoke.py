@@ -242,11 +242,22 @@ Phases, each of which fails the run (non-zero exit, no final line):
      seq 128: its sLSTM loop records step by step), and 33d holds phase
      31d's vlm train cell, dry-run at (1,1), to one real step as 33b does
      (the flash calls by shape, non-causal ones included);
+ 34. (after phase 4) the decode-attention kernel (bf16, ``mma.sync``,
+     the splits of a row combined in a cluster) at the benchmark's decode
+     cell (B 32, 1280 slots, position 1023) and latency cell (B 4, 4112
+     slots, position 4100) against the plain version, then timed with the
+     L2 cache flushed before each launch, beside the plain version and
+     SDPA with GQA over the filled slots; the bound reads the filled cache
+     once;
  14. print one JSON line with every ported kernel, then the result line.
 
 Serving (phases 5, 13, 15, 20, 22-24) decodes through one captured CUDA
 graph a step (``launch.serve.generate``), unless a phase asks for eager
-decode; decode ms a step is timed by CUDA events around each step.
+decode; decode ms a step is timed by CUDA events around each step. Its
+attention runs the decode-attention kernel: a captured call launches it
+three times an attention layer (two warm-up steps and the captured one;
+phases 5 and 13 check it), and phase 18's traces hold it as often as the
+wrapper counted.
 
 Exits non-zero without a result line when no CUDA card is present or the
 port is not beside this script.
@@ -530,8 +541,14 @@ def ptxas_report(log: str):
                           r"flash_bwd_dkv_wgmma|flash_bwd_dkv_f32|"
                           r"wgmma_probe)_kernel)"
                           r"ILi(\d+)E", entry)
+            d = re.search(r"(decode_attn_split(?:_f32)?_kernel)ILi(\d+)E"
+                          r"(?:Li(\d+)E)?", entry)
             if w:
                 entry = f"{w.group(1)}<{w.group(2)}>"
+            elif d:
+                # the bf16 kernel's second parameter is its ring's depth
+                entry = (f"{d.group(1)}<"
+                         f"{', '.join(filter(None, d.groups()[1:]))}>")
             elif u:
                 # a repeated type is a substitution (S<n>_): bf16, bf16
                 # the forward's instantiation for training saves states
@@ -601,11 +618,15 @@ def _counted():
 
 def reset_counts() -> None:
     """Set every kernel's launch count, and the flash kernels' counts by
-    variant, to 0, just before a path runs."""
+    variant, to 0, just before a path runs; decode attention's too, which
+    its own checks read (``read_counts`` leaves it out: every path's
+    prefill and training counts are compared whole)."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.flash_attention.ops import flash_attention
 
     for _, fn, attr in _counted():
         setattr(fn, attr, 0)
+    decode_attention.launches = 0
     for key in flash_attention.launches_by_variant:
         flash_attention.launches_by_variant[key] = 0
 
@@ -1045,7 +1066,13 @@ def jamba_phases():
     want = {"flash_attention_fwd": cfg.n_groups * sum(
         s.mixer == "attn" for s in cfg.pattern), "selective_scan":
         cfg.n_groups * sum(s.mixer == "mamba" for s in cfg.pattern)}
+    check(stats["decode_attention_launches"]
+          == 3 * want["flash_attention_fwd"],
+          f"jamba's decode launched decode attention "
+          f"{stats['decode_attention_launches']} times: 3 an attention "
+          "layer (two warm-up steps, the captured one) expected")
     numbers = {
+        "decode_attention_launches": stats["decode_attention_launches"],
         "layers": cfg.n_layers, "params": n_params, "batch": B, "prompt": P,
         "gen": G, "init_s": init_s, "prefill_ms": stats["prefill_ms"],
         "decode_ms_min": dec["min_ms"], "decode_ms_max": dec["max_ms"],
@@ -1281,7 +1308,8 @@ SYMBOLS = {"fwd/wgmma": "flash_fwd_wgmma_kernel",
            "dkv/wgmma": "flash_bwd_dkv_wgmma_kernel",
            "dkv/scalar": "flash_bwd_dkv_f32_kernel",
            "selective_scan": "selective_scan_kernel",
-           "selective_scan_bwd": "selective_scan_bwd_kernel"}
+           "selective_scan_bwd": "selective_scan_bwd_kernel",
+           "decode_attention": "decode_attn_split"}
 TRAIN_PHASES = ("train/forward", "train/backward", "train/update",
                 "model/layer")
 
@@ -1300,6 +1328,7 @@ def traced_call(label: str, fn, cfg, shape, phases=()) -> dict:
 
     from repro_torch.core import cost, device_timeline
     from repro_torch.core.roofline import HW, Roofline
+    from repro_torch.kernels.decode_attention.ops import decode_attention
     from repro_torch.kernels.mamba_scan.ops import selective_scan
     from repro_torch.launch.flops import model_flops
 
@@ -1322,6 +1351,8 @@ def traced_call(label: str, fn, cfg, shape, phases=()) -> dict:
         counted["selective_scan"] = selective_scan.launches
     if selective_scan.bwd_launches:
         counted["selective_scan_bwd"] = selective_scan.bwd_launches
+    if decode_attention.launches:
+        counted["decode_attention"] = decode_attention.launches
     seen = device_timeline.launches_by_symbol(trace, list(SYMBOLS.values()))
     want = {SYMBOLS[k]: counted.get(k, 0) for k in SYMBOLS}
     _, tally = cost.step_cost(fn)
@@ -1950,6 +1981,9 @@ def captured_vs_eager(tag: str, label: str, model, prompts, G: int,
           f"{label}: decode_captured does not match the request")
     return {"tokens_equal": same, "logits_max_diff": diff,
             "decode_step_ms": steps, "prefill_ms": prefill,
+            "decode_attention_launches": sum(
+                s["decode_attention_launches"] for r in runs.values()
+                for _, _, s in r),
             "tokens": want, **first}
 
 
@@ -3953,6 +3987,135 @@ def dryrun_phase(train_trace: dict) -> tuple:
             {"train_vlm_dryrun_check": vlm["launches_by_shape"]}, numbers)
 
 
+# phase 34: decode attention at the benchmark's decode cell (B 32 over 1280
+# slots, a 1024-token prompt 255 steps in) and latency cell (B 4 over 4112
+# slots, a 4096-token prompt 4 steps in), yi-6b's heads (K 4, G 8, D 128)
+DECODE_ATTENTION_SHAPES = {"decode_b32": (32, 1280, 1023),
+                           "prefill_mix": (4, 4112, 4100)}
+DECODE_SOURCE = "src/repro_torch/kernels/decode_attention/csrc/decode_attn.cu"
+# bf16 decode attention: max|err| / max|ref| against the plain version in
+# f32 from the same inputs; the output's own bf16 rounding is 2**-9 of it
+DECODE_BF16_REL = 1e-2
+L2_FLUSH_BYTES = 256 << 20   # written between timed launches: > 50 MB of L2
+
+
+def cold_cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """ms of one call of ``fn`` with the L2 cache flushed before it, as a
+    decode step finds its cache after the layer's weights streamed
+    through it, and without the host's cost of a launch, as in the
+    captured decode graph: one CUDA graph of ``iters`` (flush, call)
+    pairs against one of the flushes alone, each replayed three times
+    (the least time), by CUDA events; the difference over ``iters``."""
+    import math
+
+    import torch
+
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+
+    def replayed_ms(body) -> float:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                body()
+        best = math.inf
+        for _ in range(3):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            graph.replay()
+            b.record()
+            b.synchronize()
+            best = min(best, a.elapsed_time(b))
+        del graph
+        return best
+
+    with_fn = replayed_ms(lambda: (flush.zero_(), fn()))
+    return (with_fn - replayed_ms(flush.zero_)) / iters
+
+
+def decode_attention_phase(reports) -> dict:
+    """Phase 34: the decode-attention kernel (bf16) at the benchmark cells'
+    shapes against the plain version (f32 from the same inputs), then
+    timed in CUDA graphs with the L2 flushed before each launch
+    (:func:`cold_cuda_ms`), twice, beside the plain version and SDPA with
+    GQA on the same query over the filled slots (yardstick only); the
+    bound reads the filled cache once. q is 4 times a standard normal, so
+    that the scores spread (std 4) and a few slots carry the softmax.
+    Returns {shape: numbers}."""
+    import torch
+
+    from repro_torch.core.cost import decode_attention_work
+    from repro_torch.kernels.decode_attention import kernel
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    t0 = time.perf_counter()
+    K, G, D = 4, 8, 128
+    gen = torch.Generator(device="cuda").manual_seed(34)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for name, (B, S, pos) in DECODE_ATTENTION_SHAPES.items():
+        q = (4 * torch.randn((B, 1, K, G, D), generator=gen,
+                             device="cuda")).to(torch.bfloat16)
+        k, v = (torch.randn((B, S, K, D), generator=gen,
+                            device="cuda").to(torch.bfloat16)
+                for _ in range(2))
+        pos_k = torch.full((S,), -1, dtype=torch.int32, device="cuda")
+        pos_k[:pos + 1] = torch.arange(pos + 1, dtype=torch.int32)
+        pos_q = torch.full((), pos, dtype=torch.int32, device="cuda")
+        before = decode_attention.launches
+        got = decode_attention(q, k, v, pos_k, pos_q)
+        torch.cuda.synchronize()
+        want = decode_attention_ref(q.float(), k.float(), v.float(), pos_k,
+                                    pos_q)
+        err = float((got.float() - want).abs().max())
+        rel = err / float(want.abs().max())
+        check(decode_attention.launches == before + 1,
+              "decode attention did not count its launch")
+        check(rel < DECODE_BF16_REL,
+              f"decode attention at {name}'s shape: max|err| {err:.3e}, "
+              f"{rel:.3e} of max|ref|")
+
+        def run():
+            return kernel.decode_attn(q, k, v, pos_k, pos_q)
+
+        ms = cold_cuda_ms(run)
+        plain_ms = cold_cuda_ms(
+            lambda: decode_attention_ref(q, k, v, pos_k, pos_q), iters=10)
+        qt = q.reshape(B, K * G, 1, D)
+        kt, vt = (x[:, :pos + 1].transpose(1, 2).contiguous() for x in (k, v))
+        lib_ms = cold_cuda_ms(lambda: sdpa(qt, kt, vt, enable_gqa=True))
+        ms_again = cold_cuda_ms(run)
+        flops, nbytes = decode_attention_work(B, pos + 1, K * G, K, D, 2)
+        bound_ms, bound_by = least_ms(flops, nbytes, PEAK_BF16_FLOPS)
+        splits = kernel.n_splits(B, K, S, kernel.sm_count(q.device))
+        out[name] = {"B": B, "S": S, "pos": pos, "max_abs_err": err,
+                     "rel_err": rel, "ms": ms, "ms_again": ms_again,
+                     "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "library_backend": "SDPA, GQA", "bound_ms": bound_ms,
+                     "bound_by": bound_by, "bytes": nbytes, "splits": splits,
+                     "blocks": B * K * splits,
+                     "ptxas": reports.get("decode_attn_split_kernel<128, 3>"),
+                     "card": CARD}
+        print(f"[34] decode attention {name} (B={B} S={S} pos={pos}, K={K} "
+              f"G={G} D={D} bf16): max|err| {err:.3e}, {rel:.3e} of "
+              f"max|ref| (< {DECODE_BF16_REL:g}); kernel {ms:.4f} / "
+              f"{ms_again:.4f} ms (L2 flushed), plain {plain_ms:.4f} ms, "
+              f"sdpa {lib_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}: "
+              f"{nbytes / 1e6:.1f} MB), kernel at {bound_ms / ms:.2%} of "
+              f"bound; {splits} splits (a cluster), {B * K * splits} blocks; "
+              f"{CARD}", flush=True)
+        del q, k, v, qt, kt, vt, got, want
+    torch.cuda.empty_cache()
+    print(f"[34] took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def card_info():
     """(device name, device count, the card line of nvidia-smi, SM count,
     top SM clock in Hz)."""
@@ -4184,6 +4347,9 @@ def main() -> None:
           f"({bound_by}: {flops:.3e} FLOP, {nbytes / 1e6:.1f} MB), "
           f"kernel at {bound_ms / k_ms:.2%} of bound", flush=True)
 
+    # 34. decode attention at the benchmark cells' shapes
+    decode_attn = decode_attention_phase(reports)
+
     # 21. the forward at head dim 256, gemma3's prefill shape
     d256 = d256_phase(reports)
     # 25. the backward at head dim 256, gemma3's training shape
@@ -4259,6 +4425,11 @@ def main() -> None:
     check(tuple(tokens.shape) == (B, G + 1), f"tokens {tuple(tokens.shape)}")
     check(0 <= int(tokens.min()) and int(tokens.max()) < full.vocab_size,
           "generated token out of range")
+    decode_paths = {"serve": stats["decode_attention_launches"]}
+    check(decode_paths["serve"] == 3 * full.n_layers,
+          f"yi-6b's decode launched decode attention {decode_paths['serve']}"
+          f" times: {3 * full.n_layers} (two warm-up steps and the captured "
+          "one) expected")
 
     # 20. phase 5's requests again with live telemetry (before any
     # profiler has run in this process)
@@ -4314,6 +4485,7 @@ def main() -> None:
     yi_decode = captured_vs_eager(
         "23", f"yi-6b (32 layers, B={B} P={P} G={G})", model, prompts, G)
     yi_decode.pop("stats")
+    decode_paths["captured_vs_eager"] = yi_decode["decode_attention_launches"]
     check(torch.equal(yi_decode.pop("tokens"), tokens_5b.cpu()),
           "phase 23's yi-6b tokens differ from phase 5's")
     serve_trace["decode_captured"] = captured_trace(
@@ -4350,6 +4522,9 @@ def main() -> None:
     train_counts, train_stats, train_trace = train_phases()
     scan = scan_phases(sms, clock_hz)
     jamba_counts, jamba = jamba_phases()
+    decode_paths["serve_jamba"] = jamba["decode_attention_launches"]
+    decode_paths["captured_vs_eager_jamba"] = jamba["captured_vs_eager"][
+        "decode_attention_launches"]
     gemma_counts, gemma = gemma3_phase()
     xlstm_numbers = xlstm_phase()
     gemma_train_counts, gemma_train = gemma3_train_phase()
@@ -4667,6 +4842,17 @@ def main() -> None:
         "shape": "B=4 T=1024 dI=8192 N=16 x bf16 dt/B/C f32",
         "card": card,
     })
+    for shape_name, r in decode_attn.items():
+        kernels.append(dict(
+            r, name=f"decode_attention[{shape_name}]", route="cuda",
+            design="mma.sync, splits combined in a cluster",
+            source=DECODE_SOURCE,
+            replaces="none: plain jnp decode attention "
+                     "(src/repro/models/attention.py::decode_attention)",
+            launches=sum(decode_paths.values()),
+            launches_by_path=decode_paths,
+            shape=f"B={r['B']} S={r['S']} pos={r['pos']} K=4 G=8 D=128 "
+                  "bf16"))
     print(json.dumps({"kernels": kernels,
                       "train": {k: train_stats[k] for k in (
                           "layers", "params", "step_ms", "mean_step_ms",

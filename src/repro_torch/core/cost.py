@@ -13,10 +13,10 @@ as it runs:
     calls that no dispatch mode sees: each kernel wrapper adds its own,
     from its shapes, once per launch, and once per call of its plain
     version on the CPU, whose own ops are not counted (:func:`add_kernel`,
-    :func:`stand_in`, with the
-    formulas of :func:`attention_work`, :func:`backward_work`,
-    :func:`scan_work` and :func:`scan_bwd_work`, which ``chip_smoke.py``
-    also uses for its bounds);
+    :func:`stand_in`, with the formulas of :func:`attention_work`,
+    :func:`decode_attention_work`, :func:`backward_work`, :func:`scan_work`
+    and :func:`scan_bwd_work`, which ``chip_smoke.py`` also uses for its
+    bounds);
   * bytes as every op's operand bytes plus result bytes: an **upper
     estimate** of HBM traffic (an operand read from L2, or a fused
     read, counts in full). The card has no HBM counter without ``ncu``.
@@ -63,6 +63,16 @@ def attention_work(B: int, T: int, S: int, H: int, K: int, D: int,
     lse written once."""
     flops = 4 * D * B * H * unmasked_pairs(T, S, causal, window)
     nbytes = (2 * B * T * H * D + 2 * B * S * K * D) * itemsize + B * H * T * 4
+    return flops, nbytes
+
+
+def decode_attention_work(B: int, S: int, H: int, K: int, D: int,
+                          itemsize: int) -> Tuple[int, int]:
+    """(FLOPs, bytes) of one decode-attention call, one query position
+    against S slots: 4·D FLOPs per (slot, head); the S slots of k and v
+    and their int32 positions read once, q read and out written once."""
+    flops = 4 * D * B * H * S
+    nbytes = (2 * B * S * K * D + 2 * B * H * D) * itemsize + 4 * S
     return flops, nbytes
 
 

@@ -29,6 +29,7 @@ SOURCES = {
     "selective_scan": KERNELS / "mamba_scan" / "csrc" / "selective_scan.cu",
     "selective_scan_bwd": (KERNELS / "mamba_scan" / "csrc"
                            / "selective_scan_bwd.cu"),
+    "decode_attn": KERNELS / "decode_attention" / "csrc" / "decode_attn.cu",
 }
 BUILD_DIR = KERNELS.parents[2] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -41,6 +41,7 @@ from ..core.collector import global_collector, reset_global_collector
 from ..core.counters import global_registry
 from ..core.graphframe import GraphFrame
 from ..device import resolve_device
+from ..kernels.decode_attention.ops import decode_attention
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.mamba_scan.ops import selective_scan
 from ..models.model import Model
@@ -95,11 +96,17 @@ def generate(model: Model, prompts: torch.Tensor, gen: int,
     and ``decode_logits`` the last step's (f32, on the CPU);
     ``decode_step_ms`` is the {"min", "mean", "max"} of the steps' times
     (CUDA events around each step on the card, the host clock on the
-    CPU) and ``decode_captured`` whether decode ran as a graph.
+    CPU) and ``decode_captured`` whether decode ran as a graph;
+    ``decode_attention_launches`` counts the decode-attention kernel's
+    launches during the call: on the card an attention layer's two
+    warm-up steps and its captured step (a replay runs the graph's
+    kernels, not the wrapper), or each eager step's; 0 on the CPU, where
+    the plain version runs.
     """
     cfg, device = model.cfg, model.device
     B, P = prompts.shape
     on_card = device.type == "cuda"
+    decode_launches0 = decode_attention.launches
     with regions.annotate("serve/alloc_cache", category="api"):
         caches = model.alloc_cache(B, P + gen)
     prefill = make_prefill_step(cfg)
@@ -158,6 +165,8 @@ def generate(model: Model, prompts: torch.Tensor, gen: int,
                                     "mean": sum(step_ms) / gen,
                                     "max": max(step_ms)} if gen else None),
                 "decode_captured": captured and on_card,
+                "decode_attention_launches": (decode_attention.launches
+                                              - decode_launches0),
                 "prefill_kernel_launches": prefill_launches,
                 "prefill_launches_by_variant": prefill_variants,
                 "logits_finite": bool(finite),

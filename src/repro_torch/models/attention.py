@@ -4,9 +4,11 @@ Prefill and training attention go through the flash-attention kernels of
 :mod:`repro_torch.kernels.flash_attention.ops` (the CUDA kernels on the
 card, their plain versions on the CPU); training differentiates through
 them with :class:`~repro_torch.kernels.flash_attention.ops.FlashAttention`.
-Decode attends one query against the KV cache in plain torch, as the JAX
-package does in plain jnp, at a position that may stay on the device
-(a 0-d tensor), so that a captured decode step replays at any position.
+Decode attends one query against the KV cache through the decode-attention
+kernel of :mod:`repro_torch.kernels.decode_attention.ops` (on the CPU its
+plain version, the JAX package's plain jnp in torch), at a position that
+stays on the device (a 0-d tensor), so that a captured decode step replays
+at any position.
 Sliding-window layers keep a ring-buffer cache of at most ``window``
 slots. On a mesh (DTensor weights and caches, the reference's rules:
 the cache's slots split over ``"model"``) prefill writes each rank's
@@ -29,11 +31,11 @@ from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 from torch.distributed.tensor.experimental import local_map
 
 from ..configs.base import LayerSpec, ModelConfig
+from ..kernels.decode_attention.ops import decode_attention
+from ..kernels.decode_attention.ref import NEG_INF
 from ..kernels.flash_attention.ops import FlashAttention, flash_attention
 from ..sharding.rules import constrain, shard_block
 from .common import ParamSpec, apply_rope, rms_norm
-
-NEG_INF = -2.0e38
 
 
 def attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
@@ -48,47 +50,6 @@ def attn_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
         specs["q_norm"] = ParamSpec((D,), (None,), init="zeros")
         specs["k_norm"] = ParamSpec((D,), (None,), init="zeros")
     return specs
-
-
-def naive_attention(
-    q: torch.Tensor,                   # (B, T, K, G, D)
-    k: torch.Tensor,                   # (B, S, K, D)
-    v: torch.Tensor,                   # (B, S, K, D)
-    pos_q: torch.Tensor,               # (T,)
-    pos_k: torch.Tensor,               # (S,); -1 marks an empty cache slot
-    causal: bool = True,
-    window: Optional[int] = None,
-) -> torch.Tensor:
-    """Materialized-score attention over explicit positions; keys at a
-    negative position (empty cache slots) are masked, and with a
-    ``window`` so are keys ``window`` or more positions behind the
-    query."""
-    D = q.shape[-1]
-    scores = torch.einsum("btkgd,bskd->bkgts", q, k).float() / math.sqrt(D)
-    mask = pos_k[None, :] >= 0
-    if causal:
-        mask = mask & (pos_k[None, :] <= pos_q[:, None])
-    if window is not None:
-        mask = mask & (pos_k[None, :] > pos_q[:, None] - window)
-    scores = scores.masked_fill(~mask, NEG_INF)
-    p = torch.softmax(scores, dim=-1)
-    return torch.einsum("bkgts,bskd->btkgd", p.to(v.dtype), v)
-
-
-def decode_attention(
-    q: torch.Tensor,                   # (B, 1, K, G, D)
-    k_cache: torch.Tensor,             # (B, S, K, D)
-    v_cache: torch.Tensor,             # (B, S, K, D)
-    pos_k: torch.Tensor,               # (S,) positions held in each slot
-    pos_q: torch.Tensor,               # 0-d int32: the current position
-    window: Optional[int] = None,
-) -> torch.Tensor:
-    """One query position against the cache: slots holding positions in
-    ``[0, pos_q]`` are attended, and with a ``window`` only those above
-    ``pos_q - window``. ``pos_q`` stays on the device: nothing here reads
-    it back to the host, so a captured step replays at any position."""
-    return naive_attention(q, k_cache, v_cache, pos_q.reshape(1), pos_k,
-                           causal=True, window=window)
 
 
 def _whole_heads(x: torch.Tensor, n: int, dim: int = 2) -> torch.Tensor:

@@ -193,8 +193,8 @@ def test_build_compiles_each_source_once_into_its_own_library(
     monkeypatch.setattr(kbuild, "BUILD_DIR", build)
     monkeypatch.setattr(kbuild, "_nvcc", lambda: nvcc)
     libs = kbuild.build()
-    assert sorted(libs) == ["flash_bwd", "flash_fwd", "selective_scan",
-                            "selective_scan_bwd"]
+    assert sorted(libs) == ["decode_attn", "flash_bwd", "flash_fwd",
+                            "selective_scan", "selective_scan_bwd"]
     for name, lib in libs.items():
         assert lib.exists() and lib.name.startswith(f"lib{name}_")
         assert f"{name}.cu" in lib.with_suffix(".log").read_text()

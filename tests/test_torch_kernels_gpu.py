@@ -25,7 +25,13 @@ families, and a traced captured call names the capture's four stretches
 and changes no token or logit. The selective scan's backward kernel matches the plain backward
 (autograd through the plain scan) per gradient, to the bound of the
 gradient's dtype, and gives the same bits from launch to launch; the
-training forward saves the plain scan's state every 16 steps.
+training forward saves the plain scan's state every 16 steps. Decode
+attention's kernel matches the plain version (f32 from the same inputs) at
+the benchmark cells' shapes, every head dim and group size it takes, a
+wrapped window ring and an all-valid cross cache, reads a global layer's
+filled slots and none past them; a captured graph
+replays it at any position bit for bit; shapes and dtypes it does not
+take raise before a launch.
 """
 import dataclasses
 
@@ -945,3 +951,218 @@ def test_a_real_cuda_tensor_never_takes_the_scans_fake_branch():
     y.sum().backward()
     torch.cuda.synchronize()
     assert counts() == (before[0] + 1, before[1] + 1, before[2], before[3])
+
+
+# ---------------------------------------------------------------------------
+# decode attention: one query position against the KV cache
+# ---------------------------------------------------------------------------
+
+# decode attention in bf16: max|err| / max|ref| against the plain version
+# in f32 from the same inputs. The output's own bf16 rounding is 2**-9 of
+# it; P.V carries p to ~16 bits, the sums are f32.
+DECODE_BF16_REL = 1e-2
+
+
+def _decode_inputs(dtype, B, S, K, G, D, pos, seed=0):
+    """q (B, 1, K, G, D) and caches (B, S, K, D) of ``dtype``, a global
+    layer's positions for a query at ``pos`` (slots 0..pos filled; past
+    the cache, slot S - 1 holds pos, as a decode step's clamp writes it)
+    and the 0-d position on the card. q is 4 times a standard normal, so
+    that the scores spread (std 4) and a few slots carry the softmax."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    q = (4 * torch.randn((B, 1, K, G, D), generator=gen,
+                         device="cuda")).to(dt)
+    k, v = (torch.randn((B, S, K, D), generator=gen, device="cuda").to(dt)
+            for _ in range(2))
+    pos_k = torch.full((S,), -1, dtype=torch.int32, device="cuda")
+    pos_k[:min(pos, S - 1) + 1] = torch.arange(min(pos, S - 1) + 1,
+                                               dtype=torch.int32)
+    pos_k[S - 1] = pos if pos >= S - 1 else -1
+    return q, k, v, pos_k, torch.full((), pos, dtype=torch.int32,
+                                      device="cuda")
+
+
+def _decode_check(q, k, v, pos_k, pos_q, window=None):
+    """The kernel against the plain version (f32 from the same inputs):
+    f32 max|err| below the forward's bound, bf16 max|err| / max|ref|
+    below :data:`DECODE_BF16_REL`; one launch."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    before = decode_attention.launches
+    out = decode_attention(q, k, v, pos_k, pos_q, window)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    assert out.dtype == k.dtype and out.shape == q.shape
+    want = decode_attention_ref(q.float(), k.float(), v.float(), pos_k, pos_q,
+                                window)
+    err = float((out.float() - want).abs().max())
+    if k.dtype == torch.bfloat16:
+        assert err / float(want.abs().max()) < DECODE_BF16_REL, err
+    else:
+        assert err < TOL["float32"], err
+    return out
+
+
+# the cells' shapes (yi-6b: K 4, G 8, D 128): decode_b32 and prefill_mix's
+# longest; positions 0, mid, S - 2 and past the cache (slot S - 1 clamped)
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S", [(32, 1280), (4, 4112)])
+@pytest.mark.parametrize("where", ["first", "mid", "last", "clamped"])
+def test_decode_attention_matches_plain_version_at_the_cells_shapes(
+        dtype, B, S, where):
+    pos = {"first": 0, "mid": S // 2 + 3, "last": S - 2,
+           "clamped": S + 5}[where]
+    _decode_check(*_decode_inputs(dtype, B, S, 4, 8, 128, pos))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S", [(32, 1280), (4, 4112)])
+@pytest.mark.parametrize("where", ["first", "mid", "last"])
+def test_decode_attention_reads_every_filled_slot_and_no_more(dtype, B, S,
+                                                              where):
+    """A global layer: the last filled slot's key points along the sum of
+    its group's queries, so that it carries about as much of the softmax
+    as all the others, and a kernel that stops a slot or a tile short is
+    off by about |v|; NaN in every slot past it leaves the output as it
+    was, bit for bit."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+
+    pos = {"first": 0, "mid": S // 2 + 3, "last": S - 2}[where]
+    q, k, v, pos_k, pos_q = _decode_inputs(dtype, B, S, 4, 8, 128, pos)
+    u = q.float().sum(dim=3)[:, 0]                     # (B, K, D)
+    k[:, pos] = (128 ** 0.5 * u / u.norm(dim=-1, keepdim=True)).to(k.dtype)
+    clean = _decode_check(q, k, v, pos_k, pos_q)
+    k[:, pos + 1:], v[:, pos + 1:] = float("nan"), float("nan")
+    out = decode_attention(q, k, v, pos_k, pos_q)
+    torch.cuda.synchronize()
+    assert torch.equal(out, clean)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [16, 64, 128, 256])
+@pytest.mark.parametrize("G", [1, 2, 3, 4, 8])
+def test_decode_attention_every_head_dim_and_group(dtype, D, G):
+    _decode_check(*_decode_inputs(dtype, 3, 300, 2, G, D, 250, seed=D + G))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,window", [(64, 64), (80, 48)])
+def test_decode_attention_on_a_wrapped_ring(dtype, S, window):
+    """A windowed layer's ring after it wrapped: slot s holds the last
+    position p <= pos with p % S == s; the window masks what it passed."""
+    q, k, v, _, _ = _decode_inputs(dtype, 2, S, 2, 4, 128, 0)
+    pos = 150
+    pos_k = torch.tensor([max(p for p in range(pos + 1) if p % S == s)
+                          for s in range(S)], dtype=torch.int32,
+                         device="cuda")
+    _decode_check(q, k, v, pos_k, torch.full((), pos, dtype=torch.int32,
+                                             device="cuda"), window)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_reads_an_all_valid_cross_cache(dtype):
+    """The cross-attention's cache: every one of N slots valid, the query
+    at 2**30, as ``cross_from_cache`` passes them."""
+    q, k, v, _, _ = _decode_inputs(dtype, 2, 200, 1, 8, 128, 0)
+    pos_k = torch.arange(200, dtype=torch.int32, device="cuda")
+    _decode_check(q, k, v, pos_k, torch.full((), 2 ** 30, dtype=torch.int32,
+                                             device="cuda"))
+
+
+@pytest.mark.gpu
+def test_decode_attention_replays_in_a_graph_at_any_position():
+    """Captured once at position 0, replayed at several positions: equal
+    to eager calls bit for bit, and counted once (the capture) however
+    often the graph replays."""
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+
+    q, k, v, pos_k, pos_q = _decode_inputs("bfloat16", 4, 600, 4, 8, 128,
+                                           599)
+    pos_k.copy_(torch.arange(600, dtype=torch.int32))
+    static = torch.zeros((), dtype=torch.int32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_attention(q, k, v, pos_k, static)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = decode_attention.launches
+    with torch.cuda.graph(graph):
+        out = decode_attention(q, k, v, pos_k, static)
+    for pos in (0, 17, 300, 599):
+        static.fill_(pos)
+        graph.replay()
+        want = decode_attention(q, k, v, pos_k, torch.full(
+            (), pos, dtype=torch.int32, device="cuda"))
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), pos
+    assert decode_attention.launches == before + 1 + 4
+
+
+@pytest.mark.gpu
+def test_decode_attention_is_bit_identical_from_launch_to_launch():
+    args = _decode_inputs("bfloat16", 4, 4112, 4, 8, 128, 4100)
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+
+    first, second = decode_attention(*args), decode_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("what", ["head_dim", "group", "dtype", "stride",
+                                  "positions"])
+def test_decode_attention_refuses_what_it_does_not_take(what):
+    from repro_torch.kernels.decode_attention.ops import decode_attention
+
+    D = 32 if what == "head_dim" else 128
+    G = 9 if what == "group" else 8
+    dtype = "float16" if what == "dtype" else "bfloat16"
+    q, k, v, pos_k, pos_q = _decode_inputs(dtype, 2, 64, 2, G, D, 40)
+    if what == "stride":        # a cache whose slots are 136 * 2 B apart
+        k = torch.zeros((2, 64, 2, D + 8), dtype=k.dtype,
+                        device="cuda")[..., 4:D + 4]
+    if what == "positions":
+        pos_k = pos_k.long()
+    before = decode_attention.launches
+    with pytest.raises(ValueError):
+        decode_attention(q, k, v, pos_k, pos_q)
+    assert decode_attention.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["yi-6b", "gemma3-12b"])
+def test_generate_runs_decode_attention_in_the_graph(arch):
+    """A captured call launches the kernels three times an attention layer
+    (two warm-up steps and the captured step); eager decode once a layer
+    a step; and the tokens agree."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.configs.archs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+
+    cfg = get_config(arch, "smoke")
+    if arch == "gemma3-12b":       # a window that the prompt and decode pass
+        cfg = dataclasses.replace(cfg, pattern=tuple(
+            dataclasses.replace(s, window=8 if s.window else None)
+            for s in cfg.pattern))
+    n_attn = sum(s.mixer == "attn" for s in cfg.pattern) * cfg.n_groups
+    model = Model(cfg, torch.device("cuda")).init_weights(0)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 12),
+                            generator=torch.Generator().manual_seed(1)).cuda()
+    graph, stats = serve.generate(model, prompts, 6)
+    eager, eager_stats = serve.generate(model, prompts, 6, captured=False)
+    assert stats["decode_attention_launches"] == 3 * n_attn
+    assert eager_stats["decode_attention_launches"] == 6 * n_attn
+    assert torch.equal(graph, eager)
