@@ -16,6 +16,7 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+from .frozen import work
 from .frozen.device_timeline import _Trace
 from .frozen.peaks import PEAK_BYTES
 from .program_spans import CALL, _window_spans
@@ -28,7 +29,8 @@ ITEMSIZE = {"bfloat16": 2, "float16": 2, "float32": 4}
 
 def least_bytes(d: Dict, B: int, ctx: int) -> int:
     """Bytes one decode-attention call must move: the ``ctx`` filled
-    slots of the K and V caches read once, q read and out written once."""
+    slots of the K and V caches read once (a windowed layer's ring holds
+    at most its window: ``work.seen``), q read and out written once."""
     K, D, H = d["n_kv_heads"], d["head_dim"], d["n_heads"]
     return (2 * B * ctx * K * D + 2 * B * H * D) * ITEMSIZE[d["dtype"]]
 
@@ -58,6 +60,7 @@ def decode_attn_roofline(rec: Dict) -> Optional[float]:
         us += g.end - g.ts
     if any(n != n_attn * c["gen"] for n, c in zip(counts, calls)):
         return None
-    least = sum(n_attn * least_bytes(d, c["n"], c["P"] + j + 1)
-                for c in calls for j in range(c["gen"])) / PEAK_BYTES
+    least = sum(n_w * least_bytes(d, c["n"], work.seen(c["P"] + j + 1, w))
+                for c in calls for j in range(c["gen"])
+                for w, n_w in work.attn_windows(d).items()) / PEAK_BYTES
     return 100.0 * least / (us / 1e6)

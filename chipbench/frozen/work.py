@@ -5,14 +5,17 @@
 5ccc2ae. The model FLOPs follow the arithmetic of
 ``src/repro_torch/launch/flops.py`` (same commit): 2 FLOPs a matmul
 parameter a token forward (6 with the backward), causal attention at its
-unmasked (q, k) pairs, 10·d_inner·d_state a token a mamba layer; they
-count the lm_head at the positions whose logits the step computes (the
-last one in a prefill). ``dims`` is the dict of
-:func:`chipbench.cells.dims`.
+unmasked (q, k) pairs (a windowed layer's within its window), 10·d_inner·
+d_state a token a mamba layer; they count the lm_head at the positions
+whose logits the step computes (the last one in a prefill). A layer's
+matmul parameters are its mixer's, its FFN's (an MoE layer's router, its
+top-k experts and its shared experts) and the family's ``extra_params``.
+``dims`` is the dict of :func:`chipbench.cells.dims`.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from collections import Counter
+from typing import Callable, Dict, Optional, Tuple
 
 
 def unmasked_pairs(T: int, S: int, causal: bool, window: Optional[int]) -> int:
@@ -95,26 +98,45 @@ def _ffn_params(d: dict, ffn: str) -> int:
     E = d["d_model"]
     if ffn == "mlp":
         return 3 * E * d["d_ff"]
-    # the router and the top-k experts a token runs through
-    return E * d["n_experts"] + d["top_k"] * 3 * E * d["d_expert"]
+    # the router, the top-k experts a token runs through and the shared
+    # experts every token runs through
+    return (E * d["n_experts"] + d["top_k"] * 3 * E * d["d_expert"]
+            + 3 * E * d["d_shared"])
 
 
 def layer_params(d: dict) -> int:
     """Matmul parameters a token meets in the layers (active experts
     only): no embedding gather, no lm_head."""
     n = 0
-    for mixer, ffn in d["layers"]:
+    for (mixer, ffn), extra in zip(d["layers"], d["extra_params"],
+                                   strict=True):
         n += _attn_params(d) if mixer == "attn" else _mamba_params(d)
-        n += _ffn_params(d, ffn)
+        n += _ffn_params(d, ffn) + extra
     return n
 
 
-def _mix_flops(d: dict, pairs_per_row: int, tokens: int) -> float:
+def attn_windows(d: dict) -> Dict[Optional[int], int]:
+    """The attention layers by window (None: global): window -> layers,
+    in the order the windows first appear."""
+    return dict(Counter(w for (mixer, _), w in
+                        zip(d["layers"], d["windows"], strict=True)
+                        if mixer == "attn"))
+
+
+def seen(ctx: int, window: Optional[int]) -> int:
+    """Positions a new token at ``ctx`` (itself included) attends."""
+    return ctx if window is None else min(ctx, window)
+
+
+def _mix_flops(d: dict, pairs_of: Callable[[Optional[int]], int],
+               tokens: int) -> float:
     """Sequence mixing beyond the parameter matmuls: 4·H·D a (q, k) pair
-    an attention layer, 10·d_inner·d_state a token a mamba layer."""
-    n_attn = sum(m == "attn" for m, _ in d["layers"])
-    n_mamba = len(d["layers"]) - n_attn
-    f = 4.0 * d["n_heads"] * d["head_dim"] * pairs_per_row * n_attn
+    an attention layer (``pairs_of(window)`` a row), 10·d_inner·d_state a
+    token a mamba layer."""
+    n_mamba = sum(m == "mamba" for m, _ in d["layers"])
+    f = 0.0
+    for window, n_attn in attn_windows(d).items():
+        f += 4.0 * d["n_heads"] * d["head_dim"] * pairs_of(window) * n_attn
     if n_mamba:
         f += 10.0 * d["d_inner"] * d["d_state"] * tokens * n_mamba
     return f
@@ -123,38 +145,42 @@ def _mix_flops(d: dict, pairs_per_row: int, tokens: int) -> float:
 def prefill_flops(d: dict, B: int, P: int) -> float:
     """Model FLOPs of a prefill of B prompts of P tokens: logits at the
     last position only."""
-    pairs = unmasked_pairs(P, P, True, None)
-    return (2.0 * layer_params(d) * B * P + B * _mix_flops(d, pairs, P)
+    return (2.0 * layer_params(d) * B * P
+            + B * _mix_flops(d, lambda w: unmasked_pairs(P, P, True, w), P)
             + 2.0 * d["d_model"] * d["vocab_size"] * B)
 
 
 def decode_flops(d: dict, B: int, ctx: int) -> float:
     """Model FLOPs of one decode step of B sequences whose new token sees
-    ``ctx`` positions (itself included)."""
-    return (2.0 * layer_params(d) * B + B * _mix_flops(d, ctx, 1)
+    ``ctx`` positions (itself included; a windowed layer's at most its
+    window)."""
+    return (2.0 * layer_params(d) * B
+            + B * _mix_flops(d, lambda w: seen(ctx, w), 1)
             + 2.0 * d["d_model"] * d["vocab_size"] * B)
 
 
 def train_flops(d: dict, B: int, T: int) -> float:
     """Model FLOPs of one training step of B rows of T tokens: 3× the
     forward (forward and backward), no recompute counted."""
-    pairs = unmasked_pairs(T, T, True, None)
-    fwd = (2.0 * layer_params(d) * B * T + B * _mix_flops(d, pairs, T)
+    fwd = (2.0 * layer_params(d) * B * T
+           + B * _mix_flops(d, lambda w: unmasked_pairs(T, T, True, w), T)
            + 2.0 * d["d_model"] * d["vocab_size"] * B * T)
     return 3.0 * fwd
 
 
 def decode_bytes(d: dict, B: int, ctx: int, itemsize: int = 2) -> float:
     """Bytes one decode step must move: every weight matrix it uses read
-    once (an MoE layer's top_k experts, the fewest a token can use), the
-    lm_head, the filled KV cache read and the new keys and values
-    written, each mamba state read and written (f32) with its conv tail."""
+    once (an MoE layer's top_k experts, the fewest a token can use, and
+    its shared experts), the lm_head, the filled KV cache read (a
+    windowed layer's ring: at most its window) and the new keys and
+    values written, each mamba state read and written (f32) with its
+    conv tail."""
     E, K, D = d["d_model"], d["n_kv_heads"], d["head_dim"]
     weights = layer_params(d) + E * d["vocab_size"]
     n = weights * itemsize + B * E * itemsize
-    for mixer, _ffn in d["layers"]:
+    for (mixer, _ffn), window in zip(d["layers"], d["windows"], strict=True):
         if mixer == "attn":
-            n += 2 * B * ctx * K * D * itemsize
+            n += 2 * B * seen(ctx, window) * K * D * itemsize
         else:
             dI, N = d["d_inner"], d["d_state"]
             n += 2 * B * dI * N * 4 + 2 * B * (d["d_conv"] - 1) * dI * itemsize

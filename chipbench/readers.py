@@ -90,8 +90,8 @@ def serve_mfu(rec: Dict) -> Optional[float]:
 
 def flash_roofline_serve(rec: Dict) -> Optional[float]:
     """The flash forward's share of its roofline over the prefills: the
-    least time of every launch (FLOPs or bytes from its shape) over the
-    kernels' time in the trace, in %."""
+    least time of every launch (FLOPs or bytes from its shape and its
+    layer's window) over the kernels' time in the trace, in %."""
     calls = _calls(rec)
     d = rec.get("dims", {})
     ks = kernels(rec, "flash_fwd")
@@ -99,9 +99,10 @@ def flash_roofline_serve(rec: Dict) -> Optional[float]:
     if not ks or len(ks) != n_attn * len(calls):
         return None
     H, K, D = d["n_heads"], d["n_kv_heads"], d["head_dim"]
-    least = sum(n_attn * work.least_s(
-        *work.attention_work(c["n"], c["P"], c["P"], H, K, D, True, None, 2),
-        PEAK_BF16_FLOPS, PEAK_BYTES) for c in calls)
+    least = sum(sum(n_w * work.least_s(
+        *work.attention_work(c["n"], c["P"], c["P"], H, K, D, True, w, 2),
+        PEAK_BF16_FLOPS, PEAK_BYTES)
+        for w, n_w in work.attn_windows(d).items()) for c in calls)
     return 100.0 * least / (sum(k["us"] for k in ks) / 1e6)
 
 
@@ -171,7 +172,8 @@ def train_update_ms(rec: Dict) -> Optional[float]:
 
 def flash_roofline_train(rec: Dict) -> Optional[float]:
     """The flash kernels' share of their roofline over the traced steps:
-    the forward (and its recompute), dq and dk/dv, in %."""
+    the forward (and its recompute), dq and dk/dv, each layer at its
+    window, in %."""
     steps = _steps(rec)
     if not steps:
         return None
@@ -185,11 +187,18 @@ def flash_roofline_train(rec: Dict) -> Optional[float]:
         return None
     B, T = mix["batch"], mix["seq_len"]
     H, K, D = d["n_heads"], d["n_kv_heads"], d["head_dim"]
-    bwd = work.backward_work(B, T, T, H, K, D, True, None, 2)
-    least = (len(fwd) * work.least_s(
-        *work.attention_work(B, T, T, H, K, D, True, None, 2),
-        PEAK_BF16_FLOPS, PEAK_BYTES)
-        + n * work.least_s(*bwd["dq"], PEAK_BF16_FLOPS, PEAK_BYTES)
-        + n * work.least_s(*bwd["dkv"], PEAK_BF16_FLOPS, PEAK_BYTES))
+    n_attn = _n_layers(d, "attn")
+    least = 0.0
+    for w, n_w in work.attn_windows(d).items():
+        # each layer's share of the launches: its forward (and recompute)
+        # len(fwd) / n_attn times, dq and dk/dv once a step
+        bwd = work.backward_work(B, T, T, H, K, D, True, w, 2)
+        least += (len(fwd) * n_w // n_attn * work.least_s(
+            *work.attention_work(B, T, T, H, K, D, True, w, 2),
+            PEAK_BF16_FLOPS, PEAK_BYTES)
+            + n_w * len(steps) * work.least_s(*bwd["dq"], PEAK_BF16_FLOPS,
+                                              PEAK_BYTES)
+            + n_w * len(steps) * work.least_s(*bwd["dkv"], PEAK_BF16_FLOPS,
+                                              PEAK_BYTES))
     secs = sum(k["us"] for k in fwd + dq + dkv) / 1e6
     return 100.0 * least / secs

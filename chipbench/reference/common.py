@@ -1,4 +1,5 @@
-"""Plain PyTorch pieces of the references, in f32.
+"""Plain PyTorch pieces of the references, in f32, and the parameters
+they read.
 
 Nothing here imports the program. The arithmetic follows the published
 models as the configuration files state them, with the port's
@@ -7,6 +8,12 @@ conventions noted there under ``departures``: RMSNorm scales by
 in halves. TF32 is switched off by :func:`exact_matmuls`, so a float32
 product is a float32 product.
 
+What every family shares, as ``d`` (:func:`chipbench.cells.dims`) states
+it: an attention layer's window (``d["windows"]``), qk-norm
+(``d["qk_norm"]``, where the family reads it), the FFN's activation
+(``d["act"]``). The parameter tables (``*_specs``) give each parameter
+its shape, initializer and scale (:mod:`chipbench.weights`).
+
 ``quant="fp8"`` gives the control: every linear layer's input (per row)
 and weight (per output column) rounded to float8 e4m3 with a scale of
 its own, the product then taken in f32.
@@ -14,12 +21,21 @@ its own, the product then taken in f32.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 FP8_MAX = 448.0
+
+# a parameter's (shape, initializer, scale); initializers: normal (std =
+# scale), fan_in (std = scale / sqrt(shape[-2])), around (scale + normal
+# 0.1), log_range (log 1..N along the last axis)
+Spec = Tuple[Tuple[int, ...], str, float]
+
+# the activations by their name in ``d["act"]``
+ACTS = {"silu": F.silu,
+        "gelu_tanh": lambda x: F.gelu(x, approximate="tanh")}
 
 
 def exact_matmuls() -> None:
@@ -64,10 +80,12 @@ def rope(x: torch.Tensor, theta: float) -> torch.Tensor:
 
 
 def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     block: int = 512) -> torch.Tensor:
+                     block: int = 512, window: Optional[int] = None
+                     ) -> torch.Tensor:
     """Causal softmax attention, q (B, T, H, D) against k, v (B, T, K, D)
     (query head h reads key head h // (H / K)), in blocks of queries of
-    one row at a time. Returns (B, T, H, D)."""
+    one row at a time; with a ``window`` a query at t sees only keys
+    t - window + 1 .. t. Returns (B, T, H, D)."""
     B, T, H, D = q.shape
     K = k.shape[2]
     G = H // K
@@ -76,34 +94,46 @@ def causal_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rows = []
         for s in range(0, T, block):
             e = min(s + block, T)
+            lo = 0 if window is None else max(0, s - window + 1)
             qb = q[b, s:e].reshape(e - s, K, G, D)
-            sc = torch.einsum("tkgd,skd->kgts", qb, k[b, :e]) / math.sqrt(D)
-            mask = (torch.arange(e, device=q.device)[None, :]
-                    <= torch.arange(s, e, device=q.device)[:, None])
+            sc = torch.einsum("tkgd,skd->kgts", qb, k[b, lo:e]) / math.sqrt(D)
+            kpos = torch.arange(lo, e, device=q.device)[None, :]
+            qpos = torch.arange(s, e, device=q.device)[:, None]
+            mask = kpos <= qpos
+            if window is not None:
+                mask &= kpos > qpos - window
             p = torch.softmax(sc.masked_fill(~mask, float("-inf")), dim=-1)
-            rows.append(torch.einsum("kgts,skd->tkgd", p, v[b, :e])
+            rows.append(torch.einsum("kgts,skd->tkgd", p, v[b, lo:e])
                         .reshape(e - s, H, D))
         out.append(torch.cat(rows))
     return torch.stack(out)
 
 
 def attention_layer(d: dict, w, p: str, h: torch.Tensor,
-                    quant: Optional[str] = None) -> torch.Tensor:
+                    quant: Optional[str] = None,
+                    window: Optional[int] = None) -> torch.Tensor:
     """The self-attention sublayer of weights ``p + "mixer.*"`` on the
-    normed input h (B, T, E)."""
+    normed input h (B, T, E), over the last ``window`` positions where
+    one is given; qk-norm (each head's q and k RMS-normed before RoPE)
+    where ``d["qk_norm"]``."""
     B, T, _ = h.shape
     H, K, D = d["n_heads"], d["n_kv_heads"], d["head_dim"]
     q = linear(h, w(p + "mixer.wq"), quant).view(B, T, H, D)
     k = linear(h, w(p + "mixer.wk"), quant).view(B, T, K, D)
     v = linear(h, w(p + "mixer.wv"), quant).view(B, T, K, D)
+    if d.get("qk_norm"):
+        q = rms_norm(q, w(p + "mixer.q_norm"), d["norm_eps"])
+        k = rms_norm(k, w(p + "mixer.k_norm"), d["norm_eps"])
     q, k = rope(q, d["rope_theta"]), rope(k, d["rope_theta"])
-    o = causal_attention(q, k, v)
+    o = causal_attention(q, k, v, window=window)
     return linear(o.reshape(B, T, H * D), w(p + "mixer.wo"), quant)
 
 
 def mlp(h: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
-        wo: torch.Tensor, quant: Optional[str] = None) -> torch.Tensor:
-    return linear(F.silu(linear(h, wg, quant)) * linear(h, wi, quant), wo,
+        wo: torch.Tensor, quant: Optional[str] = None, act: str = "silu"
+        ) -> torch.Tensor:
+    """The gated FFN: act(h wg) * (h wi), then wo."""
+    return linear(ACTS[act](linear(h, wg, quant)) * linear(h, wi, quant), wo,
                   quant)
 
 
@@ -117,3 +147,51 @@ def logits(d: dict, w, x: torch.Tensor, quant: Optional[str] = None
     columns are left out."""
     h = rms_norm(x, w("final_norm"), d["norm_eps"])
     return linear(h, w("lm_head"), quant)[..., :d["vocab_size"]]
+
+
+# ---------------------------------------------------------------------------
+# parameter tables: name -> (shape, initializer, scale), in the order the
+# program's parameters are drawn and summed (chipbench.weights)
+# ---------------------------------------------------------------------------
+
+def top_specs(d: dict) -> Dict[str, Spec]:
+    """The embedding, the final norm and the lm_head."""
+    if d["tie_embeddings"]:
+        raise SystemExit(f"{d['name']}: tied embeddings: no reference reads "
+                         f"the lm_head from the embedding yet")
+    E, V = d["d_model"], d["padded_vocab"]
+    return {
+        "embed": ((V, E), "normal", 0.02),
+        "final_norm": ((E,), "normal", 0.1),
+        "lm_head": ((E, V), "normal", 0.02),
+    }
+
+
+def norm_specs(d: dict, p: str) -> Dict[str, Spec]:
+    """A layer's two pre-norms."""
+    E = d["d_model"]
+    return {p + "norm_mixer": ((E,), "normal", 0.1),
+            p + "norm_ffn": ((E,), "normal", 0.1)}
+
+
+def attention_specs(d: dict, p: str) -> Dict[str, Spec]:
+    """An attention mixer's projections (and qk-norm scales)."""
+    E, H, K, D = d["d_model"], d["n_heads"], d["n_kv_heads"], d["head_dim"]
+    out = {
+        p + "mixer.wq": ((E, H * D), "normal", 0.02),
+        p + "mixer.wk": ((E, K * D), "normal", 0.02),
+        p + "mixer.wv": ((E, K * D), "normal", 0.02),
+        p + "mixer.wo": ((H * D, E), "fan_in", 1.0),
+    }
+    if d.get("qk_norm"):
+        out[p + "mixer.q_norm"] = ((D,), "normal", 0.1)
+        out[p + "mixer.k_norm"] = ((D,), "normal", 0.1)
+    return out
+
+
+def mlp_specs(d: dict, prefix: str, width: int) -> Dict[str, Spec]:
+    """A gated FFN of ``width`` under ``prefix`` (``wg``, ``wi``, ``wo``)."""
+    E = d["d_model"]
+    return {prefix + "wg": ((E, width), "normal", 0.02),
+            prefix + "wi": ((E, width), "normal", 0.02),
+            prefix + "wo": ((width, E), "fan_in", 1.0)}

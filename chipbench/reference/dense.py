@@ -1,5 +1,6 @@
 """The dense decoder (yi-6b): pre-norm GQA attention with RoPE and a
-SwiGLU MLP, in plain f32 PyTorch.
+gated MLP, in plain f32 PyTorch; each layer global or windowed, with
+qk-norm where the configuration states ``"qk_norm": true``.
 
 :func:`serve_logits` runs B sequences whole, layer by layer (each
 layer's weights drawn once), and returns the logits at the positions
@@ -15,16 +16,44 @@ from typing import Dict, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .common import attention_layer, embed, logits, mlp, rms_norm
+from .common import (Spec, attention_layer, attention_specs, embed, logits,
+                     mlp, mlp_specs, norm_specs, rms_norm, top_specs)
+
+
+def read(c: Dict, d: Dict) -> None:
+    """The file keys only this family has, into ``d``: ``qk_norm``
+    (default false)."""
+    d["qk_norm"] = bool(c.get("qk_norm", False))
+
+
+def port_fields(d: Dict) -> Dict:
+    """The port's ``ModelConfig`` fields that those keys imply."""
+    return {"qk_norm": d["qk_norm"]}
+
+
+def specs(d: Dict) -> Dict[str, Spec]:
+    """Every parameter by name: attention and an MLP in every layer."""
+    out = top_specs(d)
+    for l, layer in enumerate(d["layers"]):
+        if layer != ("attn", "mlp"):
+            raise SystemExit(f"{d['name']}: layer {l} is {layer}; the dense "
+                             f"reference has attention and an MLP alone")
+        p = f"layers.{l}."
+        out.update(norm_specs(d, p))
+        out.update(attention_specs(d, p))
+        out.update(mlp_specs(d, p + "ffn.", d["d_ff"]))
+    return out
 
 
 def _layer(d: dict, w, l: int, x: torch.Tensor, quant: Optional[str]
            ) -> torch.Tensor:
     p = f"layers.{l}."
     x = x + attention_layer(d, w, p, rms_norm(x, w(p + "norm_mixer"),
-                                              d["norm_eps"]), quant)
+                                              d["norm_eps"]), quant,
+                            d["windows"][l])
     h = rms_norm(x, w(p + "norm_ffn"), d["norm_eps"])
-    return x + mlp(h, w(p + "ffn.wg"), w(p + "ffn.wi"), w(p + "ffn.wo"), quant)
+    return x + mlp(h, w(p + "ffn.wg"), w(p + "ffn.wi"), w(p + "ffn.wo"), quant,
+                   d["act"])
 
 
 def serve_logits(d: dict, w, tokens: torch.Tensor, first_out: int,

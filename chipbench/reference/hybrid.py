@@ -1,6 +1,8 @@
 """The hybrid decoder (jamba): attention and Mamba-1 mixers, MLP and
-top-k mixture-of-experts FFNs, in the pattern the configuration's
-period keys give, in plain f32 PyTorch.
+top-k mixture-of-experts FFNs, in the pattern the configuration gives
+(:func:`chipbench.cells.dims`), in plain f32 PyTorch. An MoE layer adds
+its shared experts (one gated FFN of ``d_shared``, always active) to the
+routed ones.
 
 The experts follow the configuration's stated capacity: tokens go in
 groups of ``token_group`` rows (a prefill's rows across its batch, in
@@ -14,13 +16,65 @@ softmax over the k chosen logits, ties broken toward the lower expert.
 from __future__ import annotations
 
 import math
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
 
-from .common import (attention_layer, embed, linear, logits, mlp,
-                     rms_norm)
+from .common import (Spec, attention_layer, attention_specs, embed, linear,
+                     logits, mlp, mlp_specs, norm_specs, rms_norm, top_specs)
+
+
+def read(c: Dict, d: Dict) -> None:
+    """The file keys only this family has, into ``d``: the Mamba-1
+    mixer's sizes, where the file states ``mamba_d_state``."""
+    if "mamba_d_state" in c:
+        d.update(d_inner=c["mamba_expand"] * d["d_model"],
+                 d_state=c["mamba_d_state"], d_conv=c["mamba_d_conv"],
+                 dt_rank=c.get("mamba_dt_rank", math.ceil(d["d_model"] / 16)))
+
+
+def port_fields(d: Dict) -> Dict:
+    """The port's ``ModelConfig`` fields that those keys imply: its
+    ``mamba`` (as :func:`chipbench.cells.port_view` states it)."""
+    if "d_state" not in d:
+        return {}
+    return {"mamba": {k: d[k] for k in ("d_inner", "d_state", "d_conv",
+                                        "dt_rank")}}
+
+
+def specs(d: Dict) -> Dict[str, Spec]:
+    """Every parameter by name, layer by layer as ``d["layers"]`` has
+    them."""
+    out = top_specs(d)
+    E = d["d_model"]
+    for l, (mixer, ffn) in enumerate(d["layers"]):
+        p = f"layers.{l}."
+        out.update(norm_specs(d, p))
+        if mixer == "attn":
+            out.update(attention_specs(d, p))
+        else:
+            dI, N, dC, R = d["d_inner"], d["d_state"], d["d_conv"], d["dt_rank"]
+            out[p + "mixer.in_proj"] = ((E, 2 * dI), "normal", 0.02)
+            out[p + "mixer.conv_w"] = ((dC, dI), "normal", 0.1)
+            out[p + "mixer.conv_b"] = ((dI,), "normal", 0.1)
+            out[p + "mixer.x_proj"] = ((dI, R + 2 * N), "normal", 0.02)
+            out[p + "mixer.dt_w"] = ((R, dI), "normal", 0.02)
+            out[p + "mixer.dt_b"] = ((dI,), "around", -4.6)
+            out[p + "mixer.A_log"] = ((dI, N), "log_range", 0.0)
+            out[p + "mixer.D"] = ((dI,), "around", 1.0)
+            out[p + "mixer.out_proj"] = ((dI, E), "fan_in", 1.0)
+        if ffn == "mlp":
+            out.update(mlp_specs(d, p + "ffn.", d["d_ff"]))
+        else:
+            Ne, F = d["padded_experts"], d["d_expert"]
+            out[p + "ffn.router"] = ((E, Ne), "normal", 0.02)
+            out[p + "ffn.wg"] = ((Ne, E, F), "normal", 0.02)
+            out[p + "ffn.wi"] = ((Ne, E, F), "normal", 0.02)
+            out[p + "ffn.wo"] = ((Ne, F, E), "fan_in", 1.0)
+            if d["n_shared"]:
+                out.update(mlp_specs(d, p + "ffn.shared_", d["d_shared"]))
+    return out
 
 
 def scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -130,8 +184,11 @@ def moe_layer(d: dict, w, p: str, h: torch.Tensor, prefill_len: int,
     for e in range(d["n_experts"]):
         rows = torch.nonzero(gate[:, e]).view(-1)
         if rows.numel():
-            out = mlp(x[rows], wg[e], wi[e], wo[e], quant)
+            out = mlp(x[rows], wg[e], wi[e], wo[e], quant, d["act"])
             y.index_add_(0, rows, gate[rows, e, None] * out)
+    if d["n_shared"]:
+        y = y + mlp(x, *(w(p + f"ffn.shared_{n}") for n in ("wg", "wi", "wo")),
+                    quant, d["act"])
     return y.view(B, T, E)
 
 
@@ -145,12 +202,12 @@ def serve_logits(d: dict, w, tokens: torch.Tensor, first_out: int,
     for l, (mixer, ffn) in enumerate(d["layers"]):
         p = f"layers.{l}."
         h = rms_norm(x, w(p + "norm_mixer"), d["norm_eps"])
-        x = x + (attention_layer(d, w, p, h, quant) if mixer == "attn"
-                 else mamba_layer(d, w, p, h, quant))
+        x = x + (attention_layer(d, w, p, h, quant, d["windows"][l])
+                 if mixer == "attn" else mamba_layer(d, w, p, h, quant))
         h = rms_norm(x, w(p + "norm_ffn"), d["norm_eps"])
         if ffn == "mlp":
             x = x + mlp(h, w(p + "ffn.wg"), w(p + "ffn.wi"), w(p + "ffn.wo"),
-                        quant)
+                        quant, d["act"])
         else:
             x = x + moe_layer(d, w, p, h, prefill_len, quant)
     return logits(d, w, x[:, first_out:], quant)

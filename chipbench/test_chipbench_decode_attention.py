@@ -52,7 +52,7 @@ def _trace(gen=3, n_attn=2, calls=1, extra=()):
 
 def _record(trace, gen=3, calls=1):
     cfg = cells.load_json(cells.HERE / "configs" / "yi-6b.json")
-    d = dict(cells.dims(cfg), n_layers=2, layers=[("attn", "mlp")] * 2)
+    d = cells.dims(dict(cfg, num_hidden_layers=2))
     call = {"n": 2, "P": 64, "gen": gen, "t0_ns": 0, "t1_ns": 2_000_000,
             "prefill_start_ns": 500_000, "prefill_ms": 1.0,
             "decode_ms_mean": 0.25, "requests": [0, 1]}
@@ -85,3 +85,15 @@ def test_a_program_without_the_kernels_or_a_trace_reads_nothing():
         if "decode_attn" not in e["name"]]
     assert decode_attn_roofline(rec) is None
     assert decode_attn_roofline(_record(None)) is None
+
+
+def test_a_windowed_layer_reads_its_ring():
+    rec = _record(_trace())
+    cfg = cells.load_json(cells.HERE / "configs" / "yi-6b.json")
+    d = rec["dims"] = cells.dims(dict(
+        cfg, num_hidden_layers=2, sliding_window=16,
+        layer_types=["sliding_attention", "full_attention"]))
+    # the windowed layer reads its 16 slots, the global one 65..67
+    least = sum(least_bytes(d, 2, 16) + least_bytes(d, 2, 64 + j + 1)
+                for j in range(3)) / PEAK_BYTES
+    assert decode_attn_roofline(rec) == pytest.approx(100 * least / 30e-6)

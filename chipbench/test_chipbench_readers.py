@@ -37,7 +37,7 @@ def _trace():
 
 def _record(trace):
     cfg = cells.load_json(cells.HERE / "configs" / "yi-6b.json")
-    d = dict(cells.dims(cfg), n_layers=2, layers=[("attn", "mlp")] * 2)
+    d = cells.dims(dict(cfg, num_hidden_layers=2))
     call = {"n": 2, "P": 64, "gen": 3, "t0_ns": 0, "t1_ns": 2_000_000,
             "prefill_start_ns": 500_000, "prefill_ms": 1.0,
             "decode_ms_mean": 0.25, "requests": [0, 1]}
@@ -84,3 +84,21 @@ def test_device_times_and_breakdown():
     assert b["device_ops"][0] == ["void flash_fwd_wgmma_kernel<128>()",
                                   pytest.approx(200e-6)]
     assert len(b["idle_gaps"]) <= 10 and b["idle_gaps"][0][1] > 0
+
+
+def test_a_windowed_layer_reads_its_window():
+    rec = _record(_trace())
+    cfg = cells.load_json(cells.HERE / "configs" / "yi-6b.json")
+    rec["dims"] = cells.dims(dict(
+        cfg, num_hidden_layers=2, sliding_window=16,
+        layer_types=["sliding_attention", "full_attention"]))
+    least = sum(work.least_s(*work.attention_work(2, 64, 64, 32, 4, 128,
+                                                  True, w, 2),
+                             PEAK_BF16_FLOPS, PEAK_BYTES) for w in (16, None))
+    assert readers.flash_roofline_serve(rec) == pytest.approx(
+        100 * least / 200e-6)
+    assert readers.prefill_mfu(rec) == pytest.approx(
+        100 * work.prefill_flops(rec["dims"], 2, 64)
+        / (1e-3 * PEAK_BF16_FLOPS))
+    assert work.prefill_flops(rec["dims"], 2, 64) < work.prefill_flops(
+        _record(None)["dims"], 2, 64)

@@ -12,11 +12,24 @@ from chipbench import cells, traffic, weights
 from chipbench.reference import adamw as ref_adamw
 from chipbench.reference import dense, hybrid
 
-CONFIGS = {"yi-6b": "yi-6b.json", "jamba": "jamba-v0.1-52b.l16.json"}
+CONFIGS = {"yi-6b": "configs/yi-6b.json",
+           "jamba": "configs/jamba-v0.1-52b.l16.json",
+           # test fixtures, never benchmark configurations: the port's own
+           # presets, which join through the family hooks and these files
+           "gemma3-12b": "fixtures/gemma3-12b.json",
+           "deepseek-moe-16b": "fixtures/deepseek-moe-16b.json"}
+# prompt lengths past 12: gemma3's prompts outrun its window (1024), so
+# that the windowed layers' masks and rings take part
+PROMPT_LEN = {"gemma3-12b": 1030}
+# deepseek's top-2 of 8 experts flips on a near tie in bf16 at this seed
+# (0.043 of the range; 0.003 on seeds 12 and 13, and jamba reads 0.051 on
+# seed 13): it runs in f32, where the port and the reference agree to
+# 3e-7, so the shared experts are held to the reference, not to a tie
+DTYPE = {"deepseek-moe-16b": "float32"}
 
 
 def _dims(name: str, **over) -> dict:
-    cfg = cells.load_json(cells.HERE / "configs" / CONFIGS[name])
+    cfg = cells.load_json(cells.HERE / CONFIGS[name])
     return dict(cells.dims(cfg, smoke=True), **over)
 
 
@@ -24,19 +37,24 @@ def _rel(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max() / b.abs().max())
 
 
-@pytest.mark.parametrize("name,ref", [("yi-6b", dense), ("jamba", hybrid)])
+@pytest.mark.parametrize("name,ref", [("yi-6b", dense), ("jamba", hybrid),
+                                      ("gemma3-12b", dense),
+                                      ("deepseek-moe-16b", hybrid)])
 def test_serving_logits_match_the_reference(name, ref):
     from repro_torch.launch.serve import generate
     from repro_torch.models.model import Model
 
     d = _dims(name)
     cfg = cells.port_config(d, smoke=True)
+    if name in DTYPE:
+        d = dict(d, dtype=DTYPE[name])
+        cfg = dataclasses.replace(cfg, dtype=DTYPE[name])
     model = Model(cfg, torch.device("cpu"))
     weights.fill(model, d, seed=11)
-    B, P, G = 2, 12, 4
+    B, P, G = 2, PROMPT_LEN.get(name, 12), 4
     prompts = traffic.prompts(11, 0, B, P, d["vocab_size"], torch.device("cpu"))
     out, stats = generate(model, prompts, G)
-    w = weights.Weights(d, 11, torch.device("cpu"), torch.bfloat16)
+    w = weights.Weights(d, 11, torch.device("cpu"), getattr(torch, d["dtype"]))
     seq = torch.cat([prompts, out[:, :-1].long()], dim=1)
     with torch.no_grad():
         lg = ref.serve_logits(d, w, seq, P - 1, P)

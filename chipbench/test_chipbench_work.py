@@ -3,7 +3,7 @@ from __future__ import annotations
 
 import pytest
 
-from chipbench import cells
+from chipbench import cells, weights
 from chipbench.frozen import work
 from chipbench.frozen.peaks import PEAK_BF16_FLOPS, PEAK_BYTES
 
@@ -45,8 +45,7 @@ def test_least_time_takes_the_larger_bound():
 
 def _yi(layers: int) -> dict:
     cfg = cells.load_json(cells.HERE / "configs" / "yi-6b.json")
-    return dict(cells.dims(cfg), n_layers=layers,
-                layers=[("attn", "mlp")] * layers)
+    return cells.dims(dict(cfg, num_hidden_layers=layers))
 
 
 def test_yi_parameters_by_hand():
@@ -86,3 +85,126 @@ def test_jamba_active_parameters_by_hand():
     want = 2 * attn + 14 * mamba + 8 * mlp + 8 * moe
     assert d["layers"][4] == ("attn", "mlp") and d["layers"][1] == ("mamba", "moe")
     assert work.layer_params(d) == want
+
+
+def _small(**keys) -> dict:
+    """A small configuration file of the keys every family reads."""
+    c = {"name": "small", "arch": "small", "reference": "hybrid",
+         "torch_dtype": "bfloat16", "hidden_size": 64,
+         "intermediate_size": 96, "num_attention_heads": 4,
+         "num_key_value_heads": 2, "num_hidden_layers": 1,
+         "vocab_size": 256, "rope_theta": 10000.0, "rms_norm_eps": 1e-6,
+         "assumed": {"moe_capacity_factor": 1.25, "moe_token_group": 4096}}
+    return cells.dims(dict(c, **keys))
+
+
+ATTN = 64 * 64 + 2 * 64 * 32 + 64 * 64      # wq, wk, wv (K·D 32), wo
+
+
+def test_a_windowed_layer_by_hand():
+    d = _small(layer_types=["sliding_attention"], sliding_window=2)
+    assert d["windows"] == [2] and d["layers"] == [("attn", "mlp")]
+    p = ATTN + 3 * 64 * 96
+    assert work.layer_params(d) == p
+    head = 2 * 64 * 256
+    # P 5, window 2: the rows see 1, 2, 2, 2, 2 keys
+    assert work.prefill_flops(d, 1, 5) == 2 * p * 5 + 4 * 4 * 16 * 9 + head
+    # a decode step at 5 positions reads its last 2 alone
+    assert work.decode_flops(d, 3, 5) == 3 * (2 * p + 4 * 4 * 16 * 2 + head)
+    assert work.train_flops(d, 1, 5) == 3 * (2 * p * 5 + 4 * 4 * 16 * 9
+                                             + head * 5)
+    ring = 2 * 3 * 2 * 2 * 16 * 2                # k and v, B 3, 2 slots
+    assert work.decode_bytes(d, 3, 5) == ((p + 64 * 256) * 2 + 3 * 64 * 2
+                                          + ring)
+    glob = _small()
+    assert work.decode_bytes(glob, 3, 5) - work.decode_bytes(d, 3, 5) == \
+        2 * 3 * 3 * 2 * 16 * 2                   # the 3 slots the ring drops
+
+
+def test_a_shared_expert_by_hand():
+    d = _small(num_experts=4, num_experts_per_tok=2, moe_intermediate_size=8,
+               num_shared_experts=2)
+    assert d["layers"] == [("attn", "moe")]
+    assert (d["n_shared"], d["d_shared"]) == (2, 16)
+    # the router, two experts of 8 and the shared experts' 16, always on
+    moe = 64 * 4 + 2 * 3 * 64 * 8 + 3 * 64 * 16
+    assert work.layer_params(d) == ATTN + moe
+    table = weights.specs(d)
+    assert table["layers.0.ffn.shared_wi"] == ((64, 16), "normal", 0.02)
+    assert table["layers.0.ffn.wg"] == ((16, 64, 8), "normal", 0.02)
+
+
+def test_leading_dense_layers_by_hand():
+    d = _small(num_hidden_layers=3, num_experts=4, num_experts_per_tok=2,
+               moe_intermediate_size=8, num_dense_layers=1)
+    assert d["layers"] == [("attn", "mlp"), ("attn", "moe"), ("attn", "moe")]
+    moe = 64 * 4 + 2 * 3 * 64 * 8
+    assert work.layer_params(d) == 3 * ATTN + 3 * 64 * 96 + 2 * moe
+    by_types = _small(num_hidden_layers=3, num_experts=4,
+                      num_experts_per_tok=2, moe_intermediate_size=8,
+                      mlp_layer_types=["dense", "sparse", "sparse"])
+    assert by_types["layers"] == d["layers"]
+
+
+def test_a_family_adds_its_own_matmul_parameters():
+    d = _small(num_hidden_layers=2)
+    plain = work.layer_params(d)
+    d["extra_params"] = [64 * 64, 0]             # an output gate on layer 0
+    assert work.layer_params(d) == plain + 64 * 64
+
+
+# Trinity-Mini's config.json as the catalog gives it
+# (https://huggingface.co/arcee-ai/Trinity-Mini/blob/main/config.json)
+TRINITY = {
+    "global_attn_every_n_layers": 4, "head_dim": 128, "hidden_act": "silu",
+    "hidden_size": 2048, "intermediate_size": 6144,
+    "layer_types": ["sliding_attention"] * 3 + ["full_attention"],
+    "load_balance_coeff": 0.001, "max_position_embeddings": 131072,
+    "model_type": "afmoe", "moe_intermediate_size": 1024,
+    "mup_enabled": True, "n_group": 1, "num_attention_heads": 32,
+    "num_dense_layers": 2, "num_expert_groups": 1, "num_experts": 128,
+    "num_experts_per_tok": 8, "num_hidden_layers": 32,
+    "num_key_value_heads": 4, "num_limited_groups": 1,
+    "num_shared_experts": 1, "rms_norm_eps": 1e-05, "rope_scaling": None,
+    "rope_theta": 10000, "route_norm": True, "route_scale": 2.826,
+    "score_func": "sigmoid", "sliding_window": 2048,
+    "tie_word_embeddings": False, "topk_group": 1, "use_grouped_mm": True,
+    "vocab_size": 200192,
+}
+
+
+def _trinity() -> dict:
+    c = dict(TRINITY, layer_types=TRINITY["layer_types"] * 8,
+             name="trinity-mini", arch="trinity-mini",
+             # a stand-in family: its sigmoid router is its own
+             reference="hybrid", torch_dtype="bfloat16",
+             assumed={"moe_capacity_factor": 1.25, "moe_token_group": 4096})
+    return cells.dims(c)
+
+
+def test_a_trinity_mini_shaped_configuration_by_hand():
+    d = _trinity()
+    assert d["n_layers"] == 32 and all(m == "attn" for m, _ in d["layers"])
+    assert d["windows"].count(None) == 8 and d["windows"].count(2048) == 24
+    assert d["windows"][:4] == [2048, 2048, 2048, None]
+    assert [f for _, f in d["layers"]] == ["mlp"] * 2 + ["moe"] * 30
+    assert (d["n_experts"], d["top_k"], d["n_shared"]) == (128, 8, 1)
+    assert (d["d_expert"], d["d_shared"], d["d_ff"]) == (1024, 1024, 6144)
+    E, V = 2048, 200192
+    attn = E * 32 * 128 + 2 * E * 4 * 128 + 32 * 128 * E
+    dense = 3 * E * 6144
+    moe = E * 128 + 8 * 3 * E * 1024 + 3 * E * 1024
+    p = 32 * attn + 2 * dense + 30 * moe
+    assert work.layer_params(d) == p
+    # B 1, P 4096: a full layer's rows see 1..4096 keys, a windowed one's
+    # 1..2048 and then 2048 each
+    full = 4096 * 4097 // 2
+    windowed = 2048 * 2049 // 2 + (4096 - 2048) * 2048
+    want = (2 * p * 4096 + 4 * 32 * 128 * (8 * full + 24 * windowed)
+            + 2 * E * V)
+    assert work.prefill_flops(d, 1, 4096) == want
+
+
+def test_port_config_names_the_architecture_the_port_lacks():
+    with pytest.raises(SystemExit, match="no architecture 'trinity-mini'"):
+        cells.port_config(_trinity())

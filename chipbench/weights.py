@@ -2,71 +2,32 @@
 
 Every parameter has a name (its path: ``embed``, ``layers.3.mixer.wq``,
 ...), a shape and an initializer, all given by :func:`specs` from the
-configuration's sizes. Its values come from a ``torch.Generator`` on the
-device seeded from (seed, name): normals drawn in f32 in one call, scaled,
-then stored in the type the program holds the tensor in. So the program's
-model is filled in place (:func:`fill`), and the references draw the very
-same tensor again, layer by layer, once the program is gone
-(:func:`make`).
+configuration's sizes, as the family's reference module tables them. Its
+values come from a ``torch.Generator`` on the device seeded from (seed,
+name): normals drawn in f32 in one call, scaled, then stored in the type
+the program holds the tensor in. So the program's model is filled in
+place (:func:`fill`), and the references draw the very same tensor
+again, layer by layer, once the program is gone (:func:`make`).
 """
 from __future__ import annotations
 
 import hashlib
 import math
-from typing import Dict, Tuple
+from typing import Dict
 
 import torch
 
-# (shape, initializer, scale); initializers: normal (std = scale),
-# fan_in (std = scale / sqrt(shape[-2])), around (scale + normal 0.1),
-# log_range (log 1..N along the last axis)
-Spec = Tuple[Tuple[int, ...], str, float]
+from . import cells
+from .reference.common import Spec
 
 # parameters the inference model keeps in f32 (the rest in its dtype)
 KEEP_F32 = ("router", "A_log", "D", "dt_w", "dt_b")
 
 
 def specs(d: dict) -> Dict[str, Spec]:
-    """Every parameter of the model of sizes ``d``, by name."""
-    E, V = d["d_model"], d["padded_vocab"]
-    H, K, Dh = d["n_heads"], d["n_kv_heads"], d["head_dim"]
-    out: Dict[str, Spec] = {
-        "embed": ((V, E), "normal", 0.02),
-        "final_norm": ((E,), "normal", 0.1),
-        "lm_head": ((E, V), "normal", 0.02),
-    }
-    for l, (mixer, ffn) in enumerate(d["layers"]):
-        p = f"layers.{l}."
-        out[p + "norm_mixer"] = ((E,), "normal", 0.1)
-        out[p + "norm_ffn"] = ((E,), "normal", 0.1)
-        if mixer == "attn":
-            out[p + "mixer.wq"] = ((E, H * Dh), "normal", 0.02)
-            out[p + "mixer.wk"] = ((E, K * Dh), "normal", 0.02)
-            out[p + "mixer.wv"] = ((E, K * Dh), "normal", 0.02)
-            out[p + "mixer.wo"] = ((H * Dh, E), "fan_in", 1.0)
-        else:
-            dI, N, dC, R = d["d_inner"], d["d_state"], d["d_conv"], d["dt_rank"]
-            out[p + "mixer.in_proj"] = ((E, 2 * dI), "normal", 0.02)
-            out[p + "mixer.conv_w"] = ((dC, dI), "normal", 0.1)
-            out[p + "mixer.conv_b"] = ((dI,), "normal", 0.1)
-            out[p + "mixer.x_proj"] = ((dI, R + 2 * N), "normal", 0.02)
-            out[p + "mixer.dt_w"] = ((R, dI), "normal", 0.02)
-            out[p + "mixer.dt_b"] = ((dI,), "around", -4.6)
-            out[p + "mixer.A_log"] = ((dI, N), "log_range", 0.0)
-            out[p + "mixer.D"] = ((dI,), "around", 1.0)
-            out[p + "mixer.out_proj"] = ((dI, E), "fan_in", 1.0)
-        if ffn == "mlp":
-            F = d["d_ff"]
-            out[p + "ffn.wg"] = ((E, F), "normal", 0.02)
-            out[p + "ffn.wi"] = ((E, F), "normal", 0.02)
-            out[p + "ffn.wo"] = ((F, E), "fan_in", 1.0)
-        else:
-            Ne, F = d["padded_experts"], d["d_expert"]
-            out[p + "ffn.router"] = ((E, Ne), "normal", 0.02)
-            out[p + "ffn.wg"] = ((Ne, E, F), "normal", 0.02)
-            out[p + "ffn.wi"] = ((Ne, E, F), "normal", 0.02)
-            out[p + "ffn.wo"] = ((Ne, F, E), "fan_in", 1.0)
-    return out
+    """Every parameter of the model of sizes ``d``, by name, as the
+    family's reference module (``d["reference"]``) tables them."""
+    return cells.family(d).specs(d)
 
 
 def stored_dtype(name: str, shape, compute: torch.dtype, trainable: bool
